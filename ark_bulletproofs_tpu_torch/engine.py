@@ -1,0 +1,89 @@
+"""Compute-engine dispatch of the port: host exact path vs torch device.
+
+Counterpart of ark_bulletproofs_tpu/engine.py. MSMs below
+`msm_device_threshold` terms run the host Pippenger (`curve.msm`, native
+C++); larger ones run the v2 MSM on `config.device`. On a CUDA device the
+kernels run or the call raises; asking for "cuda" where there is no card
+raises and never carries on on the CPU.
+
+The shared host layer (generators, prover, transcript replay) consults
+the JAX package's engine; `host_backend()` pins that engine to its host
+path for the duration of a block and restores it afterwards, so the port
+never reaches JAX and nothing leaks into other users of the shared engine
+in the same process.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from dataclasses import dataclass, field
+
+import torch
+
+
+def _default_device() -> str:
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+@dataclass
+class EngineConfig:
+    # torch device of the MSM path: "cuda", "cuda:N" or "cpu" (the CPU
+    # runs the kernels' plain PyTorch versions).
+    device: str = field(default_factory=_default_device)
+    # Minimum MSM size for the device path (the JAX engine's value).
+    msm_device_threshold: int = int(
+        os.environ.get("ABTPU_MSM_THRESHOLD", "512")
+    )
+
+
+config = EngineConfig()
+
+
+def torch_device() -> torch.device:
+    """The configured device; raises if it is CUDA and there is no card."""
+    dev = torch.device(config.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"engine device {config.device!r} requested but "
+            "torch.cuda.is_available() is False"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported engine device {config.device!r}")
+    return dev
+
+
+def use_device(n: int) -> bool:
+    return n >= config.msm_device_threshold
+
+
+@contextlib.contextmanager
+def host_backend():
+    """Run shared JAX-package code on its host path inside the block."""
+    from ark_bulletproofs_tpu import engine as shared
+
+    old = shared.config.backend
+    shared.config.backend = "host"
+    try:
+        yield
+    finally:
+        shared.config.backend = old
+
+
+def msm(curve, bases: list, scalars: list[int]):
+    """sum_i scalars[i] * bases[i], affine out."""
+    if use_device(len(bases)):
+        from .ops import msm as device_msm
+
+        return device_msm.msm(curve, bases, scalars)
+    return curve.msm(bases, scalars)
+
+
+def msm_many(curve, bases: list, scalar_sets: list[list[int]]):
+    """B MSMs over shared bases (one batched device run above the
+    threshold)."""
+    if scalar_sets and use_device(len(bases)):
+        from .ops import msm as device_msm
+
+        return device_msm.msm_many(curve, bases, scalar_sets)
+    return [curve.msm(bases, ks) for ks in scalar_sets]

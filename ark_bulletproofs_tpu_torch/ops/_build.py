@@ -1,0 +1,124 @@
+"""Build and load the CUDA kernels (csrc/*.cu) at first use.
+
+nvcc compiles the sources for sm_90a into a shared library with a plain C
+interface under ark_bulletproofs_tpu_torch/_build/ (git-ignored), named by
+a hash of the sources, so an edited source is rebuilt and an unchanged one
+is loaded as it is. ctypes binds it: every pointer and the stream are
+c_void_p, sizes are c_int64, and every entry returns cudaGetLastError(),
+which `check` turns into an exception. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+_SIGNATURES = {
+    "abtpu_suffix_madd_scan": [_P, _P, _I64, _I64, _P, _P],
+    "abtpu_suffix_jac_scan": [_P, _P, _P, _I64, _I64, _P, _P],
+    "abtpu_rowsum": [_P, _P, _I64, _I64, _P, _P],
+    "abtpu_rcb_double_k_add": [_P, _P, _P, _I64, _I32, _P, _P],
+}
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for s in _sources():
+        h.update(os.path.basename(s).encode())
+        with open(s, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"abtpu_msm_{h.hexdigest()[:16]}.so")
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library; builds it first if needed."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out = library_path()
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.tmp.{os.getpid()}"
+            cus = [s for s in _sources() if s.endswith(".cu")]
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
+                capture_output=True, text=True,
+            )
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{r.stdout}\n{r.stderr}")
+            os.replace(tmp, out)
+            build_seconds = time.perf_counter() - t0
+        dll = ctypes.CDLL(out)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(dll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = dll
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+_WORDS: dict = {}
+
+
+def curve_words(spec) -> np.ndarray:
+    """The 36 uint32 words of csrc/field.cuh::CurveConst for a CurveSpec
+    (kept alive in a cache: ctypes passes a pointer to them)."""
+    w = _WORDS.get(spec)
+    if w is None:
+        fs = spec.fq
+
+        def words(x: int) -> list[int]:
+            return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+
+        def val(limbs16) -> int:
+            return sum(v << (16 * i) for i, v in enumerate(limbs16))
+
+        w = np.array(
+            words(fs.p) + [fs.n0_32] + words(fs.R)
+            + words(val(spec.a_mont_limbs)) + words(val(spec.b3_mont_limbs))
+            + [spec.a_small or 0, spec.b3_small or 0, int(spec.is_a_zero)],
+            dtype=np.uint32,
+        )
+        _WORDS[spec] = w
+    return w

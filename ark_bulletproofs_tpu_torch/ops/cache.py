@@ -1,0 +1,62 @@
+"""Device-resident generator tables (counterpart of ops/cache.py).
+
+Generator tables are deterministic and reused across proofs, so their
+points are converted to Montgomery limbs and moved to the device once
+per (table, curve, size, device), keyed weakly on the table object.
+`from_numpy` takes tables in the JAX package's numpy layout
+(ark_bulletproofs_tpu/ops/curve.py::affine_to_device: (m, 16) uint32
+Montgomery limbs and an (m,) identity mask) to the port's layout.
+"""
+
+from __future__ import annotations
+
+import weakref
+
+import numpy as np
+import torch
+
+from .. import engine
+from .curve import affine_to_device
+from .limbs import limbs_from_numpy
+
+_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def from_numpy(X: np.ndarray, Y: np.ndarray, inf: np.ndarray, device):
+    """(m, 16) uint32 X, Y and (m,) bool inf -> the port's (16, m) int32
+    X, Y and (m,) bool inf on `device`."""
+    return (
+        limbs_from_numpy(X, device),
+        limbs_from_numpy(Y, device),
+        torch.from_numpy(np.asarray(inf, dtype=bool)).to(device),
+    )
+
+
+def _cached(owner, key, make):
+    per = _CACHE.setdefault(owner, {})
+    hit = per.get(key)
+    if hit is None:
+        hit = make()
+        per[key] = hit
+    return hit
+
+
+def bp_table(bp_gens, curve, n: int, device):
+    """(X, Y, inf) for share 0's [G(n) | H(n)] (2n points)."""
+
+    def make():
+        with engine.host_backend():
+            gens = bp_gens.share(0)
+            pts = gens.G(n) + gens.H(n)
+        return affine_to_device(curve, pts, device)
+
+    return _cached(bp_gens, (curve.name, n, str(device)), make)
+
+
+def pc_pair(pc_gens, curve, device):
+    """(X, Y, inf) for [B, B_blinding]."""
+    return _cached(
+        pc_gens, (curve.name, "pc", str(device)),
+        lambda: affine_to_device(curve, [pc_gens.B, pc_gens.B_blinding],
+                                 device),
+    )

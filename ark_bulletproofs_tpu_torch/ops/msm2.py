@@ -1,0 +1,197 @@
+"""v2 Pippenger MSM on four kernels (counterpart of ops/msm2.py).
+
+Same contract and stages as ark_bulletproofs_tpu/ops/msm2.py::msm2_impl,
+for n a power of two >= V2_MIN_N and B >= 1 scalar sets over shared
+bases:
+
+  A. digits of all W windows at once;
+  B. one sort per window row on int64 keys digit << lg n | index (c + lg n
+     reaches 32 bits at n = 2^20, c = 12, so 32-bit keys would overflow):
+     the sorted digits and the permutation from a single torch.sort;
+  C. the sorted points gathered into the (R, 16, L) layout, L = B W C
+     lanes, and suffix-summed per column by `suffix_madd_scan` (W n mixed
+     adds, the Pippenger work floor);
+  D. column carries, two levels: `suffix_jac_scan` over the c2 columns of
+     each chunk, then over the c1 = 16 chunk totals, joined by one add;
+  E. the window sum sum_j j B_j telescopes to sum_{j >= 1} T[pos_j], T the
+     global suffix sum and pos_j = searchsorted(digits, j): a gather and
+     one add per bucket;
+  F. `rowsum` collapses the S = 2^c bucket terms in two passes;
+  G. Horner over windows, acc = 2^c acc + part_w, one `rcb_double_k_add`
+     launch per window.
+
+The glue between the kernels is plain torch. What the JAX version did
+only for the TPU is re-decided: the x | y << 16 packed gather rows, the
+16-ary searchsorted pyramid, the one-hot-matmul bucket select and the
+C <= 64 carry layout are gone (C >= 256 here, so only the two-level carry
+and the gather paths exist), and the small Hillis-Steele chunk-carry
+suffix is a second `suffix_jac_scan`. PyTorch runs eagerly, so there is
+no fused-vs-staged split.
+
+Points are RCB projective (3, 16, lanes) int32 throughout; the result is
+(3, 16, B).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels as kk
+from . import kernels2 as k2
+from . import proj
+from .limbs import N_LIMBS
+
+NL = N_LIMBS
+SCALAR_BITS = 256
+C_COLS = 1024  # column count cap: L = B * W * C lanes for the scan
+C1 = 16  # chunks of the two-level column-carry suffix
+V2_MIN_N = 256
+
+
+def _log2(x: int) -> int:
+    return x.bit_length() - 1
+
+
+def window_bits(n: int) -> int:
+    """Window size c (same choice as the JAX package, so both run the
+    same W and S at a given n)."""
+    lg = _log2(n)
+    if n >= (1 << 18):
+        c = 12
+    elif n >= (1 << 13):
+        c = 10
+    elif n >= (1 << 10):
+        c = 8
+    else:
+        c = max(4, lg - 4)
+    return min(c, 32 - lg)
+
+
+class _Cfg:
+    """Shape plan for one (n, c, B) instantiation."""
+
+    __slots__ = ("n", "c", "B", "lg", "W", "BW", "C", "c1", "c2", "R",
+                 "L", "S")
+
+    def __init__(self, n: int, c: int, B: int):
+        lg = _log2(n)
+        if n != 1 << lg or n < V2_MIN_N:
+            raise ValueError(f"msm2: n={n} must be a power of two "
+                             f">= {V2_MIN_N}")
+        if not 1 <= c <= 16:
+            raise ValueError(f"msm2: window c={c} must be in [1, 16]")
+        self.n, self.c, self.B, self.lg = n, c, B, lg
+        self.W = -(-SCALAR_BITS // c)
+        self.BW = B * self.W
+        self.C = min(C_COLS, n)
+        self.c1, self.c2 = C1, self.C // C1
+        self.R = n // self.C
+        self.L = self.BW * self.C
+        self.S = 1 << c
+
+
+def _digits_all(scal: torch.Tensor, c: int, W: int) -> torch.Tensor:
+    """(B, 16, n) canonical scalar limbs -> (B * W, n) int64 digits, row
+    b * W + w. Windows may straddle two 16-bit limbs."""
+    B, _, n = scal.shape
+    s = torch.nn.functional.pad(scal.long(), (0, 0, 0, 1))  # 17th limb
+    lo = torch.arange(W, device=scal.device) * c
+    l0, off = lo >> 4, (lo & 15)[:, None]
+    v = (s[:, l0] >> off) | (s[:, l0 + 1] << (16 - off))  # (B, W, n)
+    return (v & ((1 << c) - 1)).reshape(B * W, n)
+
+
+def _stage_sort(g: _Cfg, scal: torch.Tensor):
+    """Digits + one int64 key sort -> (order, sorted digits), (BW, n)."""
+    digits = _digits_all(scal, g.c, g.W)
+    iota = torch.arange(g.n, device=scal.device)
+    keys = torch.sort((digits << g.lg) | iota, dim=1).values
+    return keys & (g.n - 1), keys >> g.lg
+
+
+def _stage_gather(g: _Cfg, X, Y, inf, order) -> torch.Tensor:
+    """Sorted affine points -> (2, R, 16, L), identity rows with y = 0.
+    Sorted flat index i = col * R + r; lane = row * C + col."""
+    Yz = torch.where(inf, 0, Y)
+    table = torch.stack([X, Yz]).permute(2, 0, 1).contiguous()  # (n, 2, 16)
+    ord_r = order.reshape(g.BW, g.C, g.R).permute(2, 0, 1).reshape(g.R, g.L)
+    return table[ord_r].permute(2, 0, 3, 1).contiguous()
+
+
+def _stage_carries(g: _Cfg, spec, locs: torch.Tensor) -> torch.Tensor:
+    """Exclusive column-carry suffix -> (3, 16, BW * C), lane b * C + col,
+    col = i1 * c2 + i2."""
+    c1, c2, BW = g.c1, g.c2, g.BW
+    tot = locs[:, 0].reshape(3, NL, BW, c1, c2)
+    lvl_a = tot.permute(0, 4, 1, 2, 3).reshape(3, c2, NL, BW * c1)
+    excl, ct = k2.suffix_jac_scan(spec, lvl_a.contiguous())
+    lvl_b = ct.reshape(3, NL, BW, c1).permute(0, 3, 1, 2).contiguous()
+    ce, _ = k2.suffix_jac_scan(spec, lvl_b)  # (3, c1, 16, BW)
+    e2 = (excl.reshape(3, c2, NL, BW, c1).permute(0, 2, 3, 4, 1)
+          .reshape(3, NL, g.L))
+    ceb = (ce.permute(0, 2, 3, 1).unsqueeze(-1).expand(3, NL, BW, c1, c2)
+           .reshape(3, NL, g.L))
+    return kk.rcb_add(spec, e2.contiguous(), ceb.contiguous())
+
+
+def _bucket_pos(sd: torch.Tensor, S: int) -> torch.Tensor:
+    """pos[b, j] = #{i : sd[b, i] < j} for j in [0, S) over sorted rows."""
+    BW = sd.shape[0]
+    js = torch.arange(S, device=sd.device).expand(BW, S).contiguous()
+    return torch.searchsorted(sd, js)
+
+
+def _stage_buckets(g: _Cfg, spec, sd, excl_col, locs) -> torch.Tensor:
+    """Bucket terms T[pos_j] for j in [0, S) -> (3, 16, BW * S), lane
+    b * S + j; slot 0 and empty slots are the identity."""
+    S, n, R, C, BW = g.S, g.n, g.R, g.C, g.BW
+    dev = sd.device
+    pos = _bucket_pos(sd, S)
+    js = torch.arange(S, device=dev)
+    valid = ((js >= 1) & (pos < n)).reshape(-1)
+    posc = pos.clamp(max=n - 1)
+    colj, rj = posc // R, posc % R
+    lanej = torch.arange(BW, device=dev)[:, None] * C + colj
+    T1 = locs.permute(0, 2, 1, 3)[:, :, rj, lanej].reshape(3, NL, BW * S)
+    EC = excl_col.reshape(3, NL, BW * C)[:, :, lanej].reshape(3, NL, BW * S)
+    ident = proj.point_zero(spec, BW * S, dev).to(torch.int32)
+    T1 = proj.select(valid, T1, ident).contiguous()
+    EC = proj.select(valid, EC, ident).contiguous()
+    return kk.rcb_add(spec, T1, EC)
+
+
+def _stage_rowsum(g: _Cfg, spec, U: torch.Tensor) -> torch.Tensor:
+    """Two-pass collapse of the S bucket terms -> (3, 16, BW)."""
+    S, BW = g.S, g.BW
+    K1 = (16 if S <= 1024 else 64) if S >= 16 else S
+    M1 = S // K1
+    p1 = U.reshape(3, NL, BW, K1, M1).permute(0, 3, 1, 2, 4)
+    part1 = k2.rowsum(spec, p1.reshape(3, K1, NL, BW * M1).contiguous())
+    p2 = part1.reshape(3, NL, BW, M1).permute(0, 3, 1, 2).contiguous()
+    return k2.rowsum(spec, p2)
+
+
+def _stage_horner(g: _Cfg, spec, wsum: torch.Tensor) -> torch.Tensor:
+    """acc = 2^c acc + part_w over descending windows -> (3, 16, B)."""
+    h = wsum.reshape(3, NL, g.B, g.W)
+    acc = h[..., g.W - 1].contiguous()
+    for w in range(g.W - 2, -1, -1):
+        acc = kk.rcb_double_k_add(spec, acc, h[..., w].contiguous(), g.c)
+    return acc
+
+
+def msm2_impl(spec, c: int, X, Y, inf, scal) -> torch.Tensor:
+    """v2 Pippenger. X, Y: (16, n) affine Montgomery limbs; inf: (n,)
+    bool; scal: (B, 16, n) canonical scalar limbs; all int32 but inf, on
+    one device. Returns the B sums as a (3, 16, B) projective tensor."""
+    g = _Cfg(X.shape[-1], c, scal.shape[0])
+    order, sd = _stage_sort(g, scal)
+    xy = _stage_gather(g, X, Y, inf, order)
+    del order
+    locs = k2.suffix_madd_scan(spec, xy)
+    del xy
+    excl_col = _stage_carries(g, spec, locs)
+    U = _stage_buckets(g, spec, sd, excl_col, locs)
+    del locs, excl_col
+    wsum = _stage_rowsum(g, spec, U)
+    return _stage_horner(g, spec, wsum)

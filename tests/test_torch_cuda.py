@@ -1,0 +1,138 @@
+"""The port's CUDA kernels on a card (marker `cuda`; skipped without one).
+
+Tolerances: each kernel bit-equal to its plain PyTorch version on the
+same CUDA tensors (projective coordinates), at small widths with a
+partial last block of threads and with identity, doubling and P + (-P)
+lanes, on secq256k1 (a = 0) and zorro (a = 6); whole MSMs equal in affine
+to the host Pippenger; verify gives the host's accept/reject.
+
+These tests import no jax, so they run where the JAX package's test
+configuration cannot load:
+
+    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
+"""
+
+import random
+
+import pytest
+import torch
+
+from ark_bulletproofs_tpu import BulletproofGens, PedersenGens, Transcript
+from ark_bulletproofs_tpu import curves
+from ark_bulletproofs_tpu.errors import R1CSError
+from ark_bulletproofs_tpu.rand import seeded_rng
+from ark_bulletproofs_tpu_torch import ShuffleProof, engine, msm, msm_many
+from ark_bulletproofs_tpu_torch.ops import field as df
+from ark_bulletproofs_tpu_torch.ops import kernels as kk
+from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+from ark_bulletproofs_tpu_torch.ops.curve import affine_to_device, spec_for
+
+pytestmark = pytest.mark.cuda
+
+CURVES = [curves.secq256k1, curves.zorro]
+L = 1000  # lanes: 8 blocks of 128 threads, the last one partial
+
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _neg_y(spec, P):
+    out = P.clone()
+    out[1] = df.neg(spec.fq, P[1]).to(torch.int32)
+    return out
+
+
+def _affine_rows(curve, spec, R, dev, seed):
+    """(2, R, 16, L) affine rows from 32 random points and their
+    negatives: lanes [0, L/8) double (row r = row r + 1), lanes [L/8, L/4)
+    cancel (row r = -(row r + 1)), about a third of lanes [L/4, 3L/8) are
+    identity rows (y = 0)."""
+    rng = seeded_rng(seed)
+    X, Y, _ = affine_to_device(curve, [curve.rand(rng) for _ in range(32)],
+                               dev)
+    pool = torch.stack([X, Y])
+    pool = torch.cat([pool, _neg_y(spec, pool)], dim=2)  # (2, 16, 64)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, 64, (R, L), generator=g, device=dev)
+    if R > 1:
+        idx[0::2, :L // 8] = idx[1::2, :L // 8]
+        idx[0::2, L // 8:L // 4] = (idx[1::2, L // 8:L // 4] + 32) % 64
+    xy = pool[:, :, idx].permute(0, 2, 1, 3).contiguous()
+    ident = torch.rand((R, L), generator=g, device=dev) < 0.3
+    ident[:, :L // 4] = False
+    ident[:, 3 * L // 8:] = False
+    xy[1].masked_fill_(ident.unsqueeze(1), 0)
+    return xy
+
+
+@pytest.mark.parametrize("R", [1, 8])
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_kernels_match_plain_versions(curve, R, cuda_dev):
+    spec = spec_for(curve)
+    counts = (k2.suffix_madd_scan.launches, k2.suffix_jac_scan.launches,
+              k2.rowsum.launches, kk.rcb_double_k_add.launches)
+    xy = _affine_rows(curve, spec, R, cuda_dev, seed=R)
+    T = k2.suffix_madd_scan(spec, xy)
+    assert T.shape == (3, R, 16, L) and T.is_cuda
+    assert torch.equal(T, k2.suffix_madd_scan_plain(spec, xy))
+    if R > 1:
+        T[:, 0::2, :, :L // 8] = T[:, 1::2, :, :L // 8]
+        T[:, 0::2, :, L // 8:L // 4] = _neg_y(spec, T[:, 1::2, :,
+                                                     L // 8:L // 4])
+    excl, tot = k2.suffix_jac_scan(spec, T)
+    pexcl, ptot = k2.suffix_jac_scan_plain(spec, T)
+    assert torch.equal(excl, pexcl) and torch.equal(tot, ptot)
+    assert torch.equal(k2.rowsum(spec, T), k2.rowsum_plain(spec, T))
+    P = T[:, 0].contiguous()
+    Q = T[:, R - 1].contiguous()
+    Q[..., :L // 8] = P[..., :L // 8]
+    Q[..., L // 8:L // 4] = _neg_y(spec, P[..., L // 8:L // 4])
+    for k in (0, 1, 12):
+        assert torch.equal(kk.rcb_double_k_add(spec, P, Q, k),
+                           kk.rcb_double_k_add_plain(spec, P, Q, k)), k
+    after = (k2.suffix_madd_scan.launches, k2.suffix_jac_scan.launches,
+             k2.rowsum.launches, kk.rcb_double_k_add.launches)
+    assert [b - a for a, b in zip(counts, after)] == [1, 1, 1, 3]
+
+
+def _msm_case(curve, n, seed, sets):
+    rng = seeded_rng(seed)
+    pool = [curve.rand(rng) for _ in range(12)]
+    pool += [curve.neg(P) for P in pool]
+    prng = random.Random(seed)
+    bases = [pool[prng.randrange(24)] for _ in range(n)]
+    bases[1] = None
+    ks = [[prng.randrange(curve.fr.p) for _ in range(n)] for _ in range(sets)]
+    return bases, ks
+
+
+@pytest.mark.parametrize("curve,n,sets", [(curves.secq256k1, 1061, 1),
+                                          (curves.zorro, 4096, 2)],
+                         ids=["secq256k1-1061", "zorro-4096x2"])
+def test_msm_matches_host(curve, n, sets, cuda_dev):
+    bases, ks = _msm_case(curve, n, n, sets)
+    got = msm_many(curve, bases, ks, device=cuda_dev)
+    assert got == [curve.msm(bases, k) for k in ks]
+    assert msm(curve, bases, ks[0], device=cuda_dev) == got[0]
+
+
+def test_shuffle_verify_on_card(cuda_dev, monkeypatch):
+    monkeypatch.setattr(engine.config, "device", "cuda")
+    curve, k, label = curves.secq256k1, 256, b"card shuffle"
+    with engine.host_backend():
+        pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 2 * k, 1)
+    prng = random.Random(k)
+    vals = [prng.getrandbits(64) for _ in range(k)]
+    perm = vals[:]
+    prng.shuffle(perm)
+    sp, ic, oc = ShuffleProof.prove(seeded_rng(k), pc, bp, Transcript(label),
+                                    vals, perm)
+    before = k2.suffix_madd_scan.launches
+    ShuffleProof(sp.proof).verify(pc, bp, Transcript(label), ic, oc)
+    assert k2.suffix_madd_scan.launches > before  # the mega-MSM ran here
+    with pytest.raises(R1CSError):
+        ShuffleProof(sp.proof).verify(pc, bp, Transcript(label), oc, ic)
