@@ -2,35 +2,28 @@
 
 Counterpart of ark_bulletproofs_tpu/engine.py. MSMs below
 `msm_device_threshold` terms run the host Pippenger (`curve.msm`, native
-C++); larger ones run the v2 MSM on `config.device`. On a CUDA device the
-kernels run or the call raises; asking for "cuda" where there is no card
-raises and never carries on on the CPU.
+C++); larger ones, and the prover's vector phase and inner-product
+argument above their own sizes (r1cs/prover.py, ipp.py), run on
+`config.device`.
 
-The shared host layer (generators, prover, transcript replay) consults
-the JAX package's engine; `host_backend()` pins that engine to its host
-path for the duration of a block and restores it afterwards, so the port
-never reaches JAX and nothing leaks into other users of the shared engine
-in the same process.
+The device is "cuda" unless the caller asks for "cpu": a CUDA request
+where there is no card raises and never carries on on the CPU. On the CPU
+every kernel wrapper runs its plain PyTorch version (the tests do this).
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import torch
 
 
-def _default_device() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 @dataclass
 class EngineConfig:
-    # torch device of the MSM path: "cuda", "cuda:N" or "cpu" (the CPU
+    # torch device of the device path: "cuda", "cuda:N" or "cpu" (the CPU
     # runs the kernels' plain PyTorch versions).
-    device: str = field(default_factory=_default_device)
+    device: str = "cuda"
     # Minimum MSM size for the device path (the JAX engine's value).
     msm_device_threshold: int = int(
         os.environ.get("ABTPU_MSM_THRESHOLD", "512")
@@ -55,19 +48,6 @@ def torch_device() -> torch.device:
 
 def use_device(n: int) -> bool:
     return n >= config.msm_device_threshold
-
-
-@contextlib.contextmanager
-def host_backend():
-    """Run shared JAX-package code on its host path inside the block."""
-    from ark_bulletproofs_tpu import engine as shared
-
-    old = shared.config.backend
-    shared.config.backend = "host"
-    try:
-        yield
-    finally:
-        shared.config.backend = old
 
 
 def msm(curve, bases: list, scalars: list[int]):

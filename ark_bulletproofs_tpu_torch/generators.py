@@ -1,0 +1,206 @@
+"""Pedersen commitment bases and Bulletproofs generator tables.
+
+Behavioral equivalent of reference src/generators.rs:
+- `PedersenGens.default(curve)`: B = curve generator; B_blinding =
+  G::rand(ChaCha(SHA3-512(serialize_uncompressed(B))[..32]))
+  (reference src/generators.rs:47-66).
+- `GeneratorsChain(label)`: ChaCha seeded with
+  SHA3-512(b"GeneratorsChain" || label)[..32]; each item is G::rand
+  (reference src/generators.rs:78-101).
+- `BulletproofGens`: per-party G/H tables with labels [b'G', u32-LE party]
+  and [b'H', ...], resumable `increase_capacity`, aggregated party-major
+  iterators, per-party `share` views (reference src/generators.rs:149-304).
+
+Generator tables are deterministic, precomputable artifacts; `save`/`load`
+persist them (the checkpoint/resume analog, SURVEY.md §5). The device MSM
+path caches limb-decomposed copies of these tables on the card (ops/cache.py).
+
+The port's copy of the JAX package's generators.py, host branches only.
+"""
+
+from __future__ import annotations
+
+from .hashes.chacha import ChaChaRng
+from .hashes.keccak import sha3_512
+
+
+class PedersenGens:
+    """A pair of commitment bases (B, B_blinding)."""
+
+    def __init__(self, curve, B=None, B_blinding=None):
+        self.curve = curve
+        if B is None or B_blinding is None:
+            B = curve.gen
+            seed = sha3_512(curve.serialize_uncompressed(B))[:32]
+            B_blinding = curve.rand(ChaChaRng(seed))
+        self.B = B
+        self.B_blinding = B_blinding
+
+    @classmethod
+    def default(cls, curve) -> "PedersenGens":
+        return cls(curve)
+
+    def commit(self, value: int, blinding: int):
+        """value*B + blinding*B_blinding (reference src/generators.rs:39-44)."""
+        c = self.curve
+        return c.add(c.mul_bigint(self.B, value % c.fr.p),
+                     c.mul_bigint(self.B_blinding, blinding % c.fr.p))
+
+    def commit_many(self, values: list[int], blinds: list[int]) -> list:
+        """[commit(v_i, r_i)] as one batch.
+
+        The protocol layer commits every witness value up front (the
+        reference loops prover.commit, src/r1cs/prover.rs:327-341); the
+        pure-Python double-and-add costs ~8 ms/commitment, so at shuffle
+        k=1024 scale the 2048 commitments dominate proof creation. The
+        native fixed-base window path (csrc/abtpu_msm_cpu.cpp) computes
+        the batch in ~20 us/commitment; Jacobian results are normalized
+        with ONE modular inversion (Montgomery's trick). Bit-identical
+        to the sequential path (tests/test_torch_host.py)."""
+        c = self.curve
+        if not values:
+            return []
+        from . import native
+
+        if len(values) >= 2 and native.set_curve_native(c):
+            jacs = native.commit_many_native(
+                self.B, self.B_blinding, values, blinds, c.fr.p
+            )
+            if jacs is not None:
+                p = c.fq.p
+                # batched inversion of the Z coordinates
+                zs = [J[2] for J in jacs]
+                prefix = [1] * (len(zs) + 1)
+                for i, z in enumerate(zs):
+                    prefix[i + 1] = prefix[i] * z % p if z else prefix[i]
+                inv_all = pow(prefix[-1], -1, p)
+                out = [None] * len(zs)
+                for i in range(len(zs) - 1, -1, -1):
+                    X, Y, Z = jacs[i]
+                    if Z == 0:
+                        out[i] = None
+                        continue
+                    zi = inv_all * prefix[i] % p
+                    inv_all = inv_all * Z % p
+                    zi2 = zi * zi % p
+                    out[i] = (X * zi2 % p, Y * zi2 % p * zi % p)
+                return out
+        # No native backend for this curve (TE model / wide fields): the
+        # sequential host path. The JAX package batches such curves on its
+        # device (ops/prove.py::pedersen_commit_many_dev); that waits for
+        # the port's twisted-Edwards slice.
+        return [self.commit(v, r) for v, r in zip(values, blinds)]
+
+
+class GeneratorsChain:
+    """Deterministic unbounded generator stream for one label
+    (reference src/generators.rs:78-121).
+
+    Host sampling only. The JAX package moves requests of 4096 and more
+    generators to a batched device farm (its ops/gens.py), bit-identical to
+    this sequential path; the port has no such farm yet.
+    """
+
+    def __init__(self, curve, label: bytes):
+        self.curve = curve
+        seed = sha3_512(b"GeneratorsChain" + label)[:32]
+        self._rng = ChaChaRng(seed)
+
+    def fast_forward(self, n: int) -> "GeneratorsChain":
+        for _ in range(n):
+            self.curve.rand(self._rng)
+        return self
+
+    def take(self, n: int) -> list:
+        return [self.curve.rand(self._rng) for _ in range(n)]
+
+
+def _party_label(prefix: bytes, party: int) -> bytes:
+    return prefix + party.to_bytes(4, "little")
+
+
+class BulletproofGens:
+    """Per-party generator tables for vector commitments."""
+
+    def __init__(self, curve, gens_capacity: int, party_capacity: int = 1):
+        self.curve = curve
+        self.gens_capacity = 0
+        self.party_capacity = party_capacity
+        self.G_vec: list[list] = [[] for _ in range(party_capacity)]
+        self.H_vec: list[list] = [[] for _ in range(party_capacity)]
+        self.increase_capacity(gens_capacity)
+
+    def increase_capacity(self, new_capacity: int) -> None:
+        """Extend all chains without recomputing existing entries
+        (resumable via fast_forward, reference src/generators.rs:196-221)."""
+        if self.gens_capacity >= new_capacity:
+            return
+        extra = new_capacity - self.gens_capacity
+        for i in range(self.party_capacity):
+            chain = GeneratorsChain(self.curve, _party_label(b"G", i))
+            chain.fast_forward(self.gens_capacity)
+            self.G_vec[i].extend(chain.take(extra))
+            chain = GeneratorsChain(self.curve, _party_label(b"H", i))
+            chain.fast_forward(self.gens_capacity)
+            self.H_vec[i].extend(chain.take(extra))
+        self.gens_capacity = new_capacity
+
+    def share(self, j: int) -> "BulletproofGensShare":
+        return BulletproofGensShare(self, j)
+
+    def G(self, n: int, m: int) -> list:
+        """Aggregated party-major iteration: party 0's first n, then party 1's
+        first n, ... (reference src/generators.rs:224-276)."""
+        return [g for j in range(m) for g in self.G_vec[j][:n]]
+
+    def H(self, n: int, m: int) -> list:
+        return [h for j in range(m) for h in self.H_vec[j][:n]]
+
+    # --- persistence (generator tables are cacheable artifacts) ---------
+
+    def save(self, path: str) -> None:
+        import json
+
+        data = {
+            "curve": self.curve.name,
+            "gens_capacity": self.gens_capacity,
+            "party_capacity": self.party_capacity,
+            "G": [[self.curve.serialize_compressed(g).hex() for g in row]
+                  for row in self.G_vec],
+            "H": [[self.curve.serialize_compressed(h).hex() for h in row]
+                  for row in self.H_vec],
+        }
+        with open(path, "w") as f:
+            json.dump(data, f)
+
+    @classmethod
+    def load(cls, path: str, curve) -> "BulletproofGens":
+        import json
+
+        with open(path) as f:
+            data = json.load(f)
+        if data["curve"] != curve.name:
+            raise ValueError("generator table curve mismatch")
+        self = cls.__new__(cls)
+        self.curve = curve
+        self.gens_capacity = data["gens_capacity"]
+        self.party_capacity = data["party_capacity"]
+        self.G_vec = [[curve.deserialize_compressed(bytes.fromhex(s), validate=False)
+                       for s in row] for row in data["G"]]
+        self.H_vec = [[curve.deserialize_compressed(bytes.fromhex(s), validate=False)
+                       for s in row] for row in data["H"]]
+        return self
+
+
+class BulletproofGensShare:
+    """One party's view of the generator table."""
+
+    def __init__(self, gens: BulletproofGens, share: int):
+        self.gens = gens
+        self.share = share
+
+    def G(self, n: int) -> list:
+        return self.gens.G_vec[self.share][:n]
+
+    def H(self, n: int) -> list:
+        return self.gens.H_vec[self.share][:n]

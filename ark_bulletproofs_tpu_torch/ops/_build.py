@@ -1,9 +1,11 @@
 """Build and load the CUDA kernels (csrc/*.cu) at first use.
 
-nvcc compiles the sources for sm_90a into a shared library with a plain C
-interface under ark_bulletproofs_tpu_torch/_build/ (git-ignored), named by
-a hash of the sources, so an edited source is rebuilt and an unchanged one
-is loaded as it is. ctypes binds it: every pointer and the stream are
+nvcc compiles each source for sm_90a into an object, all sources at once
+in parallel processes, and links them into one shared library with a plain
+C interface under ark_bulletproofs_tpu_torch/_build/ (git-ignored), named
+by a hash of the sources, so an edited source is rebuilt and an unchanged
+one is loaded as it is. The host C++ of csrc/host/ is not in the glob: g++
+builds it (native.py). ctypes binds it: every pointer and the stream are
 c_void_p, sizes are c_int64, and every entry returns cudaGetLastError(),
 which `check` turns into an exception. Nothing here runs at import.
 """
@@ -26,7 +28,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -39,6 +41,7 @@ _SIGNATURES = {
     "abtpu_suffix_jac_scan": [_P, _P, _P, _I64, _I64, _P, _P],
     "abtpu_rowsum": [_P, _P, _I64, _I64, _P, _P],
     "abtpu_rcb_double_k_add": [_P, _P, _P, _I64, _I32, _P, _P],
+    "abtpu_mont_mul": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P],
 }
 
 
@@ -75,13 +78,27 @@ def lib() -> ctypes.CDLL:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.tmp.{os.getpid()}"
             cus = [s for s in _sources() if s.endswith(".cu")]
+            objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
             t0 = time.perf_counter()
-            r = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                capture_output=True, text=True,
-            )
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{r.stdout}\n{r.stderr}")
+            nvcc = _nvcc()
+            procs = [
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(cus, objs)
+            ]
+            logs = [p.communicate()[0] for p in procs]
+            failed = [log for p, log in zip(procs, logs) if p.returncode]
+            if not failed:
+                r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                   capture_output=True, text=True)
+                if r.returncode:
+                    failed.append(r.stdout + r.stderr)
+            for o in objs:
+                if os.path.exists(o):
+                    os.unlink(o)
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
             os.replace(tmp, out)
             build_seconds = time.perf_counter() - t0
         dll = ctypes.CDLL(out)
@@ -102,11 +119,13 @@ _WORDS: dict = {}
 
 
 def curve_words(spec) -> np.ndarray:
-    """The 36 uint32 words of csrc/field.cuh::CurveConst for a CurveSpec
-    (kept alive in a cache: ctypes passes a pointer to them)."""
+    """The 36 uint32 words of csrc/field.cuh::CurveConst for a CurveSpec,
+    or for a FieldSpec the field's p, n0 and R with zero curve words (the
+    field kernels read only those). Kept alive in a cache: ctypes passes a
+    pointer to them."""
     w = _WORDS.get(spec)
     if w is None:
-        fs = spec.fq
+        fs = getattr(spec, "fq", spec)
 
         def words(x: int) -> list[int]:
             return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
@@ -114,11 +133,13 @@ def curve_words(spec) -> np.ndarray:
         def val(limbs16) -> int:
             return sum(v << (16 * i) for i, v in enumerate(limbs16))
 
-        w = np.array(
-            words(fs.p) + [fs.n0_32] + words(fs.R)
-            + words(val(spec.a_mont_limbs)) + words(val(spec.b3_mont_limbs))
-            + [spec.a_small or 0, spec.b3_small or 0, int(spec.is_a_zero)],
-            dtype=np.uint32,
-        )
+        curve = [0] * 19
+        if spec is not fs:
+            curve = (words(val(spec.a_mont_limbs))
+                     + words(val(spec.b3_mont_limbs))
+                     + [spec.a_small or 0, spec.b3_small or 0,
+                        int(spec.is_a_zero)])
+        w = np.array(words(fs.p) + [fs.n0_32] + words(fs.R) + curve,
+                     dtype=np.uint32)
         _WORDS[spec] = w
     return w

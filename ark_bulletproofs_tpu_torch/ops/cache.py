@@ -15,7 +15,6 @@ import weakref
 import numpy as np
 import torch
 
-from .. import engine
 from .curve import affine_to_device
 from .limbs import limbs_from_numpy
 
@@ -45,10 +44,8 @@ def bp_table(bp_gens, curve, n: int, device):
     """(X, Y, inf) for share 0's [G(n) | H(n)] (2n points)."""
 
     def make():
-        with engine.host_backend():
-            gens = bp_gens.share(0)
-            pts = gens.G(n) + gens.H(n)
-        return affine_to_device(curve, pts, device)
+        gens = bp_gens.share(0)
+        return affine_to_device(curve, gens.G(n) + gens.H(n), device)
 
     return _cached(bp_gens, (curve.name, n, str(device)), make)
 
@@ -60,3 +57,19 @@ def pc_pair(pc_gens, curve, device):
         lambda: affine_to_device(curve, [pc_gens.B, pc_gens.B_blinding],
                                  device),
     )
+
+
+def full_table(bp_gens, pc_gens, curve, device):
+    """(X, Y, inf, cap) for [G(cap) | H(cap) | B | B_blinding] at cap =
+    bp_gens.gens_capacity: one cached upload that serves every prover
+    phase MSM through base_map row indices (the phase bases are always
+    slices of this table)."""
+    cap = bp_gens.gens_capacity
+
+    def make():
+        gens = bp_gens.share(0)
+        pts = gens.G(cap) + gens.H(cap) + [pc_gens.B, pc_gens.B_blinding]
+        return (*affine_to_device(curve, pts, device), cap)
+
+    return _cached(bp_gens, (curve.name, "full", cap, id(pc_gens),
+                             str(device)), make)

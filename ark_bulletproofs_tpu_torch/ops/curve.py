@@ -55,7 +55,7 @@ _SPECS: dict[str, CurveSpec] = {}
 
 
 def spec_for(curve) -> CurveSpec:
-    """CurveSpec for an ark_bulletproofs_tpu short-Weierstrass curve."""
+    """CurveSpec for a short-Weierstrass curve of the port's curves."""
     s = _SPECS.get(curve.name)
     if s is None:
         if not hasattr(curve, "b"):

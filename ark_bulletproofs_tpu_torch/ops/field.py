@@ -1,14 +1,20 @@
-"""256-bit prime-field arithmetic in Montgomery form, plain PyTorch.
+"""256-bit prime-field arithmetic in Montgomery form.
 
-Counterpart of ark_bulletproofs_tpu/ops/field.py. These are the plain
-versions of the CUDA field core (csrc/field.cuh): the CPU tests run them,
-and chip_smoke.py holds the kernels against them on the card. Values are
+Counterpart of ark_bulletproofs_tpu/ops/field.py. Apart from `mont_mul`
+these are plain PyTorch: the plain versions of the CUDA field core
+(csrc/field.cuh), which the CPU tests run and chip_smoke.py holds the
+kernels against on the card. `mont_mul` is the wrapper of the CUDA
+Montgomery-product kernel (csrc/field_kernels.cu): on a CUDA tensor it
+launches the kernel and returns int32, on a CPU tensor it runs
+`mont_mul_plain`, and on anything else it raises. The group-law plain
+versions (proj.py) call `mont_mul_plain` directly, so they stay plain on
+the card. Values are
 16 canonical 16-bit limbs along axis -2 of a (..., 16, L) tensor; every
 function takes any integer dtype and computes and returns int64 (torch's
 CPU uint32 has no add, shift or compare). Every result is canonical in
 [0, p), so any correct formula gives bit-equal limbs.
 
-`mont_mul` is vectorised over the limb axis: the 31 column sums of the
+`mont_mul_plain` is vectorised over the limb axis: the 31 column sums of the
 schoolbook product on whole tensors, carry normalisation by passes,
 and a single-shot REDC (m = t * (-p^-1) mod 2^256, r = (t + m p) / 2^256)
 — a few dozen torch calls per product instead of one per limb product.
@@ -65,7 +71,7 @@ _SPECS: dict[str, FieldSpec] = {}
 
 
 def spec_for(field) -> FieldSpec:
-    """FieldSpec for an ark_bulletproofs_tpu.fields.Field."""
+    """FieldSpec for a field of the port's fields.py."""
     s = _SPECS.get(field.name)
     if s is None:
         s = FieldSpec.create(field.name, field.p)
@@ -167,8 +173,9 @@ def neg(fs: FieldSpec, a) -> torch.Tensor:
     return sub(fs, torch.zeros_like(a), a)
 
 
-def mont_mul(fs: FieldSpec, a, b) -> torch.Tensor:
-    """a * b * R^-1 mod p (canonical inputs, canonical output)."""
+def mont_mul_plain(fs: FieldSpec, a, b) -> torch.Tensor:
+    """a * b * R^-1 mod p, canonical output, for a < 2^256 and canonical
+    b (so a * b < p * 2^256 and the REDC result is below 2p)."""
     t = _conv(a.long(), b.long())  # 32 columns < 2^37, value < p^2
     dev = t.device
     if t.numel() < 8192:
@@ -190,6 +197,58 @@ def mont_mul(fs: FieldSpec, a, b) -> torch.Tensor:
         t[..., i + 1, :] += t[..., i, :] >> LIMB_BITS
     r, top = _norm(t[..., N_LIMBS:, :], 3)
     return _cond_sub_p(fs, r, top)
+
+
+def _kernel_operands(a: torch.Tensor, b: torch.Tensor):
+    """a and b as the kernel takes them: a (rows, 16, L) and b (rows_b,
+    16, L_b) with rows_b in {1, rows} and L_b in {1, L}, contiguous int32.
+    The product commutes, so the broadcast operand goes second; operands
+    broadcast in any other way are expanded."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if tuple(a.shape) != tuple(shape):
+        a, b = b, a
+    a = a.expand(shape)
+    b_lead = tuple(b.shape[:-2])
+    if b_lead != tuple(shape[:-2]) and any(d != 1 for d in b_lead):
+        b = b.expand(shape)
+
+    def flat(t):
+        return t.to(torch.int32).contiguous().reshape(-1, N_LIMBS,
+                                                      t.shape[-1])
+
+    return flat(a), flat(b)
+
+
+def mont_mul(fs: FieldSpec, a, b) -> torch.Tensor:
+    """a * b * R^-1 mod p over (..., 16, L) limbs, b broadcast against a
+    (a (16, 1) operand is read with stride 0 on the card). For a < 2^256
+    and canonical b the result is canonical.
+
+    On CPU tensors: `mont_mul_plain` (int64). On CUDA tensors: the
+    csrc/field_kernels.cu kernel (int32), counted in `mont_mul.launches`.
+    Any other device raises."""
+    dev = a.device
+    if b.device != dev:
+        raise ValueError(f"mont_mul: tensors on {dev} and {b.device}")
+    if dev.type == "cpu":
+        return mont_mul_plain(fs, a, b)
+    if dev.type != "cuda":
+        raise ValueError(f"mont_mul: unsupported device {dev}")
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    x, y = _kernel_operands(a, b)
+    rows, _, L = x.shape
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    from .kernels import launch
+
+    launch("mont_mul", fs, dev, x.data_ptr(), y.data_ptr(), out.data_ptr(),
+           rows, L, y.shape[0], y.shape[-1])
+    mont_mul.launches += 1
+    return out
+
+
+mont_mul.launches = 0
 
 
 def mul_small(fs: FieldSpec, a, c: int) -> torch.Tensor:
@@ -217,3 +276,40 @@ def from_mont(fs: FieldSpec, a) -> torch.Tensor:
 
 def is_zero(a: torch.Tensor) -> torch.Tensor:
     return (a == 0).all(dim=-2)
+
+
+def mont_one(fs: FieldSpec, lanes: int, device) -> torch.Tensor:
+    """(16, lanes) Montgomery ones (R mod p), int32."""
+    return const(fs.r_limbs, device).to(torch.int32).expand(
+        N_LIMBS, lanes).contiguous()
+
+
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """where(mask, a, b) lane-wise over (..., 16, L) limbs; mask (..., L)
+    broadcasts against the lanes."""
+    return torch.where(mask.unsqueeze(-2), a, b)
+
+
+def sum_mod(fs: FieldSpec, a) -> torch.Tensor:
+    """Modular sum over the lanes of (..., 16, L) limbs -> (..., 16, 1).
+
+    The int64 limb-column sums are exact (each column below L * 2^16);
+    normalised, they give the wide total lo + c * 2^256 with lo < 2^256
+    and c < L. Then lo mod p = from_mont(to_mont(lo)) (to_mont takes any
+    lo < 2^256) and c * 2^256 mod p = mont_mul(c, R^2). Montgomery-form
+    linear, so it sums Montgomery and canonical values alike."""
+    cols = a.long().sum(dim=-1, keepdim=True)
+    lo, c = _norm(cols, 3)
+    c_limbs = torch.zeros_like(lo)
+    c_limbs[..., 0, :] = c & MASK
+    c_limbs[..., 1, :] = c >> LIMB_BITS
+    r2 = const(fs.r2_limbs, a.device)
+    hi = mont_mul(fs, c_limbs, r2)
+    lo = from_mont(fs, mont_mul(fs, lo, r2))
+    return add(fs, lo, hi)
+
+
+def dot_mod(fs: FieldSpec, a, b) -> torch.Tensor:
+    """Modular inner product over the lanes (Montgomery inputs and
+    output): sum_mod(mont_mul(a, b))."""
+    return sum_mod(fs, mont_mul(fs, a, b))

@@ -44,9 +44,9 @@ def same_device(*ts: torch.Tensor) -> torch.device:
 
 
 def launch(name: str, spec, dev: torch.device, *args) -> None:
-    """Launch kernel `name` (csrc/msm_kernels.cu, abtpu_<name>) on `dev`'s
-    current stream with the curve constants of `spec`; raise on a CUDA
-    error."""
+    """Launch kernel `name` (abtpu_<name> of csrc/*.cu) on `dev`'s current
+    stream with the constants of `spec` (a CurveSpec, or a FieldSpec for
+    the field kernels); raise on a CUDA error."""
     fn = getattr(_build.lib(), f"abtpu_{name}")
     words = _build.curve_words(spec)
     with torch.cuda.device(dev):

@@ -1,8 +1,10 @@
-"""Host-facing device MSM (counterpart of ops/msm.py `msm`/`msm_many`).
+"""Host-facing device MSM (counterpart of ops/msm.py `msm`, `msm_many`
+and `msm_many_tabled`).
 
 Affine int points and int scalars in, affine points out. The base axis
 goes through the ragged driver (parallel/msm.py), so protocol-shaped
-MSMs are split into power-of-two chunks instead of padded.
+MSMs are split into power-of-two chunks instead of padded;
+`msm_many_tabled` runs over rows of a cached device table instead.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import engine
-from ..parallel.msm import msm_device_ragged
+from ..parallel.msm import msm_device_mapped, msm_device_ragged
 from .curve import affine_to_device, point_batch_to_host, spec_for
 from .limbs import N_LIMBS, ints_to_limbs
 
@@ -47,3 +49,21 @@ def msm(curve, bases: list, scalars: list[int], device=None):
     if len(bases) != len(scalars):
         raise ValueError("one scalar per base")
     return msm_many(curve, bases, [scalars], device)[0]
+
+
+def msm_many_tabled(curve, table, scalar_sets, index_map) -> list:
+    """B MSMs over rows of a cached device table (no base marshal).
+
+    table: (X, Y, inf, ...) on the device (ops/cache.py::full_table);
+    scalar_sets: B lists of k ints; index_map: k table rows, shared by
+    the sets. One batched base_map MSM; B affine points out."""
+    X, Y, inf = table[:3]
+    dev = X.device
+    k = len(index_map)
+    if any(len(ks) != k for ks in scalar_sets):
+        raise ValueError("each scalar set needs one scalar per index")
+    scal = scalars_to_device(curve, scalar_sets, dev)
+    bm = torch.as_tensor(index_map, dtype=torch.int64, device=dev)
+    bm = bm.expand(len(scalar_sets), k)
+    return point_batch_to_host(
+        curve, msm_device_mapped(spec_for(curve), X, Y, inf, scal, bm))

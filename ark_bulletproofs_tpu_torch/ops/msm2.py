@@ -109,11 +109,20 @@ def _stage_sort(g: _Cfg, scal: torch.Tensor):
     return keys & (g.n - 1), keys >> g.lg
 
 
-def _stage_gather(g: _Cfg, X, Y, inf, order) -> torch.Tensor:
+def _stage_gather(g: _Cfg, X, Y, inf, order, base_map=None):
     """Sorted affine points -> (2, R, 16, L), identity rows with y = 0.
-    Sorted flat index i = col * R + r; lane = row * C + col."""
+    Sorted flat index i = col * R + r; lane = row * C + col.
+
+    base_map (B, n), optional: scalar j of set b multiplies table row
+    base_map[b, j] of a table that may be wider than n. It is composed
+    into the sort order (the table row of sorted slot i in row b * W + w
+    is base_map[b, order[i]]), so the one gather below stays the only
+    pass over the table and no gathered table is materialised."""
     Yz = torch.where(inf, 0, Y)
-    table = torch.stack([X, Yz]).permute(2, 0, 1).contiguous()  # (n, 2, 16)
+    table = torch.stack([X, Yz]).permute(2, 0, 1).contiguous()  # (m, 2, 16)
+    if base_map is not None:
+        bm = base_map.long().repeat_interleave(g.W, dim=0)  # (BW, n)
+        order = torch.gather(bm, 1, order)
     ord_r = order.reshape(g.BW, g.C, g.R).permute(2, 0, 1).reshape(g.R, g.L)
     return table[ord_r].permute(2, 0, 3, 1).contiguous()
 
@@ -180,13 +189,16 @@ def _stage_horner(g: _Cfg, spec, wsum: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def msm2_impl(spec, c: int, X, Y, inf, scal) -> torch.Tensor:
-    """v2 Pippenger. X, Y: (16, n) affine Montgomery limbs; inf: (n,)
+def msm2_impl(spec, c: int, X, Y, inf, scal,
+              base_map=None) -> torch.Tensor:
+    """v2 Pippenger. X, Y: (16, m) affine Montgomery limbs; inf: (m,)
     bool; scal: (B, 16, n) canonical scalar limbs; all int32 but inf, on
-    one device. Returns the B sums as a (3, 16, B) projective tensor."""
-    g = _Cfg(X.shape[-1], c, scal.shape[0])
+    one device. Without base_map m = n and scalar j multiplies point j;
+    with base_map (B, n) it multiplies table row base_map[b, j]. Returns
+    the B sums as a (3, 16, B) projective tensor."""
+    g = _Cfg(scal.shape[-1], c, scal.shape[0])
     order, sd = _stage_sort(g, scal)
-    xy = _stage_gather(g, X, Y, inf, order)
+    xy = _stage_gather(g, X, Y, inf, order, base_map)
     del order
     locs = k2.suffix_madd_scan(spec, xy)
     del xy

@@ -42,7 +42,8 @@ def _stack(pairs, i):
 
 
 def _mul(fs, *pairs):
-    return df.mont_mul(fs, _stack(pairs, 0), _stack(pairs, 1)).unbind(0)
+    return df.mont_mul_plain(fs, _stack(pairs, 0),
+                             _stack(pairs, 1)).unbind(0)
 
 
 def _add(fs, *pairs):
@@ -59,7 +60,8 @@ def _mul_const(fs, xs, mont_limbs, small):
     x = torch.stack([v.long() for v in xs])
     if small is not None:
         return df.mul_small(fs, x, small).unbind(0)
-    return df.mont_mul(fs, x, df.const(mont_limbs, x.device)).unbind(0)
+    return df.mont_mul_plain(fs, x,
+                             df.const(mont_limbs, x.device)).unbind(0)
 
 
 def _tail(spec: CurveSpec, t0, t1, t2, t3, t4, t5) -> torch.Tensor:

@@ -1,0 +1,118 @@
+"""Device pipeline for the R1CS prover's vector phase (counterpart of
+ark_bulletproofs_tpu/ops/prove.py).
+
+The reference prover builds the blinded vector polynomials l(x), r(x)
+and their special inner product t(x) on the CPU (reference
+src/r1cs/prover.rs:671-756, src/util.rs:75-109). Here the O(n) work runs
+on the device in Montgomery form:
+
+  l(x) = l1*x + l2*x^2 + l3*x^3        (l0 = 0)
+  r(x) = r0 + r1*x + r3*x^3            (r2 = 0)
+  l1 = aL + y^-i o wR   l2 = aO        l3 = sL
+  r0 = wO - y^i         r1 = y^i o aR + wL      r3 = y^i o sR
+
+Working on the PADDED length with zero-padded witness vectors makes the
+reference's r-padding (-y^i for i >= n, prover.rs:753-756) fall out of
+the formulas: beyond n every term but -y^i vanishes.
+
+The six t-coefficients (util.rs:75-93, exploiting l0 = r2 = 0):
+  t1 = <l1,r0>  t2 = <l1,r1>+<l2,r0>  t3 = <l2,r1>+<l3,r0>
+  t4 = <l1,r3>+<l3,r1>  t5 = <l2,r3>  t6 = <l3,r3>
+
+Every field product is one `field.mont_mul` call (the CUDA kernel on the
+card): the nine dot products are one (9, 16, n) launch. The coefficient
+vectors stay on the device between the two transcript syncs and the
+evaluated l, r feed the device IPA (ops/ipa.py) directly. The JAX
+package's mesh branch and its device Pedersen batch
+(`pedersen_commit_many_dev`, twisted-Edwards only) are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import field as df
+from .limbs import ints_to_limbs, limbs_to_ints
+from .verify import _pow_vector
+
+
+def _poly_phase(fr, padded_n: int, lg_n: int,
+                aL, aR, aO, sL, sR, wL, wR, wO, y, y_inv):
+    """Canonical (16, padded_n) vectors and (16, 1) y, y^-1 -> (t
+    coefficients (6, 16, 1) canonical, (l1, l2, l3, r0, r1, r3) Montgomery
+    (16, padded_n))."""
+    vecs = df.to_mont(fr, torch.stack([aL, aR, aO, sL, sR, wL, wR, wO]))
+    aLm, aRm, aOm, sLm, sRm, wLm, wRm, wOm = vecs.unbind(0)
+    y_m, y_inv_m = df.to_mont(fr, torch.stack([y, y_inv])).unbind(0)
+
+    y_vec = _pow_vector(fr, y_m, padded_n, lg_n)
+    y_inv_vec = _pow_vector(fr, y_inv_m, padded_n, lg_n)
+
+    prods = df.mont_mul(fr, torch.stack([y_inv_vec, y_vec, y_vec]),
+                        torch.stack([wRm, aRm, sRm]))
+    l1 = df.add(fr, aLm, prods[0])
+    l2 = aOm.long()
+    l3 = sLm.long()
+    r0 = df.sub(fr, wOm, y_vec)
+    r1 = df.add(fr, prods[1], wLm)
+    r3 = prods[2].long()
+
+    # nine inner products in one product launch, then per-dot sums
+    lhs = torch.stack([l1, l1, l2, l2, l3, l3, l1, l2, l3])
+    rhs = torch.stack([r0, r1, r1, r0, r0, r1, r3, r3, r3])
+    sums = df.dot_mod(fr, lhs, rhs)  # (9, 16, 1)
+    t = torch.stack([
+        sums[0],
+        df.add(fr, sums[1], sums[3]),
+        df.add(fr, sums[2], sums[4]),
+        df.add(fr, sums[6], sums[5]),
+        sums[7],
+        sums[8],
+    ])
+    return df.from_mont(fr, t), (l1, l2, l3, r0, r1, r3)
+
+
+def _eval_phase(fr, coeffs, x):
+    """l(x), r(x) as Montgomery (16, padded_n) vectors; x (16, 1)
+    canonical."""
+    l1, l2, l3, r0, r1, r3 = coeffs
+    x_m = df.to_mont(fr, x)
+    # l = x*(l1 + x*(l2 + x*l3))
+    t = df.mont_mul(fr, l3, x_m)
+    t = df.mont_mul(fr, df.add(fr, l2, t), x_m)
+    l_vec = df.mont_mul(fr, df.add(fr, l1, t), x_m)
+    # r = r0 + x*(r1 + x*(x*r3))
+    u = df.mont_mul(fr, r3, x_m)
+    u = df.mont_mul(fr, u, x_m)
+    u = df.mont_mul(fr, df.add(fr, r1, u), x_m)
+    r_vec = df.add(fr, r0, u)
+    return l_vec, r_vec
+
+
+class ProverVectorPhase:
+    """Device-resident l/r/t pipeline for one proof."""
+
+    def __init__(self, curve, padded_n: int, aL, aR, aO, sL, sR,
+                 wL, wR, wO, y: int, y_inv: int, device):
+        self.curve = curve
+        self.fr = df.spec_for(curve.fr)
+        self.padded_n = padded_n
+        self.device = device
+        lg_n = max((padded_n - 1).bit_length(), 1)
+
+        def vec(v):
+            return ints_to_limbs(list(v) + [0] * (padded_n - len(v)),
+                                 device)
+
+        t, self.coeffs = _poly_phase(
+            self.fr, padded_n, lg_n,
+            vec(aL), vec(aR), vec(aO), vec(sL), vec(sR),
+            vec(wL), vec(wR), vec(wO),
+            ints_to_limbs([y], device), ints_to_limbs([y_inv], device),
+        )
+        self.t = limbs_to_ints(t.reshape(6, 16).T)  # [t1..t6]
+
+    def eval_lr(self, x: int):
+        """Device Montgomery l(x), r(x) after challenge x."""
+        return _eval_phase(self.fr, self.coeffs,
+                           ints_to_limbs([x], self.device))

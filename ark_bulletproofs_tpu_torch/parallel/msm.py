@@ -8,13 +8,17 @@ a chunk exists, at least V2_MIN_N always). Each chunk runs the v2 MSM.
 The chunk partials are added with the RCB add kernel and stay
 projective; the JAX path converted them to Jacobian and summed with its
 `sw_add_tiled` kernel instead. The multi-device paths come later.
+
+`msm_device_mapped` is the base_map route of the JAX package's
+`msm_device_maybe_sharded`: B scalar sets, each over its own selection of
+rows of one table.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ark_bulletproofs_tpu.util import next_power_of_two
+from ..util import next_power_of_two
 
 from ..ops import kernels as kk
 from ..ops import msm2
@@ -56,3 +60,20 @@ def msm_device_ragged(spec, X, Y, inf, scal) -> torch.Tensor:
         )
         acc = part if acc is None else kk.rcb_add(spec, acc, part)
     return acc
+
+
+def msm_device_mapped(spec, X, Y, inf, scal, base_map) -> torch.Tensor:
+    """B MSMs over per-set selections of table rows: scalar j of set b
+    multiplies row base_map[b, j] of (X, Y, inf). scal: (B, 16, n) int32
+    canonical limbs; base_map: (B, n) integer rows. The scalar axis pads
+    to a power of two of at least V2_MIN_N with zero scalars on row 0 (the
+    JAX package sends widths below that to its v1 Pippenger, which the
+    port does not have). Returns the B sums as a (3, 16, B) projective
+    tensor."""
+    n = scal.shape[-1]
+    m = max(next_power_of_two(n), msm2.V2_MIN_N)
+    if m != n:
+        scal = torch.nn.functional.pad(scal, (0, m - n))
+        base_map = torch.nn.functional.pad(base_map, (0, m - n))
+    return msm2.msm2_impl(spec, msm2.window_bits(m), X, Y, inf, scal,
+                          base_map)

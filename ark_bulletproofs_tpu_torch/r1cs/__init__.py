@@ -1,5 +1,25 @@
-"""R1CS verification on the port's MSM."""
+"""R1CS constraint-system proofs on the port (reference src/r1cs/)."""
 
-from .verifier import Verifier, batch_verify
+from .constraint_system import (
+    ConstraintSystem,
+    RandomizableConstraintSystem,
+    RandomizedConstraintSystem,
+)
+from .linear_combination import LinearCombination, Variable
+from .proof import R1CSProof
+from .prover import Prover, RandomizingProver
+from .verifier import RandomizingVerifier, Verifier, batch_verify
 
-__all__ = ["Verifier", "batch_verify"]
+__all__ = [
+    "ConstraintSystem",
+    "RandomizableConstraintSystem",
+    "RandomizedConstraintSystem",
+    "LinearCombination",
+    "Variable",
+    "R1CSProof",
+    "Prover",
+    "RandomizingProver",
+    "Verifier",
+    "RandomizingVerifier",
+    "batch_verify",
+]

@@ -4,28 +4,48 @@
     python3 chip_smoke.py
 
 Phases, each printed with its seconds:
-  1. build: the card's name and power limit, then nvcc builds the four
-     kernels (csrc/) for sm_90a into ark_bulletproofs_tpu_torch/_build/;
+  1. build: the card's name, power limit and maximum SM clock, then nvcc
+     builds the five kernels (csrc/*.cu, one process per source) for
+     sm_90a into ark_bulletproofs_tpu_torch/_build/, and g++ the native
+     host library (csrc/host/), which must load;
   2. kernels: each kernel against its plain PyTorch version on the card,
-     bit-equal coordinates, on secq256k1 and zorro, with identity,
-     doubling and P + (-P) lanes; then each timed at its main-path shape
-     (n = 2^20, secq256k1) beside its plain version;
+     bit-equal limbs: the four MSM kernels on secq256k1 and zorro with
+     identity, doubling and P + (-P) lanes, mont_mul on both curves' fr at
+     1,000, 6 x 2048 and 9 x 2048 lanes, with a (16, 1) operand and with 0,
+     1 and p - 1 lanes, and at the prover's (6, 4, 9) x 16 x 2048 row
+     shapes; then each timed at its main-path shape (n = 2^20 MSM on
+     secq256k1; mont_mul at the k = 1024 fold's 6 x 2048 lanes), the
+     kernel alone by replaying a CUDA graph of its launches, beside its
+     plain version and its bound;
   3. msm: n = 2^20 secq256k1 through the port's `msm`, equal to the native
      host Pippenger, then timed (median of 5);
-  4. shuffle: a k = 1024 shuffle proof (shared host prover) verified by
-     the port on the card; a flipped byte and swapped commitments rejected;
+  4. shuffle: a k = 1024 shuffle proved on the card through the device
+     branches (tabled phase MSMs, vector phase, IPA), with its protocol
+     phases on the host clock, proved again on the port's host route, the
+     two proofs byte-equal; the card's proof verified on the card three
+     times (first, then twice after a gc.collect()), with the full garbage
+     collections inside each run; a flipped byte and swapped commitments
+     rejected;
   5. batch_verify: the 1024 cached k = 8 proofs accepted, a batch with one
      tampered proof rejected;
-  6. launches: every kernel launched by phases 3-5.
+  6. launches: each path of phases 3-5 (the msm, the card prove, the card
+     verify, batch_verify) runs with every launch count set to 0 just
+     before it and read just after; each of its kernels launched;
+  7. traces: the card prove and the verify once more each under
+     torch.profiler, which splits card time from host time and names the
+     largest kernels (last, so that no timing above runs after a
+     profiler session).
 
-Any failure exits nonzero. The last three lines are the kernels JSON, the
-card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
-Needs one card; exits 1 at once without one.
+It imports only the port, never jax or the JAX package. Any failure exits
+nonzero. The last three lines are the kernels JSON, the card's
+`nvidia-smi` name and power limit, and {"ok": true, "device": ...}. Needs
+one card; exits 1 at once without one or without the port beside it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import pickle
@@ -42,13 +62,33 @@ SHUFFLE_K = 1024
 BATCH_CACHE = os.path.join(ROOT, "benches",
                            ".cache_batch_secq256k1_k8_n1024.pkl")
 L_MAIN = 22 * 1024  # scan lanes at n = 2^20: W * C = 22 * 1024
-KERNEL_SOURCE = "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu"
+MM_LANES = 6 * 2048  # the k = 1024 IPA fold's product launch
+SOURCES = {
+    "suffix_madd_scan": "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu",
+    "suffix_jac_scan": "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu",
+    "rowsum": "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu",
+    "rcb_double_k_add": "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu",
+    "mont_mul": "ark_bulletproofs_tpu_torch/csrc/field_kernels.cu",
+}
 REPLACES = {
     "suffix_madd_scan": "ark_bulletproofs_tpu/ops/kernels2.py:133",
     "suffix_jac_scan": "ark_bulletproofs_tpu/ops/kernels2.py:223",
     "rowsum": "ark_bulletproofs_tpu/ops/kernels2.py:292",
     "rcb_double_k_add": "ark_bulletproofs_tpu/ops/kernels.py:853",
+    "mont_mul": "ark_bulletproofs_tpu/ops/kernels.py:303",
 }
+# The bound: the larger of bytes over the card's memory rate and 32-bit
+# multiply instructions over 132 SMs x 64 per clock at the maximum SM
+# clock. A field product (csrc/field.cuh::fe_mul) is 8 CIOS steps of
+# 8 wide products (16 mul.lo/mul.hi), one mul.lo for m and 8 wide
+# products for m * p: 264 instructions. On secq256k1 (a = 0, 3b = 21 by
+# double-and-add) csrc/rcb.cuh spends 12 products on an add, 11 on a
+# mixed add and 8 on a doubling.
+HBM_BYTES_PER_S = 3.35e12
+MULS_PER_FE_MUL = 264
+FE_MULS = {"add": 12, "madd": 11, "double": 8}
+MSM_KERNELS = ("suffix_madd_scan", "suffix_jac_scan", "rowsum",
+               "rcb_double_k_add")
 
 
 @contextlib.contextmanager
@@ -59,17 +99,66 @@ def phase(name: str):
     print(f"== {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def smi_line() -> str:
+def smi_query(fields: str, units: bool = True) -> str:
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
     r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 3) -> float:
-    """Mean milliseconds per call by CUDA events, after one warm-up."""
+def smi_line() -> str:
+    return smi_query("name,power.limit")
+
+
+class Bound:
+    """Least time the card could take: the larger of the bytes over the
+    memory rate and the multiply instructions over the multiply rate."""
+
+    def __init__(self, sm_clock_mhz: float):
+        self.muls_per_s = 132 * 64 * sm_clock_mhz * 1e6
+
+    def __call__(self, nbytes: int, muls: int) -> tuple[float, str]:
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = muls / self.muls_per_s
+        if t_bytes >= t_ops:
+            return t_bytes * 1e3, "bytes"
+        return t_ops * 1e3, "operations"
+
+
+class Launches:
+    """Launch counts per path: every wrapper's count is set to 0 just
+    before the path runs and read just after it."""
+
+    def __init__(self, wrappers: dict):
+        self.wrappers = wrappers
+        self.paths = {}
+
+    def run(self, path: str, fn, kernels):
+        for w in self.wrappers.values():
+            w.launches = 0
+        out = fn()
+        self.paths[path] = ({n: w.launches for n, w in
+                             self.wrappers.items()}, kernels)
+        return out
+
+    def check(self) -> None:
+        for path, (counts, _) in self.paths.items():
+            print(f"   {path}: {counts}", flush=True)
+        idle = [(path, n) for path, (counts, kernels) in self.paths.items()
+                for n in kernels if counts[n] == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched on their path: "
+                                 f"{idle}")
+
+    def total(self, name: str) -> int:
+        return sum(counts[name] for counts, _ in self.paths.values())
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call by CUDA events around `reps` calls,
+    after one warm-up: the wrapper's host work included."""
     import torch
 
     fn()
@@ -80,6 +169,32 @@ def cuda_ms(fn, reps: int = 3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per launch of the kernel alone: `reps` calls
+    captured in one CUDA graph, replayed once to warm up and once more
+    between CUDA events, so no host work lies between the launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -105,12 +220,15 @@ def neg_y(spec, P):
 
 
 class KernelCheck:
-    """Phase 2: kernels against their plain versions on the card."""
+    """Phase 2: kernels against their plain versions on the card. `times`
+    holds (kernel ms, plain ms, bound ms, bound_by) per kernel."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, bound: Bound):
         self.dev = dev
+        self.bound = bound
         self.err = {k: 0 for k in REPLACES}
         self.times = {}
+        self.wrapper_ms = None
 
     def compare(self, name: str, got, want) -> None:
         import torch
@@ -129,12 +247,10 @@ class KernelCheck:
         lanes, from a pool of 256 chain points and their negatives."""
         import torch
 
-        from ark_bulletproofs_tpu.generators import GeneratorsChain
-        from ark_bulletproofs_tpu_torch import engine
+        from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
         from ark_bulletproofs_tpu_torch.ops.curve import affine_to_device
 
-        with engine.host_backend():
-            pts = GeneratorsChain(curve, b"chip_smoke pool").take(256)
+        pts = GeneratorsChain(curve, b"chip_smoke pool").take(256)
         X, Y, _ = affine_to_device(curve, pts, self.dev)
         pool = torch.stack([X, Y])  # (2, 16, 256)
         pool = torch.cat([pool, neg_y(spec, pool)], dim=2)  # 512 points
@@ -179,7 +295,11 @@ class KernelCheck:
                 k2.suffix_madd_scan_plain(spec, xy)))
             if timed and R == 1024:
                 self.times["suffix_madd_scan"] = (
-                    cuda_ms(lambda: k2.suffix_madd_scan(spec, xy)), plain_ms)
+                    graph_ms(lambda: k2.suffix_madd_scan(spec, xy), 3),
+                    plain_ms,
+                    *self.bound(5 * R * 16 * L_MAIN * 4,
+                                R * L_MAIN * FE_MULS["madd"]
+                                * MULS_PER_FE_MUL))
             del xy
             T = self.special_rows(spec, locs)
             self.compare("suffix_jac_scan", k2.suffix_jac_scan(spec, T),
@@ -212,41 +332,103 @@ class KernelCheck:
         from ark_bulletproofs_tpu_torch.ops import kernels as kk
         from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 
+        add = FE_MULS["add"] * MULS_PER_FE_MUL
         T = k2.suffix_madd_scan(spec, self.affine_rows(curve, spec, 64,
                                                        22 * 64, seed))
         Ta = T[..., :22 * 16].contiguous()
+        R, La = Ta.shape[1], Ta.shape[-1]
         self.times["suffix_jac_scan"] = (
-            cuda_ms(lambda: k2.suffix_jac_scan(spec, Ta)),
-            host_ms(lambda: k2.suffix_jac_scan_plain(spec, Ta)))
+            graph_ms(lambda: k2.suffix_jac_scan(spec, Ta), 20),
+            host_ms(lambda: k2.suffix_jac_scan_plain(spec, Ta)),
+            *self.bound((2 * R + 1) * 3 * 16 * La * 4, R * La * add))
+        K, Lr = T.shape[1], T.shape[-1]
         self.times["rowsum"] = (
-            cuda_ms(lambda: k2.rowsum(spec, T)),
-            host_ms(lambda: k2.rowsum_plain(spec, T)))
+            graph_ms(lambda: k2.rowsum(spec, T), 20),
+            host_ms(lambda: k2.rowsum_plain(spec, T)),
+            *self.bound((K + 1) * 3 * 16 * Lr * 4, K * Lr * add))
         xy = self.affine_rows(curve, spec, 8, 22 * 4096, seed + 1)
         U = k2.suffix_madd_scan(spec, xy)
         P, Q = U[:, 0].contiguous(), U[:, 1].contiguous()
+        m = P.shape[-1]
         self.times["rcb_double_k_add"] = (
-            cuda_ms(lambda: kk.rcb_double_k_add(spec, P, Q, 0)),
-            host_ms(lambda: kk.rcb_double_k_add_plain(spec, P, Q, 0)))
-        for name, (ms, pms) in self.times.items():
-            print(f"   {name}: kernel {ms:.3f} ms, plain {pms:.1f} ms",
-                  flush=True)
+            graph_ms(lambda: kk.rcb_double_k_add(spec, P, Q, 0), 20),
+            host_ms(lambda: kk.rcb_double_k_add_plain(spec, P, Q, 0)),
+            *self.bound(3 * 3 * 16 * m * 4, m * add))
+
+    def run_mont_mul(self, curve, seed: int, timed: bool) -> None:
+        """mont_mul bit-equal to its plain version on curve.fr, flat and at
+        the prover's row shapes, then timed at MM_LANES lanes (the k = 1024
+        fold): the kernel alone from a CUDA graph, and the wrapper's rate
+        with its host work."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import field as df
+        from ark_bulletproofs_tpu_torch.ops.limbs import ints_to_limbs
+
+        fs = df.spec_for(curve.fr)
+        p = fs.p
+        rng = random.Random(seed)
+
+        def limbs(vals, rows: int, L: int):
+            """(rows, 16, L) limbs of rows * L ints, row-major."""
+            t = ints_to_limbs(vals, self.dev)
+            return t.reshape(16, rows, L).permute(1, 0, 2).contiguous()
+
+        for lanes in (1000, MM_LANES, 9 * 2048):
+            xs = [0, 1, p - 1] + [rng.randrange(p) for _ in range(lanes - 3)]
+            ys = [p - 1, 0, p - 1] + [rng.randrange(p)
+                                      for _ in range(lanes - 3)]
+            a = ints_to_limbs(xs, self.dev)
+            b = ints_to_limbs(ys, self.dev)
+            col = ints_to_limbs([ys[5]], self.dev)  # (16, 1): stride 0
+            rows = limbs(xs, 2, lanes // 2)
+            per_row = limbs(ys[7:9], 2, 1)
+            for x, y in ((a, b), (a, col), (col, a), (rows, per_row)):
+                self.compare("mont_mul", df.mont_mul(fs, x, y).long(),
+                             df.mont_mul_plain(fs, x, y))
+        # The prover's launches at k = 1024: the round scalars' (6, 16,
+        # 2048) pair, the fold's (4, 16, 2048) against per-row (4, 16, 1)
+        # challenges, and the vector phase's (9, 16, 2048) pair.
+        for R, Rb, Lb in ((6, 6, 2048), (4, 4, 1), (9, 9, 2048)):
+            x = limbs([rng.randrange(p) for _ in range(R * 2048)], R, 2048)
+            y = limbs([rng.randrange(p) for _ in range(Rb * Lb)], Rb, Lb)
+            self.compare("mont_mul", df.mont_mul(fs, x, y).long(),
+                         df.mont_mul_plain(fs, x, y))
+        if timed:
+            a, b = a[:, :MM_LANES].contiguous(), b[:, :MM_LANES].contiguous()
+            self.times["mont_mul"] = (
+                graph_ms(lambda: df.mont_mul(fs, a, b), 100),
+                host_ms(lambda: df.mont_mul_plain(fs, a, b)),
+                *self.bound(3 * 64 * MM_LANES, MM_LANES * MULS_PER_FE_MUL))
+            self.wrapper_ms = cuda_ms(lambda: df.mont_mul(fs, a, b), 100)
+        torch.cuda.synchronize()
+        print(f"   mont_mul {curve.name} fr: bit-equal at 1000, {MM_LANES}"
+              f" and {9 * 2048} lanes and at (6, 4, 9) x 16 x 2048",
+              flush=True)
+
+    def report(self) -> None:
+        for name, (ms, pms, bms, by) in self.times.items():
+            print(f"   {name}: kernel {ms:.4f} ms, plain {pms:.1f} ms, "
+                  f"bound {bms:.5f} ms ({by})", flush=True)
+        print(f"   mont_mul wrapper, host work included: {self.wrapper_ms:.4f}"
+              f" ms a call (CUDA events around 100 calls)", flush=True)
 
 
-def phase_msm(curve):
-    """n = 2^20 secq256k1 MSM; returns (points/s, end-to-end seconds)."""
+def phase_msm(curve, launches: Launches) -> None:
+    """n = 2^20 secq256k1 MSM through `msm`, equal to the host Pippenger,
+    then the device MSM timed (median of 5)."""
     import numpy as np
     import torch
 
     import ark_bulletproofs_tpu_torch as port
-    from ark_bulletproofs_tpu.generators import GeneratorsChain
     from ark_bulletproofs_tpu_torch import engine
+    from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
     from ark_bulletproofs_tpu_torch.ops.curve import affine_to_device, spec_for
     from ark_bulletproofs_tpu_torch.ops.msm import scalars_to_device
     from ark_bulletproofs_tpu_torch.parallel.msm import msm_device_ragged
 
     t0 = time.perf_counter()
-    with engine.host_backend():
-        pts = GeneratorsChain(curve, b"chip_smoke msm").take(N_DISTINCT)
+    pts = GeneratorsChain(curve, b"chip_smoke msm").take(N_DISTINCT)
     reps = N_MSM // N_DISTINCT
     bases = pts * reps  # base i is pts[i % 2^13]
     raw = np.random.default_rng(2024).integers(
@@ -259,7 +441,8 @@ def phase_msm(curve):
     print(f"   inputs and host reference: {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
-    got = port.msm(curve, bases, ks)
+    got = launches.run("msm", lambda: port.msm(curve, bases, ks),
+                       MSM_KERNELS)
     e2e = time.perf_counter() - t0
     if got != want:
         raise AssertionError("n=2^20 MSM differs from the host Pippenger")
@@ -282,12 +465,11 @@ def phase_msm(curve):
           f"{[round(t * 1e3, 1) for t in times]} -> {N_MSM / med:.0f} "
           f"points/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return N_MSM / med, e2e
 
 
 def tamper_t_x(curve, proof):
     """The proof with one byte of t_x flipped (still a valid scalar)."""
-    from ark_bulletproofs_tpu.r1cs import R1CSProof
+    from ark_bulletproofs_tpu_torch.r1cs import R1CSProof
 
     blob = bytearray(proof.to_bytes(curve))
     off = 11 * len(curve.serialize_compressed(curve.gen))  # 11 points
@@ -296,7 +478,7 @@ def tamper_t_x(curve, proof):
 
 
 def must_raise(what: str, fn) -> None:
-    from ark_bulletproofs_tpu.errors import R1CSError
+    from ark_bulletproofs_tpu_torch.errors import R1CSError
 
     try:
         fn()
@@ -306,48 +488,133 @@ def must_raise(what: str, fn) -> None:
     raise AssertionError(f"{what}: accepted")
 
 
-def phase_shuffle(curve) -> float:
-    from ark_bulletproofs_tpu import BulletproofGens, PedersenGens, Transcript
-    from ark_bulletproofs_tpu.rand import seeded_rng
-    from ark_bulletproofs_tpu_torch import ShuffleProof, engine
+def full_collections() -> int:
+    """Full (generation 2) garbage collections so far in this process."""
+    return gc.get_stats()[2]["collections"]
 
-    with engine.host_backend():
-        pc = PedersenGens.default(curve)
-        bp = BulletproofGens(curve, 2 * SHUFFLE_K, 1)
+
+def print_phases() -> None:
+    """The protocol phases timed since the last reset (host clock)."""
+    from ark_bulletproofs_tpu_torch.utils import profiling
+
+    print("\n".join(f"     {line}" for line in
+                    profiling.report().splitlines()), flush=True)
+    profiling.reset()
+
+
+def traced(what: str, fn) -> None:
+    """Run fn once under torch.profiler and print its wall time, the
+    card's busy time (the summed durations of its kernels and copies: one
+    stream, so they do not overlap; the phases' annotation ranges are not
+    card work and are left out) and the card time of the largest
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e6)
+    busy = sum(t for _, t in by_name.values())
+    print(f"   traced {what}: {wall:.3f} s, card busy {busy:.4f} s, host "
+          f"{wall - busy:.3f} s, card idle share {1 - busy / wall:.4f}; card "
+          f"time by kernel (count, ms), largest first:", flush=True)
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"     {n:5d} {t * 1e3:9.3f}  {name[:90]}", flush=True)
+
+
+def phase_shuffle(curve, launches: Launches) -> tuple:
+    """k = SHUFFLE_K shuffle: card prove, host-route prove, byte-equal;
+    verify on the card; two tamper checks. Returns the card prove and
+    the verify as functions, for phase 7."""
+    import torch
+
+    from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
+                                            ShuffleProof, Transcript,
+                                            engine, seeded_rng)
+    from ark_bulletproofs_tpu_torch.utils import profiling
+
+    pc = PedersenGens.default(curve)
+    bp = BulletproofGens(curve, 2 * SHUFFLE_K, 1)
     pyrng = random.Random(1024)
     vals = [pyrng.getrandbits(64) for _ in range(SHUFFLE_K)]
     perm = vals[:]
     pyrng.shuffle(perm)
     label = b"chip_smoke shuffle"
+
+    def prove():
+        return ShuffleProof.prove(seeded_rng(1024), pc, bp,
+                                  Transcript(label), vals, perm)
+
+    profiling.reset()
+    full = full_collections()
     t0 = time.perf_counter()
-    sp, ic, oc = ShuffleProof.prove(seeded_rng(1024), pc, bp,
-                                    Transcript(label), vals, perm)
-    print(f"   host prove k={SHUFFLE_K}: {time.perf_counter() - t0:.1f} s",
+    sp, ic, oc = launches.run("prove", prove, SOURCES)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card = sp.proof.to_bytes(curve)
+    print(f"   card prove k={SHUFFLE_K}: {card_s:.3f} s ({len(card)} bytes, "
+          f"{full_collections() - full} full collections); its phases:",
           flush=True)
-    t0 = time.perf_counter()
-    ShuffleProof(sp.proof).verify(pc, bp, Transcript(label), ic, oc)
-    dt = time.perf_counter() - t0
-    print(f"   verify k={SHUFFLE_K} on the card: accepted, {dt:.3f} s",
-          flush=True)
+    print_phases()
+    threshold = engine.config.msm_device_threshold
+    engine.config.msm_device_threshold = 1 << 62  # nothing reaches the card
+    try:
+        t0 = time.perf_counter()
+        sp_host, _, _ = prove()
+        host_s = time.perf_counter() - t0
+    finally:
+        engine.config.msm_device_threshold = threshold
+    if sp_host.proof.to_bytes(curve) != card:
+        raise AssertionError("card proof differs from the host-route proof")
+    print(f"   host-route prove k={SHUFFLE_K}: {host_s:.3f} s; the two "
+          f"proofs are byte-equal", flush=True)
+    def verify():
+        ShuffleProof(sp.proof).verify(pc, bp, Transcript(label), ic, oc)
+
+    # The first verify inherits the collector's state from the phases
+    # before it, the next two start from a gc.collect(): a full collection
+    # that falls inside a run costs it a pass over every live object.
+    for run in ("first", "after gc.collect()", "after gc.collect(), again"):
+        if run != "first":
+            gc.collect()
+        profiling.reset()
+        full = full_collections()
+        t0 = time.perf_counter()
+        launches.run("verify", verify, MSM_KERNELS)
+        torch.cuda.synchronize()
+        print(f"   verify k={SHUFFLE_K} on the card, {run}: accepted, "
+              f"{time.perf_counter() - t0:.3f} s, "
+              f"{full_collections() - full} full collections; its phases:",
+              flush=True)
+        print_phases()
     must_raise("flipped t_x byte", lambda: ShuffleProof(
         tamper_t_x(curve, sp.proof)).verify(pc, bp, Transcript(label), ic,
                                             oc))
     must_raise("swapped commitments", lambda: ShuffleProof(sp.proof).verify(
         pc, bp, Transcript(label), oc, ic))
-    return dt
+    return prove, verify
 
 
-def phase_batch(curve) -> float:
-    from ark_bulletproofs_tpu import BulletproofGens, PedersenGens, Transcript
-    from ark_bulletproofs_tpu.r1cs import R1CSProof
-    from ark_bulletproofs_tpu.rand import seeded_rng
-    from ark_bulletproofs_tpu_torch import ShuffleProof, batch_verify, engine
+def phase_batch(curve, launches: Launches) -> None:
+    from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
+                                            R1CSProof, ShuffleProof,
+                                            Transcript, batch_verify,
+                                            seeded_rng)
 
     with open(BATCH_CACHE, "rb") as fh:
         blobs = pickle.load(fh)  # tracked in the repo: (bytes, [bytes], [bytes])
-    with engine.host_backend():
-        pc = PedersenGens.default(curve)
-        bp = BulletproofGens(curve, 16, 1)
+    pc = PedersenGens.default(curve)
+    bp = BulletproofGens(curve, 16, 1)
     decoded = [
         (R1CSProof.from_bytes(curve, pb),
          [curve.deserialize_compressed(b) for b in icb],
@@ -364,7 +631,9 @@ def phase_batch(curve) -> float:
 
     inst = instances(decoded)
     t0 = time.perf_counter()
-    batch_verify(seeded_rng(1000), inst, pc, bp)
+    launches.run("batch_verify",
+                 lambda: batch_verify(seeded_rng(1000), inst, pc, bp),
+                 MSM_KERNELS)
     dt = time.perf_counter() - t0
     print(f"   batch_verify of {len(decoded)} k=8 proofs: accepted, "
           f"{dt:.3f} s, {len(decoded) / dt:.1f} proofs/s", flush=True)
@@ -373,7 +642,6 @@ def phase_batch(curve) -> float:
     bad[517] = (tamper_t_x(curve, p), ic, oc)
     must_raise("batch with one tampered proof", lambda: batch_verify(
         seeded_rng(1001), instances(bad), pc, bp))
-    return len(decoded) / dt
 
 
 def main() -> int:
@@ -384,9 +652,9 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from ark_bulletproofs_tpu import curves
-    from ark_bulletproofs_tpu_torch import engine
+    from ark_bulletproofs_tpu_torch import curves, engine, native
     from ark_bulletproofs_tpu_torch.ops import _build
+    from ark_bulletproofs_tpu_torch.ops import field as df
     from ark_bulletproofs_tpu_torch.ops import kernels as kk
     from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 
@@ -397,49 +665,60 @@ def main() -> int:
         "suffix_jac_scan": k2.suffix_jac_scan,
         "rowsum": k2.rowsum,
         "rcb_double_k_add": kk.rcb_double_k_add,
+        "mont_mul": df.mont_mul,
     }
 
     with phase("1 build"):
         smi = smi_line()
-        print(f"   card: {smi}; torch {torch.__version__}, CUDA "
-              f"{torch.version.cuda}", flush=True)
+        clock = float(smi_query("clocks.max.sm", units=False))
+        print(f"   card: {smi}, max SM clock {clock:.0f} MHz; torch "
+              f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
         _build.lib()
         print(f"   nvcc sm_90a build: {_build.build_seconds} s -> "
               f"{os.path.relpath(_build.library_path(), ROOT)}", flush=True)
+        host = native.lib()
+        if host is None:
+            raise AssertionError("the native host library did not build "
+                                 "or load")
+        print(f"   native host library: {os.path.relpath(host._name, ROOT)}",
+              flush=True)
 
-    check = KernelCheck(dev)
+    check = KernelCheck(dev, Bound(clock))
     with phase("2 kernels vs plain versions"):
         check.run_curve(curves.secq256k1, seed=1, timed=True)
         check.run_curve(curves.zorro, seed=2, timed=False)
+        check.run_mont_mul(curves.secq256k1, seed=3, timed=True)
+        check.run_mont_mul(curves.zorro, seed=4, timed=False)
+        check.report()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    for w in wrappers.values():
-        w.launches = 0
+    launches = Launches(wrappers)
     with phase("3 msm n=2^20 secq256k1"):
-        pps, _ = phase_msm(curves.secq256k1)
+        phase_msm(curves.secq256k1, launches)
     with phase(f"4 shuffle k={SHUFFLE_K}"):
-        phase_shuffle(curves.secq256k1)
+        prove, verify = phase_shuffle(curves.secq256k1, launches)
     with phase("5 batch_verify 1024 x k=8"):
-        phase_batch(curves.secq256k1)
-    launches = {name: w.launches for name, w in wrappers.items()}
-
+        phase_batch(curves.secq256k1, launches)
     with phase("6 launches"):
-        print(f"   {launches}", flush=True)
-        idle = [n for n, c in launches.items() if c == 0]
-        if idle:
-            raise AssertionError(f"kernels never launched: {idle}")
+        launches.check()
+    with phase("7 traces"):
+        traced(f"card prove k={SHUFFLE_K}", prove)
+        traced(f"verify k={SHUFFLE_K}", verify)
 
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": launches[name],
+            "launches": launches.total(name),
             "max_abs_err": check.err[name],
             "ms": check.times[name][0],
             "plain_ms": check.times[name][1],
+            "bound_ms": check.times[name][2],
+            "bound_by": check.times[name][3],
+            "library_ms": None,
         }
         for name in wrappers
     ]}))

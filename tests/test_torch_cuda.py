@@ -1,13 +1,15 @@
 """The port's CUDA kernels on a card (marker `cuda`; skipped without one).
 
 Tolerances: each kernel bit-equal to its plain PyTorch version on the
-same CUDA tensors (projective coordinates), at small widths with a
-partial last block of threads and with identity, doubling and P + (-P)
-lanes, on secq256k1 (a = 0) and zorro (a = 6); whole MSMs equal in affine
-to the host Pippenger; verify gives the host's accept/reject.
+same CUDA tensors (projective coordinates, field limbs), at small widths
+with a partial last block of threads and with identity, doubling and
+P + (-P) lanes, on secq256k1 (a = 0) and zorro (a = 6); mont_mul also with
+broadcast operands and 0, 1, p - 1 lanes; whole MSMs equal in affine to
+the host Pippenger; a proof made on the card byte-equal to the host
+route's; verify gives the host's accept/reject.
 
-These tests import no jax, so they run where the JAX package's test
-configuration cannot load:
+These tests import only the port (no jax, nothing of the JAX package), so
+they run where the JAX package's test configuration cannot load:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
@@ -17,15 +19,17 @@ import random
 import pytest
 import torch
 
-from ark_bulletproofs_tpu import BulletproofGens, PedersenGens, Transcript
-from ark_bulletproofs_tpu import curves
-from ark_bulletproofs_tpu.errors import R1CSError
-from ark_bulletproofs_tpu.rand import seeded_rng
-from ark_bulletproofs_tpu_torch import ShuffleProof, engine, msm, msm_many
+from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
+                                        R1CSError, ShuffleProof, Transcript,
+                                        curves, engine, ipp, msm, msm_many,
+                                        seeded_rng)
 from ark_bulletproofs_tpu_torch.ops import field as df
+from ark_bulletproofs_tpu_torch.ops import ipa
 from ark_bulletproofs_tpu_torch.ops import kernels as kk
 from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 from ark_bulletproofs_tpu_torch.ops.curve import affine_to_device, spec_for
+from ark_bulletproofs_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
+from ark_bulletproofs_tpu_torch.r1cs import prover
 
 pytestmark = pytest.mark.cuda
 
@@ -123,8 +127,7 @@ def test_msm_matches_host(curve, n, sets, cuda_dev):
 def test_shuffle_verify_on_card(cuda_dev, monkeypatch):
     monkeypatch.setattr(engine.config, "device", "cuda")
     curve, k, label = curves.secq256k1, 256, b"card shuffle"
-    with engine.host_backend():
-        pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 2 * k, 1)
+    pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 2 * k, 1)
     prng = random.Random(k)
     vals = [prng.getrandbits(64) for _ in range(k)]
     perm = vals[:]
@@ -136,3 +139,58 @@ def test_shuffle_verify_on_card(cuda_dev, monkeypatch):
     assert k2.suffix_madd_scan.launches > before  # the mega-MSM ran here
     with pytest.raises(R1CSError):
         ShuffleProof(sp.proof).verify(pc, bp, Transcript(label), oc, ic)
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_mont_mul_matches_plain(curve, cuda_dev):
+    fs = df.spec_for(curve.fr)
+    p = fs.p
+    rng = random.Random(5)
+    xs = [0, 1, p - 1] + [rng.randrange(p) for _ in range(L - 3)]
+    ys = [p - 1, 0, p - 1] + [rng.randrange(p) for _ in range(L - 3)]
+    a, b = ints_to_limbs(xs, cuda_dev), ints_to_limbs(ys, cuda_dev)
+    col = ints_to_limbs([ys[4]], cuda_dev)  # (16, 1): read with stride 0
+    rows = a.reshape(16, 4, L // 4).permute(1, 0, 2).contiguous()
+    per_row = ints_to_limbs(ys[:4], cuda_dev).T.reshape(4, 16, 1)
+    pairs = ((a, b), (a, col), (col, a), (rows, per_row),
+             (rows, b[:, :L // 4]))
+    before = df.mont_mul.launches
+    for x, y in pairs:
+        got = df.mont_mul(fs, x, y)
+        assert got.dtype == torch.int32 and got.is_cuda
+        assert torch.equal(got.long(), df.mont_mul_plain(fs, x, y))
+    assert df.mont_mul.launches - before == len(pairs)
+    Rinv = pow((1 << 256) % p, -1, p)
+    assert limbs_to_ints(df.mont_mul(fs, a, b)) == [
+        x * y * Rinv % p for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("shrink", [128, 4], ids=["plain", "shrink"])
+def test_prove_on_card_matches_host_route(shrink, cuda_dev, monkeypatch):
+    """k = 64 shuffle with every device branch on the card (thresholds
+    lowered) equals the host route's proof byte for byte. With a shrink
+    threshold of 4 the IPA table (N = 128) shrinks at cur = 32."""
+    monkeypatch.setattr(ipa, "SHRINK_T", shrink)
+    monkeypatch.setattr(engine.config, "device", "cuda")
+    curve, k, label = curves.secq256k1, 64, b"card prove"
+    pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 2 * k, 1)
+    prng = random.Random(k)
+    vals = [prng.getrandbits(64) for _ in range(k)]
+    perm = vals[:]
+    prng.shuffle(perm)
+
+    def prove():
+        return ShuffleProof.prove(seeded_rng(k), pc, bp, Transcript(label),
+                                  vals, perm)
+
+    monkeypatch.setattr(engine.config, "msm_device_threshold", 1 << 62)
+    host, _, _ = prove()
+    monkeypatch.setattr(engine.config, "msm_device_threshold", 0)
+    monkeypatch.setattr(prover, "VECTOR_MIN_N", 1)
+    monkeypatch.setattr(ipp, "DEVICE_MIN_N", 1)
+    before = (df.mont_mul.launches, k2.suffix_madd_scan.launches)
+    card, ic, oc = prove()
+    assert df.mont_mul.launches > before[0]
+    assert k2.suffix_madd_scan.launches > before[1]
+    assert card.proof.to_bytes(curve) == host.proof.to_bytes(curve)
+    ShuffleProof(card.proof).verify(pc, bp, Transcript(label), ic, oc)

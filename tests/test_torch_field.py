@@ -13,12 +13,18 @@ import numpy as np
 import pytest
 import torch
 
-from ark_bulletproofs_tpu import fields
+from ark_bulletproofs_tpu import fields as jfields
 from ark_bulletproofs_tpu.ops import field as jf
+from ark_bulletproofs_tpu_torch import engine, fields
 from ark_bulletproofs_tpu_torch.ops import field as tf
 from ark_bulletproofs_tpu_torch.ops import limbs as tl
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setattr(engine.config, "device", "cpu")
 
 FIELDS = [
     fields.secq256k1_fq,
@@ -28,6 +34,14 @@ FIELDS = [
     fields.ed25519_fq,
     fields.ed25519_fr,
 ]
+
+
+def _jax_field(f):
+    """The JAX package's field object of the port's field f."""
+    jfs = [v for v in vars(jfields).values()
+           if isinstance(v, jfields.Field) and v.name == f.name]
+    assert len(jfs) == 1, f.name
+    return jfs[0]
 
 
 def _values(f, n, seed):
@@ -62,7 +76,7 @@ def test_field_ops_match_host_and_jax(f):
     a, b = tl.ints_to_limbs(xs), tl.ints_to_limbs(ys)
     p = f.p
     Rinv = pow((1 << 256) % p, -1, p)
-    ts, js = tf.spec_for(f), jf.spec_for(f)
+    ts, js = tf.spec_for(f), jf.spec_for(_jax_field(f))
     ja, jb = _jax(a), _jax(b)
     cases = [
         (tf.add(ts, a, b), jf.add(js, ja, jb), [(x + y) % p for x, y in

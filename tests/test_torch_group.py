@@ -14,16 +14,26 @@ import numpy as np
 import pytest
 import torch
 
-from ark_bulletproofs_tpu import curves
+from ark_bulletproofs_tpu import curves as jcurves
 from ark_bulletproofs_tpu.ops import curve as jc
 from ark_bulletproofs_tpu.ops import proj as jp
-from ark_bulletproofs_tpu.rand import seeded_rng
+from ark_bulletproofs_tpu_torch import curves, engine, seeded_rng
 from ark_bulletproofs_tpu_torch.ops import curve as tc
 from ark_bulletproofs_tpu_torch.ops import kernels as kk
 from ark_bulletproofs_tpu_torch.ops import proj as tp
 from ark_bulletproofs_tpu_torch.ops.limbs import ints_to_limbs
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setattr(engine.config, "device", "cpu")
+
+
+def _jspec(curve):
+    """The JAX package's CurveSpec of the port's curve."""
+    return jc.spec_for(jcurves.ALL_CURVES[curve.name])
 
 CURVES = [curves.secq256k1, curves.zorro]
 M = 12  # lanes: 0-1 P + P, 2-3 P + (-P), 4 P + O, 5 O + Q, 6 O + O, rest random
@@ -81,7 +91,7 @@ def test_double_k_add(curve, k):
     the JAX add, bit for bit; == 2^k P + Q on the host model."""
     Pa, Qa = _points(curve, 10 + k)
     P, Q = _proj(curve, Pa, 1), _proj(curve, Qa, 2)
-    spec, jspec = tc.spec_for(curve), jc.spec_for(curve)
+    spec, jspec = tc.spec_for(curve), _jspec(curve)
     got = kk.rcb_double_k_add(spec, P.int(), Q.int(), k)
     assert got.dtype == torch.int32 and got.shape == (3, 16, M)
     jP = _jax(P)
@@ -104,7 +114,7 @@ def test_add_mixed(curve):
     Qa[7] = None  # a second affine identity lane
     P = _proj(curve, Pa, 3)
     X, Y, inf = tc.affine_to_device(curve, Qa)
-    spec, jspec = tc.spec_for(curve), jc.spec_for(curve)
+    spec, jspec = tc.spec_for(curve), _jspec(curve)
     got = tp.add_mixed(spec, P, X, Y, inf)
     jX, jY = _jax(torch.stack([X, Y]))
     want = _from_jax(jp.add_mixed(jspec, _jax(P), jX, jY,
@@ -118,7 +128,7 @@ def test_add_mixed(curve):
 def test_double(curve):
     Pa, _ = _points(curve, 30)
     P = _proj(curve, Pa, 4)
-    spec, jspec = tc.spec_for(curve), jc.spec_for(curve)
+    spec, jspec = tc.spec_for(curve), _jspec(curve)
     got = tp.double(spec, P)
     assert torch.equal(got, _from_jax(jp._double_xla(jspec, _jax(P))))
     assert _affine(curve, got) == [curve.double(p) if p else None
@@ -130,7 +140,7 @@ def test_point_conversions_and_spec():
     rng = seeded_rng(5)
     pts = [curve.rand(rng) for _ in range(5)] + [None]
     X, Y, inf = tc.affine_to_device(curve, pts)
-    jX, jY, jinf = jc.affine_to_device(curve, pts)
+    jX, jY, jinf = jc.affine_to_device(jcurves.zorro, pts)
     assert torch.equal(X, torch.from_numpy(jX.T.astype(np.int32)))
     assert torch.equal(Y, torch.from_numpy(jY.T.astype(np.int32)))
     assert inf.tolist() == list(jinf)

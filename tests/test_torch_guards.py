@@ -1,12 +1,13 @@
 """Guards of the port's boundary.
 
-- No module of ark_bulletproofs_tpu_torch (nor chip_smoke.py) imports jax
-  or the JAX package's jax-bound modules; a process in which `jax` cannot
-  be imported runs the port.
-- Asking the port for a CUDA device where there is none raises; a CUDA
-  request never carries on on the CPU.
-- The port pins the shared engine to its host path only inside its own
-  calls and restores it afterwards.
+- No module of ark_bulletproofs_tpu_torch, nor chip_smoke.py, nor
+  tests/test_torch_cuda.py imports jax or anything of the JAX package
+  ark_bulletproofs_tpu; a process in which neither can be imported proves
+  and verifies a shuffle through the port.
+- The engine's device is "cuda" unless the caller asks for the CPU; asking
+  for a CUDA device where there is none raises and never carries on on
+  the CPU.
+- Kernel wrappers take their plain versions only for CPU tensors.
 """
 
 import ast
@@ -17,21 +18,24 @@ import sys
 import pytest
 import torch
 
-from ark_bulletproofs_tpu import curves
-from ark_bulletproofs_tpu import engine as shared_engine
-from ark_bulletproofs_tpu_torch import engine, msm
+from ark_bulletproofs_tpu_torch import curves, engine, msm
 from ark_bulletproofs_tpu_torch.ops import curve as tc
+from ark_bulletproofs_tpu_torch.ops import field as df
 from ark_bulletproofs_tpu_torch.ops import kernels as kk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ark_bulletproofs_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ark_bulletproofs_tpu.ops",
-             "ark_bulletproofs_tpu.parallel",
-             "ark_bulletproofs_tpu.utils.profiling")
+FORBIDDEN = ("jax", "jaxlib", "ark_bulletproofs_tpu")
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setattr(engine.config, "device", "cpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(PKG):
         out += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(out)
@@ -47,38 +51,43 @@ def _imports(path):
             yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
 def test_no_port_module_imports_jax():
     files = _port_files()
-    assert len(files) >= 15
+    assert len(files) >= 30
     for path in files:
         for name in _imports(path):
-            assert not any(name == f or name.startswith(f + ".")
-                           for f in FORBIDDEN), (path, name)
+            assert not _forbidden(name), (path, name)
+    assert not _forbidden("ark_bulletproofs_tpu_torch.ops")
+    assert _forbidden("ark_bulletproofs_tpu.fields")
 
 
 _NO_JAX = r"""
 import importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name == "jax" or name.startswith("jax."):
-            raise ImportError("jax is blocked")
+        for f in ("jax", "ark_bulletproofs_tpu"):
+            if name == f or name.startswith(f + "."):
+                raise ImportError(f"{f} is blocked")
 sys.meta_path.insert(0, Block())
-import random
 import torch
 import ark_bulletproofs_tpu_torch as port
-from ark_bulletproofs_tpu import BulletproofGens, PedersenGens, Transcript
-from ark_bulletproofs_tpu import curves
-from ark_bulletproofs_tpu.rand import seeded_rng
-curve = curves.secq256k1
-with port.engine.host_backend():
-    pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 16, 1)
-sp, ic, oc = port.ShuffleProof.prove(seeded_rng(1), pc, bp,
-                                     Transcript(b"t"), [3, 1, 2], [1, 2, 3])
-port.ShuffleProof(sp.proof).verify(pc, bp, Transcript(b"t"), ic, oc)
 from ark_bulletproofs_tpu_torch.ops import curve as tc, kernels as kk
+port.engine.config.device = "cpu"
+curve = port.curves.secq256k1
+pc, bp = port.PedersenGens.default(curve), port.BulletproofGens(curve, 16, 1)
+sp, ic, oc = port.ShuffleProof.prove(port.seeded_rng(1), pc, bp,
+                                     port.Transcript(b"t"), [3, 1, 2],
+                                     [1, 2, 3])
+port.ShuffleProof(sp.proof).verify(pc, bp, port.Transcript(b"t"), ic, oc)
 P = torch.zeros(3, 16, 2, dtype=torch.int32)
 kk.rcb_double_k_add(tc.spec_for(curve), P, P, 1)
-assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+assert not [m for m in sys.modules
+            if m in ("jax", "ark_bulletproofs_tpu")
+            or m.startswith(("jax.", "ark_bulletproofs_tpu."))]
 print("OK")
 """
 
@@ -111,12 +120,18 @@ def test_wrappers_take_plain_versions_only_for_cpu_tensors():
     P = torch.zeros(3, 16, 2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         kk.rcb_double_k_add(spec, P, P, 0)
+    fs = df.spec_for(curves.secq256k1.fr)
+    a = torch.zeros(16, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        df.mont_mul(fs, a, a)
+    before = df.mont_mul.launches
+    df.mont_mul(fs, torch.ones(16, 2, dtype=torch.int32),
+                torch.ones(16, 1, dtype=torch.int32))
+    assert df.mont_mul.launches == before  # the plain version ran
 
 
-def test_shared_backend_restored():
-    before = shared_engine.config.backend
-    with pytest.raises(KeyError):
-        with engine.host_backend():
-            assert shared_engine.config.backend == "host"
-            raise KeyError("inside")
-    assert shared_engine.config.backend == before
+def test_default_device_is_cuda():
+    """The engine asks for the card unless told otherwise: a fresh config
+    says "cuda" whether or not a card is present."""
+    assert engine.EngineConfig().device == "cuda"
+    assert engine.config.device == "cpu"  # this file's fixture asked

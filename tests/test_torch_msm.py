@@ -15,15 +15,20 @@ import numpy as np
 import pytest
 import torch
 
-from ark_bulletproofs_tpu import curves
+import ark_bulletproofs_tpu as jax_pkg
 from ark_bulletproofs_tpu.ops import curve as jc
 from ark_bulletproofs_tpu.ops import msm2 as jm
-from ark_bulletproofs_tpu.rand import seeded_rng
-from ark_bulletproofs_tpu_torch import engine, msm, msm_many
+from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens, curves,
+                                        engine, msm, msm_many, seeded_rng)
 from ark_bulletproofs_tpu_torch.ops import cache, msm2
 from ark_bulletproofs_tpu_torch.ops.msm import scalars_to_device
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setattr(engine.config, "device", "cpu")
 
 
 def _case(curve, n, seed, sets=1):
@@ -94,19 +99,17 @@ def test_engine_routing():
 
 def test_tables_from_numpy_and_cache():
     """The port's device tables equal the JAX package's numpy tables."""
-    curve = curves.secq256k1
-    from ark_bulletproofs_tpu import BulletproofGens, PedersenGens
-
-    with engine.host_backend():
-        bp = BulletproofGens(curve, 8, 1)
-        pc = PedersenGens.default(curve)
-        gens = bp.share(0)
-        pts = gens.G(8) + gens.H(8)
+    curve, jcurve = curves.secq256k1, jax_pkg.curves.secq256k1
+    bp = BulletproofGens(curve, 8, 1)
+    pc = PedersenGens.default(curve)
+    jgens = jax_pkg.BulletproofGens(jcurve, 8, 1).share(0)
+    pts = jgens.G(8) + jgens.H(8)
     X, Y, inf = cache.bp_table(bp, curve, 8, "cpu")
-    jX, jY, jinf = jc.affine_to_device(curve, pts)
+    jX, jY, jinf = jc.affine_to_device(jcurve, pts)
     for a, b in zip((X, Y, inf), cache.from_numpy(jX, jY, jinf, "cpu")):
         assert torch.equal(a, b)
     assert cache.bp_table(bp, curve, 8, "cpu")[0] is X  # cached
     Xp, Yp, _ = cache.pc_pair(pc, curve, "cpu")
-    jXp, jYp, jIp = jc.affine_to_device(curve, [pc.B, pc.B_blinding])
+    jpc = jax_pkg.PedersenGens.default(jcurve)
+    jXp, jYp, jIp = jc.affine_to_device(jcurve, [jpc.B, jpc.B_blinding])
     assert torch.equal(Xp, cache.from_numpy(jXp, jYp, jIp, "cpu")[0])

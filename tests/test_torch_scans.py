@@ -13,14 +13,24 @@ import numpy as np
 import pytest
 import torch
 
-from ark_bulletproofs_tpu import curves
+from ark_bulletproofs_tpu import curves as jcurves
 from ark_bulletproofs_tpu.ops import curve as jc
 from ark_bulletproofs_tpu.ops import proj as jp
-from ark_bulletproofs_tpu.rand import seeded_rng
+from ark_bulletproofs_tpu_torch import curves, engine, seeded_rng
 from ark_bulletproofs_tpu_torch.ops import curve as tc
 from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setattr(engine.config, "device", "cpu")
+
+
+def _jspec(curve):
+    """The JAX package's CurveSpec of the port's curve."""
+    return jc.spec_for(jcurves.ALL_CURVES[curve.name])
 
 L = 8
 
@@ -70,7 +80,7 @@ CASES = [(curves.secq256k1, 8), (curves.zorro, 1)]
 @pytest.mark.parametrize("curve,R", MADD_CASES,
                          ids=[f"{c.name}-{r}" for c, r in MADD_CASES])
 def test_suffix_madd_scan(curve, R):
-    spec, jspec = tc.spec_for(curve), jc.spec_for(curve)
+    spec, jspec = tc.spec_for(curve), _jspec(curve)
     xy, pts = _rows(curve, R, R)
     got = k2.suffix_madd_scan(spec, xy)
     assert got.shape == (3, R, 16, L) and got.dtype == torch.int32
@@ -87,7 +97,7 @@ def test_suffix_madd_scan(curve, R):
 @pytest.mark.parametrize("curve,R", CASES,
                          ids=[f"{c.name}-{r}" for c, r in CASES])
 def test_suffix_jac_scan(curve, R):
-    spec, jspec = tc.spec_for(curve), jc.spec_for(curve)
+    spec, jspec = tc.spec_for(curve), _jspec(curve)
     xy, _ = _rows(curve, R, 10 + R)
     T = k2.suffix_madd_scan(spec, xy)
     T[:, :, :, 3] = T[:, :1, :, 3]  # a column of equal rows: doublings
@@ -102,7 +112,7 @@ def test_suffix_jac_scan(curve, R):
 @pytest.mark.parametrize("curve,K", CASES,
                          ids=[f"{c.name}-{r}" for c, r in CASES])
 def test_rowsum(curve, K):
-    spec, jspec = tc.spec_for(curve), jc.spec_for(curve)
+    spec, jspec = tc.spec_for(curve), _jspec(curve)
     xy, _ = _rows(curve, K, 20 + K)
     T = k2.suffix_madd_scan(spec, xy)
     got = k2.rowsum(spec, T)
