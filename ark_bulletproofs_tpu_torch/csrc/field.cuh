@@ -20,18 +20,25 @@
 
 // Curve and field constants, passed to every kernel by value (kernel
 // parameters live in the constant bank; all indices below are compile-time
-// after unrolling). The host side packs exactly these 36 words in this order
-// (ops/_build.py::curve_words).
+// after unrolling). The host side packs exactly these 45 words in this order
+// (ops/_build.py::curve_words). A short-Weierstrass curve fills a, b3 and
+// the flags and leaves d zero; a twisted-Edwards curve fills a_mont and
+// d_mont (both applied as full products) and sets te; the field kernels
+// read only p, n0 and one.
 struct CurveConst {
   uint32_t p[8];        // modulus, little-endian 32-bit words
   uint32_t n0;          // -p^-1 mod 2^32
   uint32_t one[8];      // R mod p (Montgomery one)
   uint32_t a_mont[8];   // a * R mod p
-  uint32_t b3_mont[8];  // 3b * R mod p
-  uint32_t a_small;     // plain a when 0 < a < 2^14, else 0
-  uint32_t b3_small;    // plain 3b when 0 < b < 2^14, else 0
+  uint32_t b3_mont[8];  // 3b * R mod p (SW)
+  uint32_t a_small;     // plain a when 0 < a < 2^14, else 0 (SW)
+  uint32_t b3_small;    // plain 3b when 0 < b < 2^14, else 0 (SW)
   uint32_t a_zero;      // 1 when a == 0 (RCB Alg 7/8/9)
+  uint32_t d_mont[8];   // d * R mod p (TE)
+  uint32_t te;          // 1 for a twisted-Edwards curve
 };
+
+static_assert(sizeof(CurveConst) == 45 * 4, "CurveConst layout");
 
 struct Fe {
   uint32_t v[8];

@@ -36,8 +36,6 @@
 
 #include "field.cuh"
 
-static_assert(sizeof(CurveConst) == 36 * 4, "CurveConst layout");
-
 #define MM_THREADS 256
 
 __global__ void __launch_bounds__(MM_THREADS)

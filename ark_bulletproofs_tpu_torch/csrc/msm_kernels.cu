@@ -1,11 +1,24 @@
-// The four kernels of the v2 Pippenger MSM (ops/msm2.py), for Hopper (sm_90a).
+// The group-law kernels of the v2 Pippenger MSM (ops/msm2.py) and of the
+// device Pedersen batch (ops/prove.py), for Hopper (sm_90a).
 //
 // Replaces the TPU kernels:
 //   suffix_madd_scan  <- ark_bulletproofs_tpu/ops/kernels2.py::suffix_madd_scan
+//                        (its TE body: ops/kernels.py::te_madd_tiled's)
 //   suffix_jac_scan   <- ark_bulletproofs_tpu/ops/kernels2.py::suffix_jac_scan
 //   rowsum            <- ark_bulletproofs_tpu/ops/kernels2.py::rowsum_jac
 //   rcb_double_k_add  <- ark_bulletproofs_tpu/ops/kernels.py::rcb_double_k_add_tiled
 //                        and, with k = 0, ::rcb_add_tiled
+//   te_double_k_add   <- ark_bulletproofs_tpu/ops/kernels.py::te_double_k_add_tiled
+//                        and, with k = 0, ::te_add_tiled
+//   te_double         <- ark_bulletproofs_tpu/ops/kernels.py::te_double_tiled
+//
+// Each kernel is a template over a point model: RcbModel<true> (RCB, a = 0:
+// secq256k1), RcbModel<false> (RCB, general a: zorro) and TeModel (HWCD
+// extended: curve25519). A model supplies the point type, its identity,
+// add, mixed add, doubling, load and store; the launchers pick it from the
+// constants (te, a_zero), so each kernel is compiled once per model and
+// carries no dead registers of another. A 3-coordinate model reads and
+// writes (3, rows, 16, L) arrays, TeModel (4, rows, 16, L).
 //
 // Design: one thread per lane, the running point in registers. On the TPU
 // the row loop was the grid's sequential dimension with a VMEM scratch
@@ -13,7 +26,7 @@
 // the thread. Lanes are columns of independent sums, so no block needs
 // another's result.
 //
-// What bounds them: integer multiply throughput. One mixed add is ~11
+// What bounds them: integer multiply throughput. One mixed add is 11
 // Montgomery products of 64 32 x 32-bit multiply-adds each plus the
 // reduction, against 2 x 64 bytes read and 3 x 64 bytes written; at the
 // main path's shape (n = 2^20: R = 1024 rows, L = 22,528 lanes) the scan
@@ -25,24 +38,90 @@
 // optimisation looks at: 22,528 lanes are ~176 blocks of 128 threads on
 // 132 SMs, about one block per SM.
 //
+// A TE point is 4 x 8 words against 3 x 8: the TE scans write a third
+// more bytes (5.9 GB at the n = 2^20 shape) for the same 11 products a
+// mixed add.
+//
 // Each launcher is extern "C", takes device pointers and the stream as
-// void*, the curve constants as a pointer to 36 host words, and returns
-// cudaGetLastError().
+// void*, the curve constants as a pointer to 45 host words, and returns
+// cudaGetLastError() (cudaErrorInvalidValue, without a launch, for a
+// curve of the wrong model).
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "rcb.cuh"
-
-static_assert(sizeof(CurveConst) == 36 * 4, "CurveConst layout");
+#include "te.cuh"
 
 #define THREADS 128
 
+template <bool AZ>
+struct RcbModel {
+  using P = Pt;
+  static __device__ __forceinline__ P identity(const CurveConst& cc) {
+    return pt_identity(cc);
+  }
+  static __device__ __forceinline__ P add(const P& a, const P& b,
+                                          const CurveConst& cc) {
+    return rcb_add<AZ>(a, b, cc);
+  }
+  static __device__ __forceinline__ P madd(const P& a, const Fe& qx,
+                                           const Fe& qy, bool q_inf,
+                                           const CurveConst& cc) {
+    return rcb_madd<AZ>(a, qx, qy, q_inf, cc);
+  }
+  static __device__ __forceinline__ P dbl(const P& a, const CurveConst& cc) {
+    return rcb_double<AZ>(a, cc);
+  }
+  static __device__ __forceinline__ P load(const int32_t* base, size_t rows,
+                                           size_t row, size_t L,
+                                           size_t lane) {
+    return pt_load(base, rows, row, L, lane);
+  }
+  static __device__ __forceinline__ void store(int32_t* base, size_t rows,
+                                               size_t row, size_t L,
+                                               size_t lane, const P& a) {
+    pt_store(base, rows, row, L, lane, a);
+  }
+};
+
+struct TeModel {
+  using P = Pt4;
+  static __device__ __forceinline__ P identity(const CurveConst& cc) {
+    return te_identity(cc);
+  }
+  static __device__ __forceinline__ P add(const P& a, const P& b,
+                                          const CurveConst& cc) {
+    return te_add(a, b, cc);
+  }
+  static __device__ __forceinline__ P madd(const P& a, const Fe& qx,
+                                           const Fe& qy, bool q_inf,
+                                           const CurveConst& cc) {
+    return te_madd(a, qx, qy, q_inf, cc);
+  }
+  static __device__ __forceinline__ P dbl(const P& a, const CurveConst& cc) {
+    return te_double(a, cc);
+  }
+  static __device__ __forceinline__ P load(const int32_t* base, size_t rows,
+                                           size_t row, size_t L,
+                                           size_t lane) {
+    return pt4_load(base, rows, row, L, lane);
+  }
+  static __device__ __forceinline__ void store(int32_t* base, size_t rows,
+                                               size_t row, size_t L,
+                                               size_t lane, const P& a) {
+    pt4_store(base, rows, row, L, lane, a);
+  }
+};
+
+using RcbA0 = RcbModel<true>;
+using RcbA = RcbModel<false>;
+
 // out[:, r] = sum_{r' >= r} (x, y)[r'] per lane, scanned from the last row
 // up. xy: (2, R, 16, L) affine Montgomery coords; a row with y = 0 is the
-// identity (no point of an odd-order short-Weierstrass curve has y = 0).
-// out: (3, R, 16, L).
-template <bool AZ>
+// identity (no point of an odd-order short-Weierstrass curve, and no point
+// of curve25519's prime-order subgroup, has y = 0). out: (NC, R, 16, L).
+template <class M>
 __global__ void __launch_bounds__(THREADS)
     suffix_madd_scan_kernel(const int32_t* __restrict__ xy,
                             int32_t* __restrict__ out, int64_t R, int64_t L,
@@ -50,18 +129,18 @@ __global__ void __launch_bounds__(THREADS)
   size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)L) return;
   const int32_t* ys = xy + (size_t)R * 16 * L;
-  Pt acc = pt_identity(cc);
+  typename M::P acc = M::identity(cc);
   for (int64_t r = R - 1; r >= 0; --r) {
     Fe qx = fe_load(xy, r, L, lane);
     Fe qy = fe_load(ys, r, L, lane);
-    acc = rcb_madd<AZ>(acc, qx, qy, fe_is_zero(qy), cc);
-    pt_store(out, R, r, L, lane, acc);
+    acc = M::madd(acc, qx, qy, fe_is_zero(qy), cc);
+    M::store(out, R, r, L, lane, acc);
   }
 }
 
 // excl[:, r] = sum_{r' > r} in[:, r'], tot = sum over all rows.
-// in, excl: (3, R, 16, L); tot: (3, 1, 16, L).
-template <bool AZ>
+// in, excl: (NC, R, 16, L); tot: (NC, 1, 16, L).
+template <class M>
 __global__ void __launch_bounds__(THREADS)
     suffix_jac_scan_kernel(const int32_t* __restrict__ in,
                            int32_t* __restrict__ excl,
@@ -69,42 +148,52 @@ __global__ void __launch_bounds__(THREADS)
                            CurveConst cc) {
   size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)L) return;
-  Pt acc = pt_identity(cc);
+  typename M::P acc = M::identity(cc);
   for (int64_t r = R - 1; r >= 0; --r) {
-    pt_store(excl, R, r, L, lane, acc);
-    acc = rcb_add<AZ>(acc, pt_load(in, R, r, L, lane), cc);
+    M::store(excl, R, r, L, lane, acc);
+    acc = M::add(acc, M::load(in, R, r, L, lane), cc);
   }
-  pt_store(tot, 1, 0, L, lane, acc);
+  M::store(tot, 1, 0, L, lane, acc);
 }
 
 // out = in[:, 0] + in[:, 1] + ... + in[:, K-1], added in that order.
-// in: (3, K, 16, L); out: (3, 1, 16, L).
-template <bool AZ>
+// in: (NC, K, 16, L); out: (NC, 1, 16, L).
+template <class M>
 __global__ void __launch_bounds__(THREADS)
     rowsum_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                   int64_t K, int64_t L, CurveConst cc) {
   size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)L) return;
-  Pt acc = pt_identity(cc);
+  typename M::P acc = M::identity(cc);
   for (int64_t r = 0; r < K; ++r) {
-    acc = rcb_add<AZ>(acc, pt_load(in, K, r, L, lane), cc);
+    acc = M::add(acc, M::load(in, K, r, L, lane), cc);
   }
-  pt_store(out, 1, 0, L, lane, acc);
+  M::store(out, 1, 0, L, lane, acc);
 }
 
-// out = 2^k * P + Q elementwise; P, Q, out: (3, 1, 16, m).
-template <bool AZ>
+// out = 2^k * P + Q elementwise; P, Q, out: (NC, 1, 16, m).
+template <class M>
 __global__ void __launch_bounds__(THREADS)
-    rcb_double_k_add_kernel(const int32_t* __restrict__ P,
-                            const int32_t* __restrict__ Q,
-                            int32_t* __restrict__ out, int64_t m, int32_t k,
-                            CurveConst cc) {
+    double_k_add_kernel(const int32_t* __restrict__ P,
+                        const int32_t* __restrict__ Q,
+                        int32_t* __restrict__ out, int64_t m, int32_t k,
+                        CurveConst cc) {
   size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)m) return;
-  Pt acc = pt_load(P, 1, 0, m, lane);
-  for (int32_t i = 0; i < k; ++i) acc = rcb_double<AZ>(acc, cc);
-  acc = rcb_add<AZ>(acc, pt_load(Q, 1, 0, m, lane), cc);
-  pt_store(out, 1, 0, m, lane, acc);
+  typename M::P acc = M::load(P, 1, 0, m, lane);
+  for (int32_t i = 0; i < k; ++i) acc = M::dbl(acc, cc);
+  acc = M::add(acc, M::load(Q, 1, 0, m, lane), cc);
+  M::store(out, 1, 0, m, lane, acc);
+}
+
+// out = 2P elementwise; P, out: (NC, 1, 16, m).
+template <class M>
+__global__ void __launch_bounds__(THREADS)
+    double_kernel(const int32_t* __restrict__ P, int32_t* __restrict__ out,
+                  int64_t m, CurveConst cc) {
+  size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (size_t)m) return;
+  M::store(out, 1, 0, m, lane, M::dbl(M::load(P, 1, 0, m, lane), cc));
 }
 
 static inline CurveConst load_cc(const void* words) {
@@ -117,17 +206,25 @@ static inline unsigned blocks_for(int64_t lanes) {
   return (unsigned)((lanes + THREADS - 1) / THREADS);
 }
 
+// Launch KERNEL<model>(args...) over `lanes` threads, the model picked from
+// the constants `cc` (in scope with the stream `s`).
+#define LAUNCH_BY_MODEL(KERNEL, lanes, ...)                           \
+  do {                                                                \
+    if (cc.te)                                                        \
+      KERNEL<TeModel><<<blocks_for(lanes), THREADS, 0, s>>>(__VA_ARGS__); \
+    else if (cc.a_zero)                                               \
+      KERNEL<RcbA0><<<blocks_for(lanes), THREADS, 0, s>>>(__VA_ARGS__);   \
+    else                                                              \
+      KERNEL<RcbA><<<blocks_for(lanes), THREADS, 0, s>>>(__VA_ARGS__);    \
+  } while (0)
+
 extern "C" int abtpu_suffix_madd_scan(const void* xy, void* out, int64_t R,
                                       int64_t L, const void* words,
                                       void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
-  if (cc.a_zero)
-    suffix_madd_scan_kernel<true><<<blocks_for(L), THREADS, 0, s>>>(
-        (const int32_t*)xy, (int32_t*)out, R, L, cc);
-  else
-    suffix_madd_scan_kernel<false><<<blocks_for(L), THREADS, 0, s>>>(
-        (const int32_t*)xy, (int32_t*)out, R, L, cc);
+  LAUNCH_BY_MODEL(suffix_madd_scan_kernel, L, (const int32_t*)xy,
+                  (int32_t*)out, R, L, cc);
   return (int)cudaGetLastError();
 }
 
@@ -136,12 +233,8 @@ extern "C" int abtpu_suffix_jac_scan(const void* in, void* excl, void* tot,
                                      void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
-  if (cc.a_zero)
-    suffix_jac_scan_kernel<true><<<blocks_for(L), THREADS, 0, s>>>(
-        (const int32_t*)in, (int32_t*)excl, (int32_t*)tot, R, L, cc);
-  else
-    suffix_jac_scan_kernel<false><<<blocks_for(L), THREADS, 0, s>>>(
-        (const int32_t*)in, (int32_t*)excl, (int32_t*)tot, R, L, cc);
+  LAUNCH_BY_MODEL(suffix_jac_scan_kernel, L, (const int32_t*)in,
+                  (int32_t*)excl, (int32_t*)tot, R, L, cc);
   return (int)cudaGetLastError();
 }
 
@@ -149,12 +242,8 @@ extern "C" int abtpu_rowsum(const void* in, void* out, int64_t K, int64_t L,
                             const void* words, void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
-  if (cc.a_zero)
-    rowsum_kernel<true><<<blocks_for(L), THREADS, 0, s>>>(
-        (const int32_t*)in, (int32_t*)out, K, L, cc);
-  else
-    rowsum_kernel<false><<<blocks_for(L), THREADS, 0, s>>>(
-        (const int32_t*)in, (int32_t*)out, K, L, cc);
+  LAUNCH_BY_MODEL(rowsum_kernel, L, (const int32_t*)in, (int32_t*)out, K, L,
+                  cc);
   return (int)cudaGetLastError();
 }
 
@@ -163,11 +252,29 @@ extern "C" int abtpu_rcb_double_k_add(const void* P, const void* Q, void* out,
                                       void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
-  if (cc.a_zero)
-    rcb_double_k_add_kernel<true><<<blocks_for(m), THREADS, 0, s>>>(
-        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
-  else
-    rcb_double_k_add_kernel<false><<<blocks_for(m), THREADS, 0, s>>>(
-        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
+  if (cc.te) return (int)cudaErrorInvalidValue;
+  LAUNCH_BY_MODEL(double_k_add_kernel, m, (const int32_t*)P,
+                  (const int32_t*)Q, (int32_t*)out, m, k, cc);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int abtpu_te_double_k_add(const void* P, const void* Q, void* out,
+                                     int64_t m, int32_t k, const void* words,
+                                     void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!cc.te) return (int)cudaErrorInvalidValue;
+  double_k_add_kernel<TeModel><<<blocks_for(m), THREADS, 0, s>>>(
+      (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int abtpu_te_double(const void* P, void* out, int64_t m,
+                               const void* words, void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!cc.te) return (int)cudaErrorInvalidValue;
+  double_kernel<TeModel><<<blocks_for(m), THREADS, 0, s>>>(
+      (const int32_t*)P, (int32_t*)out, m, cc);
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,8 @@ Generator tables are deterministic, precomputable artifacts; `save`/`load`
 persist them (the checkpoint/resume analog, SURVEY.md §5). The device MSM
 path caches limb-decomposed copies of these tables on the card (ops/cache.py).
 
-The port's copy of the JAX package's generators.py, host branches only.
+The port's copy of the JAX package's generators.py: host branches, and the
+device Pedersen batch of a twisted-Edwards curve (ops/prove.py).
 """
 
 from __future__ import annotations
@@ -85,10 +86,18 @@ class PedersenGens:
                     zi2 = zi * zi % p
                     out[i] = (X * zi2 % p, Y * zi2 % p * zi % p)
                 return out
-        # No native backend for this curve (TE model / wide fields): the
-        # sequential host path. The JAX package batches such curves on its
-        # device (ops/prove.py::pedersen_commit_many_dev); that waits for
-        # the port's twisted-Edwards slice.
+        # No native backend for a twisted-Edwards curve: a batch of 64 or
+        # more goes to the device above the engine's threshold (as in the
+        # JAX package; the host double-and-add costs milliseconds per
+        # commitment), the rest to the sequential host path.
+        if len(values) >= 64 and not hasattr(c, "b"):
+            from . import engine
+
+            if engine.use_device(len(values)):
+                from .ops.prove import pedersen_commit_many_dev
+
+                return pedersen_commit_many_dev(self, values, blinds,
+                                                engine.torch_device())
         return [self.commit(v, r) for v, r in zip(values, blinds)]
 
 

@@ -7,7 +7,9 @@ by a hash of the sources, so an edited source is rebuilt and an unchanged
 one is loaded as it is. The host C++ of csrc/host/ is not in the glob: g++
 builds it (native.py). ctypes binds it: every pointer and the stream are
 c_void_p, sizes are c_int64, and every entry returns cudaGetLastError(),
-which `check` turns into an exception. Nothing here runs at import.
+which `check` turns into an exception. nvcc runs with `-Xptxas -v`; its
+report (registers, spills per kernel) is kept in `build_log`. Nothing here
+runs at import.
 """
 
 from __future__ import annotations
@@ -28,12 +30,13 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
 _lib = None
 build_seconds: float | None = None
+build_log: str | None = None  # nvcc's output of the build in this process
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 _SIGNATURES = {
@@ -41,6 +44,8 @@ _SIGNATURES = {
     "abtpu_suffix_jac_scan": [_P, _P, _P, _I64, _I64, _P, _P],
     "abtpu_rowsum": [_P, _P, _I64, _I64, _P, _P],
     "abtpu_rcb_double_k_add": [_P, _P, _P, _I64, _I32, _P, _P],
+    "abtpu_te_double_k_add": [_P, _P, _P, _I64, _I32, _P, _P],
+    "abtpu_te_double": [_P, _P, _I64, _P, _P],
     "abtpu_mont_mul": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P],
 }
 
@@ -69,7 +74,7 @@ def library_path() -> str:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library; builds it first if needed."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     with _lock:
         if _lib is not None:
             return _lib
@@ -88,6 +93,7 @@ def lib() -> ctypes.CDLL:
                 for s, o in zip(cus, objs)
             ]
             logs = [p.communicate()[0] for p in procs]
+            build_log = "\n".join(logs)
             failed = [log for p, log in zip(procs, logs) if p.returncode]
             if not failed:
                 r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
@@ -119,9 +125,10 @@ _WORDS: dict = {}
 
 
 def curve_words(spec) -> np.ndarray:
-    """The 36 uint32 words of csrc/field.cuh::CurveConst for a CurveSpec,
-    or for a FieldSpec the field's p, n0 and R with zero curve words (the
-    field kernels read only those). Kept alive in a cache: ctypes passes a
+    """The 45 uint32 words of csrc/field.cuh::CurveConst for a CurveSpec
+    (short-Weierstrass) or a TECurveSpec (twisted-Edwards), or for a
+    FieldSpec the field's p, n0 and R with zero curve words (the field
+    kernels read only those). Kept alive in a cache: ctypes passes a
     pointer to them."""
     w = _WORDS.get(spec)
     if w is None:
@@ -133,12 +140,16 @@ def curve_words(spec) -> np.ndarray:
         def val(limbs16) -> int:
             return sum(v << (16 * i) for i, v in enumerate(limbs16))
 
-        curve = [0] * 19
-        if spec is not fs:
+        zero = [0] * 8
+        curve = [0] * 28
+        if hasattr(spec, "d_mont_limbs"):  # TECurveSpec
+            curve = (words(val(spec.a_mont_limbs)) + zero + [0, 0, 0]
+                     + words(val(spec.d_mont_limbs)) + [1])
+        elif spec is not fs:
             curve = (words(val(spec.a_mont_limbs))
                      + words(val(spec.b3_mont_limbs))
                      + [spec.a_small or 0, spec.b3_small or 0,
-                        int(spec.is_a_zero)])
+                        int(spec.is_a_zero)] + zero + [0])
         w = np.array(words(fs.p) + [fs.n0_32] + words(fs.R) + curve,
                      dtype=np.uint32)
         _WORDS[spec] = w

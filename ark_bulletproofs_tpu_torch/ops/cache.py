@@ -2,7 +2,8 @@
 
 Generator tables are deterministic and reused across proofs, so their
 points are converted to Montgomery limbs and moved to the device once
-per (table, curve, size, device), keyed weakly on the table object.
+per (table, curve, size, device), keyed weakly on the table object; so is
+the 2^i B | 2^i B_blinding table of a twisted-Edwards PedersenGens.
 `from_numpy` takes tables in the JAX package's numpy layout
 (ark_bulletproofs_tpu/ops/curve.py::affine_to_device: (m, 16) uint32
 Montgomery limbs and an (m,) identity mask) to the port's layout.
@@ -15,8 +16,9 @@ import weakref
 import numpy as np
 import torch
 
-from .curve import affine_to_device
-from .limbs import limbs_from_numpy
+from . import kernels as kk
+from .curve import affine_to_device, spec_for
+from .limbs import N_LIMBS, ints_to_limbs, limbs_from_numpy
 
 _CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
@@ -73,3 +75,24 @@ def full_table(bp_gens, pc_gens, curve, device):
 
     return _cached(bp_gens, (curve.name, "full", cap, id(pc_gens),
                              str(device)), make)
+
+
+def commit_table(pc_gens, device):
+    """(4, 16, 512) extended points for the device Pedersen batch of a
+    twisted-Edwards curve (ops/prove.py): lane i holds 2^i B, lane 256 + i
+    2^i B_blinding (i < 256). 255 `te_double` launches of two lanes, once
+    per (pc_gens, device) (the JAX package's `_q_doubles` scan)."""
+    curve = pc_gens.curve
+
+    def make():
+        spec, f = spec_for(curve), curve.fq
+        ext = [curve.to_proj(P) for P in (pc_gens.B, pc_gens.B_blinding)]
+        P = torch.stack([ints_to_limbs([e[c] * f.R % f.p for e in ext],
+                                       device) for c in range(4)])
+        rows = [P]
+        for _ in range(255):
+            P = kk.te_double(spec, P)
+            rows.append(P)
+        return torch.stack(rows, dim=-1).reshape(4, N_LIMBS, 512)
+
+    return _cached(pc_gens, (curve.name, "commit", str(device)), make)

@@ -99,8 +99,10 @@ def _cq_ints(curve, rows: torch.Tensor) -> list[int]:
 
 
 def _host_q_jacs(curve, Q, values: list[int]) -> list:
-    """[v * Q] as host Jacobian int tuples, through the native fixed-base
-    window tables when available; else the exact host double-and-add."""
+    """[v * Q] as host internal (Jacobian, or TE extended) int tuples,
+    through the native fixed-base window tables when available; else the
+    exact host double-and-add (twisted-Edwards curves: two scalar
+    multiplications a round)."""
     if (
         len(values) >= 2
         and getattr(curve, "b", None) is not None
@@ -146,8 +148,8 @@ class IpaDeviceProver:
         return lim[:, :1], lim[:, 1:]
 
     def _host_lr(self, pts: torch.Tensor, cq: torch.Tensor):
-        """(3, 16, 2) projective L, R partials and their (2, 16, 1) Q
-        scalars -> host affine (L, R) with the c * Q terms added."""
+        """(NC, 16, 2) L, R partials and their (2, 16, 1) Q scalars ->
+        host affine (L, R) with the c * Q terms added."""
         c = self.curve
         lr = point_batch_to_host(c, pts)
         qj = _host_q_jacs(c, self.Q, _cq_ints(c, cq))

@@ -1,13 +1,20 @@
-"""Elementwise group-law kernel: 2^k * P + Q (CUDA, csrc/msm_kernels.cu).
+"""Elementwise group-law kernels (CUDA, csrc/msm_kernels.cu).
 
-Replaces ark_bulletproofs_tpu/ops/kernels.py::rcb_double_k_add_tiled (the
-v2 MSM's stage-G Horner step) and, with k = 0, ::rcb_add_tiled (the
-complete adds of the MSM glue and of the ragged driver's chunk sum). `k`
-is a runtime argument, so one kernel serves both.
+  rcb_double_k_add <- ark_bulletproofs_tpu/ops/kernels.py::
+      rcb_double_k_add_tiled (the v2 MSM's stage-G Horner step) and, with
+      k = 0, ::rcb_add_tiled (the complete adds of the MSM glue and of the
+      ragged driver's chunk sum), short-Weierstrass curves;
+  te_double_k_add  <- ::te_double_k_add_tiled and, with k = 0,
+      ::te_add_tiled: the same steps on a twisted-Edwards curve, and the
+      device Pedersen batch's halving tree (ops/prove.py);
+  te_double        <- ::te_double_tiled: the 2^i B tables of that batch.
 
-The wrapper takes points in the boundary layout, (3, 16, m) int32
-(coordinate, limb, lane). On a CPU tensor it runs the plain version
-below; on a CUDA tensor it launches the kernel, or raises.
+`k` is a runtime argument, so one kernel serves both the Horner step and
+the add. `double_k_add` and `add` pick the wrapper by the spec's type.
+The wrappers take points in the boundary layout, (NC, 16, m) int32
+(coordinate, limb, lane; NC = 3 for SW, 4 for TE). On a CPU tensor each
+runs its plain version below; on a CUDA tensor it launches its kernel, or
+raises.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 
 from . import _build
 from . import proj
+from .curve import is_te, n_coords
 from .limbs import N_LIMBS
 
 
@@ -68,37 +76,95 @@ def lane_slices(L: int, device: torch.device) -> list[slice]:
     return [slice(o, min(o + step, L)) for o in range(0, L, step)]
 
 
-def rcb_double_k_add_plain(spec, P: torch.Tensor, Q: torch.Tensor,
-                           k: int) -> torch.Tensor:
+def double_k_add_plain(spec, P: torch.Tensor, Q: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """The plain version of both double-k-add kernels (proj.double_k_add
+    dispatches on the spec)."""
     return torch.cat([
         proj.double_k_add(spec, P[..., sl], Q[..., sl], k)
         for sl in lane_slices(P.shape[-1], P.device)
     ], dim=-1).to(torch.int32)
 
 
-def rcb_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
-                     k: int) -> torch.Tensor:
-    """2^k * P + Q lane-wise; P, Q: (3, 16, m) int32."""
+def _check_model(name: str, spec, te: bool) -> None:
+    if is_te(spec) != te:
+        raise TypeError(f"{name}: {spec.name} is not a "
+                        f"{'twisted-Edwards' if te else 'short-Weierstrass'}"
+                        " curve")
+
+
+def _double_k_add(wrapper, spec, P, Q, k: int):
+    """Checks, then the plain version (CPU) or the wrapper's kernel
+    (CUDA), counted on the wrapper."""
+    name = wrapper.__name__
     m = P.shape[-1]
-    check_tensor(P, (3, N_LIMBS, m), "rcb_double_k_add P")
-    check_tensor(Q, (3, N_LIMBS, m), "rcb_double_k_add Q")
+    nc = n_coords(spec)
+    check_tensor(P, (nc, N_LIMBS, m), f"{name} P")
+    check_tensor(Q, (nc, N_LIMBS, m), f"{name} Q")
     if not 0 <= k < (1 << 31):
-        raise ValueError(f"rcb_double_k_add: k={k} out of range")
+        raise ValueError(f"{name}: k={k} out of range")
     dev = same_device(P, Q)
     if dev.type == "cpu":
-        return rcb_double_k_add_plain(spec, P, Q, k)
+        return double_k_add_plain(spec, P, Q, k)
     if m == 0:
-        raise ValueError("rcb_double_k_add: empty input")
+        raise ValueError(f"{name}: empty input")
     out = torch.empty_like(P)
-    launch("rcb_double_k_add", spec, dev, P.data_ptr(), Q.data_ptr(),
-           out.data_ptr(), m, k)
-    rcb_double_k_add.launches += 1
+    launch(name, spec, dev, P.data_ptr(), Q.data_ptr(), out.data_ptr(), m, k)
+    wrapper.launches += 1
+    return out
+
+
+def rcb_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """2^k * P + Q lane-wise on a short-Weierstrass curve; P, Q: (3, 16,
+    m) int32."""
+    _check_model("rcb_double_k_add", spec, te=False)
+    return _double_k_add(rcb_double_k_add, spec, P, Q, k)
+
+
+def te_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """2^k * P + Q lane-wise on a twisted-Edwards curve; P, Q: (4, 16, m)
+    int32 extended points."""
+    _check_model("te_double_k_add", spec, te=True)
+    return _double_k_add(te_double_k_add, spec, P, Q, k)
+
+
+def te_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
+    return torch.cat([
+        proj.double(spec, P[..., sl])
+        for sl in lane_slices(P.shape[-1], P.device)
+    ], dim=-1).to(torch.int32)
+
+
+def te_double(spec, P: torch.Tensor) -> torch.Tensor:
+    """2P lane-wise on a twisted-Edwards curve; P: (4, 16, m) int32."""
+    _check_model("te_double", spec, te=True)
+    m = P.shape[-1]
+    check_tensor(P, (4, N_LIMBS, m), "te_double P")
+    if P.device.type == "cpu":
+        return te_double_plain(spec, P)
+    if m == 0:
+        raise ValueError("te_double: empty input")
+    out = torch.empty_like(P)
+    launch("te_double", spec, P.device, P.data_ptr(), out.data_ptr(), m)
+    te_double.launches += 1
     return out
 
 
 rcb_double_k_add.launches = 0
+te_double_k_add.launches = 0
+te_double.launches = 0
 
 
-def rcb_add(spec, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
-    """Complete P + Q: the k = 0 case of `rcb_double_k_add`."""
-    return rcb_double_k_add(spec, P, Q, 0)
+def double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """2^k * P + Q through the kernel of the spec's model."""
+    if is_te(spec):
+        return te_double_k_add(spec, P, Q, k)
+    return rcb_double_k_add(spec, P, Q, k)
+
+
+def add(spec, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """Complete P + Q: the k = 0 case of `double_k_add`."""
+    return double_k_add(spec, P, Q, 0)

@@ -17,8 +17,9 @@ bases:
      global suffix sum and pos_j = searchsorted(digits, j): a gather and
      one add per bucket;
   F. `rowsum` collapses the S = 2^c bucket terms in two passes;
-  G. Horner over windows, acc = 2^c acc + part_w, one `rcb_double_k_add`
-     launch per window.
+  G. Horner over windows, acc = 2^c acc + part_w, one double-k-add
+     launch per window (`rcb_double_k_add`, or `te_double_k_add` on a
+     twisted-Edwards curve, as the JAX package's stage G picks).
 
 The glue between the kernels is plain torch. What the JAX version did
 only for the TPU is re-decided: the x | y << 16 packed gather rows, the
@@ -28,8 +29,9 @@ and the gather paths exist), and the small Hillis-Steele chunk-carry
 suffix is a second `suffix_jac_scan`. PyTorch runs eagerly, so there is
 no fused-vs-staged split.
 
-Points are RCB projective (3, 16, lanes) int32 throughout; the result is
-(3, 16, B).
+Points are (NC, 16, lanes) int32 throughout: RCB projective, NC = 3, on
+a short-Weierstrass curve; HWCD extended, NC = 4, on a twisted-Edwards
+one (`curve.n_coords`). The result is (NC, 16, B).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 from . import kernels as kk
 from . import kernels2 as k2
 from . import proj
+from .curve import n_coords
 from .limbs import N_LIMBS
 
 NL = N_LIMBS
@@ -128,19 +131,20 @@ def _stage_gather(g: _Cfg, X, Y, inf, order, base_map=None):
 
 
 def _stage_carries(g: _Cfg, spec, locs: torch.Tensor) -> torch.Tensor:
-    """Exclusive column-carry suffix -> (3, 16, BW * C), lane b * C + col,
-    col = i1 * c2 + i2."""
+    """Exclusive column-carry suffix -> (NC, 16, BW * C), lane b * C +
+    col, col = i1 * c2 + i2."""
     c1, c2, BW = g.c1, g.c2, g.BW
-    tot = locs[:, 0].reshape(3, NL, BW, c1, c2)
-    lvl_a = tot.permute(0, 4, 1, 2, 3).reshape(3, c2, NL, BW * c1)
+    nc = n_coords(spec)
+    tot = locs[:, 0].reshape(nc, NL, BW, c1, c2)
+    lvl_a = tot.permute(0, 4, 1, 2, 3).reshape(nc, c2, NL, BW * c1)
     excl, ct = k2.suffix_jac_scan(spec, lvl_a.contiguous())
-    lvl_b = ct.reshape(3, NL, BW, c1).permute(0, 3, 1, 2).contiguous()
-    ce, _ = k2.suffix_jac_scan(spec, lvl_b)  # (3, c1, 16, BW)
-    e2 = (excl.reshape(3, c2, NL, BW, c1).permute(0, 2, 3, 4, 1)
-          .reshape(3, NL, g.L))
-    ceb = (ce.permute(0, 2, 3, 1).unsqueeze(-1).expand(3, NL, BW, c1, c2)
-           .reshape(3, NL, g.L))
-    return kk.rcb_add(spec, e2.contiguous(), ceb.contiguous())
+    lvl_b = ct.reshape(nc, NL, BW, c1).permute(0, 3, 1, 2).contiguous()
+    ce, _ = k2.suffix_jac_scan(spec, lvl_b)  # (NC, c1, 16, BW)
+    e2 = (excl.reshape(nc, c2, NL, BW, c1).permute(0, 2, 3, 4, 1)
+          .reshape(nc, NL, g.L))
+    ceb = (ce.permute(0, 2, 3, 1).unsqueeze(-1).expand(nc, NL, BW, c1, c2)
+           .reshape(nc, NL, g.L))
+    return kk.add(spec, e2.contiguous(), ceb.contiguous())
 
 
 def _bucket_pos(sd: torch.Tensor, S: int) -> torch.Tensor:
@@ -151,9 +155,10 @@ def _bucket_pos(sd: torch.Tensor, S: int) -> torch.Tensor:
 
 
 def _stage_buckets(g: _Cfg, spec, sd, excl_col, locs) -> torch.Tensor:
-    """Bucket terms T[pos_j] for j in [0, S) -> (3, 16, BW * S), lane
+    """Bucket terms T[pos_j] for j in [0, S) -> (NC, 16, BW * S), lane
     b * S + j; slot 0 and empty slots are the identity."""
     S, n, R, C, BW = g.S, g.n, g.R, g.C, g.BW
+    nc = n_coords(spec)
     dev = sd.device
     pos = _bucket_pos(sd, S)
     js = torch.arange(S, device=dev)
@@ -161,31 +166,33 @@ def _stage_buckets(g: _Cfg, spec, sd, excl_col, locs) -> torch.Tensor:
     posc = pos.clamp(max=n - 1)
     colj, rj = posc // R, posc % R
     lanej = torch.arange(BW, device=dev)[:, None] * C + colj
-    T1 = locs.permute(0, 2, 1, 3)[:, :, rj, lanej].reshape(3, NL, BW * S)
-    EC = excl_col.reshape(3, NL, BW * C)[:, :, lanej].reshape(3, NL, BW * S)
+    T1 = locs.permute(0, 2, 1, 3)[:, :, rj, lanej].reshape(nc, NL, BW * S)
+    EC = excl_col.reshape(nc, NL, BW * C)[:, :, lanej].reshape(nc, NL,
+                                                               BW * S)
     ident = proj.point_zero(spec, BW * S, dev).to(torch.int32)
     T1 = proj.select(valid, T1, ident).contiguous()
     EC = proj.select(valid, EC, ident).contiguous()
-    return kk.rcb_add(spec, T1, EC)
+    return kk.add(spec, T1, EC)
 
 
 def _stage_rowsum(g: _Cfg, spec, U: torch.Tensor) -> torch.Tensor:
-    """Two-pass collapse of the S bucket terms -> (3, 16, BW)."""
+    """Two-pass collapse of the S bucket terms -> (NC, 16, BW)."""
     S, BW = g.S, g.BW
+    nc = n_coords(spec)
     K1 = (16 if S <= 1024 else 64) if S >= 16 else S
     M1 = S // K1
-    p1 = U.reshape(3, NL, BW, K1, M1).permute(0, 3, 1, 2, 4)
-    part1 = k2.rowsum(spec, p1.reshape(3, K1, NL, BW * M1).contiguous())
-    p2 = part1.reshape(3, NL, BW, M1).permute(0, 3, 1, 2).contiguous()
+    p1 = U.reshape(nc, NL, BW, K1, M1).permute(0, 3, 1, 2, 4)
+    part1 = k2.rowsum(spec, p1.reshape(nc, K1, NL, BW * M1).contiguous())
+    p2 = part1.reshape(nc, NL, BW, M1).permute(0, 3, 1, 2).contiguous()
     return k2.rowsum(spec, p2)
 
 
 def _stage_horner(g: _Cfg, spec, wsum: torch.Tensor) -> torch.Tensor:
-    """acc = 2^c acc + part_w over descending windows -> (3, 16, B)."""
-    h = wsum.reshape(3, NL, g.B, g.W)
+    """acc = 2^c acc + part_w over descending windows -> (NC, 16, B)."""
+    h = wsum.reshape(n_coords(spec), NL, g.B, g.W)
     acc = h[..., g.W - 1].contiguous()
     for w in range(g.W - 2, -1, -1):
-        acc = kk.rcb_double_k_add(spec, acc, h[..., w].contiguous(), g.c)
+        acc = kk.double_k_add(spec, acc, h[..., w].contiguous(), g.c)
     return acc
 
 
@@ -195,7 +202,7 @@ def msm2_impl(spec, c: int, X, Y, inf, scal,
     bool; scal: (B, 16, n) canonical scalar limbs; all int32 but inf, on
     one device. Without base_map m = n and scalar j multiplies point j;
     with base_map (B, n) it multiplies table row base_map[b, j]. Returns
-    the B sums as a (3, 16, B) projective tensor."""
+    the B sums as an (NC, 16, B) point tensor."""
     g = _Cfg(scal.shape[-1], c, scal.shape[0])
     order, sd = _stage_sort(g, scal)
     xy = _stage_gather(g, X, Y, inf, order, base_map)

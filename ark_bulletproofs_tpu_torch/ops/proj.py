@@ -1,18 +1,26 @@
-"""Complete projective group law (Renes-Costello-Batina), plain PyTorch.
+"""Complete group laws, plain PyTorch: the plain versions of the CUDA
+bodies in csrc/rcb.cuh and csrc/te.cuh.
 
-Counterpart of ark_bulletproofs_tpu/ops/proj.py and of the in-kernel
-bodies `_k_rcb_add` / `_k_rcb_madd` / `_k_rcb_double` of
-ark_bulletproofs_tpu/ops/kernels.py: Alg 1/2/3 for general a (zorro),
-Alg 7/8/9 for a = 0 (secq256k1), with the same field operations on the
-same operands. Independent operations of a formula are stacked into one
-call (`_mul`, `_add`, `_sub` take several operand pairs), which changes
-no value and cuts the torch calls per point operation about threefold.
-Every field result is canonical, so the coordinates are bit-equal to the
-JAX package's and to the CUDA bodies in csrc/rcb.cuh, of which these are
-the plain versions.
+Short-Weierstrass curves (CurveSpec): the complete projective formulas
+of Renes-Costello-Batina, counterpart of ark_bulletproofs_tpu/ops/proj.py
+and of the in-kernel bodies `_k_rcb_add` / `_k_rcb_madd` /
+`_k_rcb_double` of ark_bulletproofs_tpu/ops/kernels.py: Alg 1/2/3 for
+general a (zorro), Alg 7/8/9 for a = 0 (secq256k1). A point is one
+(3, ..., 16, L) tensor (X, Y, Z); the identity is (0 : R mod p : 0).
 
-A point is one (3, ..., 16, L) tensor (X, Y, Z); the identity is
-(0 : R mod p : 0). Functions return int64.
+Twisted-Edwards curves (TECurveSpec, curve25519): the unified extended
+addition of Hisil-Wong-Carter-Dawson, counterpart of the kernel bodies
+`_k_te_add` / `_k_te_madd` / `_k_te_double` (kernels.py) and of the host
+model's TECurve.proj_add. A point is one (4, ..., 16, L) tensor
+(X, Y, T, Z); the identity is (0 : R : 0 : R). Doubling is add(P, P).
+
+Both follow the kernel bodies operation for operation, with the same
+field operations on the same operands. Independent operations of a
+formula are stacked into one call (`_mul`, `_add`, `_sub` take several
+operand pairs), which changes no value and cuts the torch calls per point
+operation about threefold. Every field result is canonical, so the
+coordinates are bit-equal to the JAX package's and to the CUDA bodies.
+The public functions dispatch on the spec's type. They return int64.
 """
 
 from __future__ import annotations
@@ -20,14 +28,18 @@ from __future__ import annotations
 import torch
 
 from . import field as df
-from .curve import CurveSpec
+from .curve import CurveSpec, TECurveSpec, is_te, n_coords
 from .limbs import N_LIMBS
 
 
-def point_zero(spec: CurveSpec, lanes: int, device) -> torch.Tensor:
-    """(3, 16, lanes) identity."""
-    P = torch.zeros(3, N_LIMBS, lanes, dtype=torch.int64, device=device)
-    P[1] = df.const(spec.fq.r_limbs, device)
+def point_zero(spec, lanes: int, device) -> torch.Tensor:
+    """(NC, 16, lanes) identity: (0 : R : 0) or, TE, (0 : R : 0 : R)."""
+    P = torch.zeros(n_coords(spec), N_LIMBS, lanes, dtype=torch.int64,
+                    device=device)
+    one = df.const(spec.fq.r_limbs, device)
+    P[1] = one
+    if is_te(spec):
+        P[3] = one
     return P
 
 
@@ -101,7 +113,7 @@ def _tail(spec: CurveSpec, t0, t1, t2, t3, t4, t5) -> torch.Tensor:
     return torch.stack([X3, Y3, Z3])
 
 
-def add(spec: CurveSpec, P, Q) -> torch.Tensor:
+def _rcb_add(spec: CurveSpec, P, Q) -> torch.Tensor:
     """Complete P + Q (RCB Alg 1 general a / Alg 7 for a = 0)."""
     fs = spec.fq
     X1, Y1, Z1 = P
@@ -114,7 +126,7 @@ def add(spec: CurveSpec, P, Q) -> torch.Tensor:
     return _tail(spec, t0, t1, t2, t3, t4, t5)
 
 
-def add_mixed(spec: CurveSpec, P, Qx, Qy, q_inf) -> torch.Tensor:
+def _rcb_add_mixed(spec: CurveSpec, P, Qx, Qy, q_inf) -> torch.Tensor:
     """Complete P + affine Q (RCB Alg 2 / Alg 8); q_inf lanes pass P."""
     fs = spec.fq
     X1, Y1, Z1 = P
@@ -128,7 +140,7 @@ def add_mixed(spec: CurveSpec, P, Qx, Qy, q_inf) -> torch.Tensor:
     return select(q_inf, P.long(), R)
 
 
-def double(spec: CurveSpec, P) -> torch.Tensor:
+def _rcb_double(spec: CurveSpec, P) -> torch.Tensor:
     """Complete projective doubling (RCB Alg 3 / Alg 9)."""
     fs = spec.fq
     X1, Y1, Z1 = P
@@ -168,7 +180,61 @@ def double(spec: CurveSpec, P) -> torch.Tensor:
     return torch.stack([X3, Y3, Z3])
 
 
-def double_k_add(spec: CurveSpec, P, Q, k: int) -> torch.Tensor:
+def _te_add_core(spec: TECurveSpec, P, X2, Y2, T2, Z2) -> torch.Tensor:
+    """Unified extended P + (X2 : Y2 : T2 : Z2), `_k_te_add`'s operations;
+    Z2 None stands for Z2 = 1 (the mixed add: D = Z1, one product less).
+    11 field products with Z2, 10 without."""
+    fs = spec.fq
+    X1, Y1, T1, Z1 = P
+    s1, s2 = _add(fs, (X1, Y1), (X2, Y2))
+    pairs = [(X1, X2), (Y1, Y2), (T1, T2), (s1, s2)]
+    if Z2 is not None:
+        pairs.append((Z1, Z2))
+    A, B, TT, E0, *D = _mul(fs, *pairs)
+    D = D[0] if D else Z1.long()
+    dev = A.device
+    # d and a as full Montgomery products, as `_k_mul_const(..., None)`
+    C, aA = df.mont_mul_plain(fs, torch.stack([TT, A]), torch.stack([
+        df.const(spec.d_mont_limbs, dev), df.const(spec.a_mont_limbs, dev)
+    ])).unbind(0)
+    (AB,) = _add(fs, (A, B))
+    E, F, H = _sub(fs, (E0, AB), (D, C), (B, aA))
+    (G,) = _add(fs, (D, C))
+    return torch.stack(_mul(fs, (E, F), (G, H), (E, H), (F, G)))
+
+
+def _te_add_mixed(spec: TECurveSpec, P, Qx, Qy, q_inf) -> torch.Tensor:
+    """P + affine (Qx, Qy) with T2 = Qx Qy computed here and Z2 = 1
+    (`_k_te_madd`); q_inf lanes pass P through. (The JAX package's XLA
+    `_te_add_mixed` adds (0, 1) on those lanes instead: the same affine
+    point in other projective coordinates.)"""
+    (T2,) = _mul(spec.fq, (Qx, Qy))
+    R = _te_add_core(spec, P, Qx.long(), Qy.long(), T2, None)
+    return select(q_inf, P.long(), R)
+
+
+def add(spec, P, Q) -> torch.Tensor:
+    """Complete P + Q."""
+    if is_te(spec):
+        return _te_add_core(spec, P, *Q)
+    return _rcb_add(spec, P, Q)
+
+
+def add_mixed(spec, P, Qx, Qy, q_inf) -> torch.Tensor:
+    """Complete P + affine Q; q_inf lanes pass P through."""
+    if is_te(spec):
+        return _te_add_mixed(spec, P, Qx, Qy, q_inf)
+    return _rcb_add_mixed(spec, P, Qx, Qy, q_inf)
+
+
+def double(spec, P) -> torch.Tensor:
+    """Complete doubling (TE: the unified add(P, P))."""
+    if is_te(spec):
+        return _te_add_core(spec, P, *P)
+    return _rcb_double(spec, P)
+
+
+def double_k_add(spec, P, Q, k: int) -> torch.Tensor:
     """2^k * P + Q: k doublings, then one complete add."""
     for _ in range(k):
         P = double(spec, P)

@@ -23,8 +23,14 @@ Every field product is one `field.mont_mul` call (the CUDA kernel on the
 card): the nine dot products are one (9, 16, n) launch. The coefficient
 vectors stay on the device between the two transcript syncs and the
 evaluated l, r feed the device IPA (ops/ipa.py) directly. The JAX
-package's mesh branch and its device Pedersen batch
-(`pedersen_commit_many_dev`, twisted-Edwards only) are not ported.
+package's mesh branch is not ported.
+
+`pedersen_commit_many_dev` is the device batch of Pedersen commitments
+v B + r B_blinding for a twisted-Edwards curve, which the native host
+library does not cover (generators.py::PedersenGens.commit_many routes
+to it): the cached 2^i B | 2^i B_blinding table (ops/cache.py), a
+per-bit select and a halving tree of adds (reference
+src/generators.rs:39-44).
 """
 
 from __future__ import annotations
@@ -32,7 +38,11 @@ from __future__ import annotations
 import torch
 
 from . import field as df
-from .limbs import ints_to_limbs, limbs_to_ints
+from . import kernels as kk
+from . import proj
+from .cache import commit_table
+from .curve import point_batch_to_host, spec_for
+from .limbs import N_LIMBS, ints_to_limbs, limbs_to_ints
 from .verify import _pow_vector
 
 
@@ -116,3 +126,45 @@ class ProverVectorPhase:
         """Device Montgomery l(x), r(x) after challenge x."""
         return _eval_phase(self.fr, self.coeffs,
                            ints_to_limbs([x], self.device))
+
+
+COMMIT_CHUNK = 2048  # commitments per halving tree (the JAX package's)
+
+
+def _commit_chunk(spec, tab: torch.Tensor, kv, kr) -> torch.Tensor:
+    """kv, kr: (16, P) canonical scalar limbs -> (4, 16, P) extended
+    sum_j bit_j 2^j B + bit'_j 2^j Bb: the per-bit select of table lanes,
+    then 9 halving steps, each one `te_double_k_add` (k = 0) launch adding
+    slot j + h to slot j < h (the pairing of the JAX `_commit_many_prog`)."""
+    dev = tab.device
+    P = kv.shape[-1]
+    k = torch.cat([kv, kr]).long()  # (32, P): bits 0-255 v, 256-511 r
+    j = torch.arange(512, device=dev)
+    bits = ((k[j // 16] >> (j % 16)[:, None]) & 1).bool()  # (512, P)
+    ident = proj.point_zero(spec, 1, dev).to(torch.int32)
+    acc = torch.where(bits, tab[..., None], ident[..., None])  # (4,16,512,P)
+    h = 512
+    while h > 1:
+        h //= 2
+        lo = acc[:, :, :h].reshape(4, N_LIMBS, h * P).contiguous()
+        hi = acc[:, :, h:].reshape(4, N_LIMBS, h * P).contiguous()
+        acc = kk.te_double_k_add(spec, lo, hi, 0).reshape(4, N_LIMBS, h, P)
+    return acc[:, :, 0]
+
+
+def pedersen_commit_many_dev(pc_gens, values, blinds, device) -> list:
+    """[v_i B + r_i B_blinding] for pc_gens on a twisted-Edwards curve, on
+    `device`, in chunks of COMMIT_CHUNK; affine host points out, equal to
+    PedersenGens.commit (one fetch and one batch inversion per chunk)."""
+    curve = pc_gens.curve
+    spec = spec_for(curve)
+    tab = commit_table(pc_gens, device)
+    frp = curve.fr.p
+    out = []
+    for s in range(0, len(values), COMMIT_CHUNK):
+        kv = ints_to_limbs([v % frp for v in values[s:s + COMMIT_CHUNK]],
+                           device)
+        kr = ints_to_limbs([r % frp for r in blinds[s:s + COMMIT_CHUNK]],
+                           device)
+        out += point_batch_to_host(curve, _commit_chunk(spec, tab, kv, kr))
+    return out

@@ -1,12 +1,13 @@
 """The port's CUDA kernels on a card (marker `cuda`; skipped without one).
 
 Tolerances: each kernel bit-equal to its plain PyTorch version on the
-same CUDA tensors (projective coordinates, field limbs), at small widths
-with a partial last block of threads and with identity, doubling and
-P + (-P) lanes, on secq256k1 (a = 0) and zorro (a = 6); mont_mul also with
-broadcast operands and 0, 1, p - 1 lanes; whole MSMs equal in affine to
-the host Pippenger; a proof made on the card byte-equal to the host
-route's; verify gives the host's accept/reject.
+same CUDA tensors (projective or extended coordinates, field limbs), at
+small widths with a partial last block of threads and with identity,
+doubling and P + (-P) lanes, on secq256k1 (a = 0), zorro (a = 6) and
+curve25519 (twisted-Edwards); mont_mul also with broadcast operands and
+0, 1, p - 1 lanes; whole MSMs equal in affine to the host Pippenger;
+proofs made on the card byte-equal to the host route's; verify and
+batch_verify give the host's accept/reject.
 
 These tests import only the port (no jax, nothing of the JAX package), so
 they run where the JAX package's test configuration cannot load:
@@ -20,20 +21,22 @@ import pytest
 import torch
 
 from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
-                                        R1CSError, ShuffleProof, Transcript,
-                                        curves, engine, ipp, msm, msm_many,
+                                        R1CSError, R1CSProof, ShuffleProof,
+                                        Transcript, batch_verify, curves,
+                                        engine, ipp, msm, msm_many,
                                         seeded_rng)
 from ark_bulletproofs_tpu_torch.ops import field as df
 from ark_bulletproofs_tpu_torch.ops import ipa
 from ark_bulletproofs_tpu_torch.ops import kernels as kk
 from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
-from ark_bulletproofs_tpu_torch.ops.curve import affine_to_device, spec_for
+from ark_bulletproofs_tpu_torch.ops.curve import (affine_to_device, is_te,
+                                                  spec_for)
 from ark_bulletproofs_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from ark_bulletproofs_tpu_torch.r1cs import prover
 
 pytestmark = pytest.mark.cuda
 
-CURVES = [curves.secq256k1, curves.zorro]
+CURVES = [curves.secq256k1, curves.zorro, curves.curve25519]
 L = 1000  # lanes: 8 blocks of 128 threads, the last one partial
 
 
@@ -44,9 +47,14 @@ def cuda_dev():
     return torch.device("cuda")
 
 
-def _neg_y(spec, P):
+def _neg(spec, P):
+    """-P for a (NC, ..., 16, L) point or (2, ...) affine tensor: the y
+    coordinate negated on a short-Weierstrass curve, x (and T) on a
+    twisted-Edwards one."""
     out = P.clone()
-    out[1] = df.neg(spec.fq, P[1]).to(torch.int32)
+    for c in ((0, 2) if is_te(spec) else (1,)):
+        if c < P.shape[0]:
+            out[c] = df.neg(spec.fq, P[c]).to(torch.int32)
     return out
 
 
@@ -54,12 +62,13 @@ def _affine_rows(curve, spec, R, dev, seed):
     """(2, R, 16, L) affine rows from 32 random points and their
     negatives: lanes [0, L/8) double (row r = row r + 1), lanes [L/8, L/4)
     cancel (row r = -(row r + 1)), about a third of lanes [L/4, 3L/8) are
-    identity rows (y = 0)."""
+    identity rows (y = 0); on curve25519 every other row of lanes
+    [3L/8, L/2) is the point (0, 1)."""
     rng = seeded_rng(seed)
     X, Y, _ = affine_to_device(curve, [curve.rand(rng) for _ in range(32)],
                                dev)
     pool = torch.stack([X, Y])
-    pool = torch.cat([pool, _neg_y(spec, pool)], dim=2)  # (2, 16, 64)
+    pool = torch.cat([pool, _neg(spec, pool)], dim=2)  # (2, 16, 64)
     g = torch.Generator(device=dev).manual_seed(seed)
     idx = torch.randint(0, 64, (R, L), generator=g, device=dev)
     if R > 1:
@@ -70,6 +79,13 @@ def _affine_rows(curve, spec, R, dev, seed):
     ident[:, :L // 4] = False
     ident[:, 3 * L // 8:] = False
     xy[1].masked_fill_(ident.unsqueeze(1), 0)
+    if is_te(spec):  # (0, 1) as an ordinary point in lanes [3L/8, L/2)
+        zy = torch.zeros((R, L), dtype=torch.bool, device=dev)
+        zy[::2, 3 * L // 8:L // 2] = True
+        zy = zy.unsqueeze(1)
+        xy[0].masked_fill_(zy, 0)
+        xy[1] = torch.where(zy, df.const(spec.fq.r_limbs, dev)
+                            .to(torch.int32), xy[1])
     return xy
 
 
@@ -77,16 +93,17 @@ def _affine_rows(curve, spec, R, dev, seed):
 @pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
 def test_kernels_match_plain_versions(curve, R, cuda_dev):
     spec = spec_for(curve)
+    dka = kk.te_double_k_add if is_te(spec) else kk.rcb_double_k_add
     counts = (k2.suffix_madd_scan.launches, k2.suffix_jac_scan.launches,
-              k2.rowsum.launches, kk.rcb_double_k_add.launches)
+              k2.rowsum.launches, dka.launches)
     xy = _affine_rows(curve, spec, R, cuda_dev, seed=R)
     T = k2.suffix_madd_scan(spec, xy)
-    assert T.shape == (3, R, 16, L) and T.is_cuda
+    assert T.shape == (4 if is_te(spec) else 3, R, 16, L) and T.is_cuda
     assert torch.equal(T, k2.suffix_madd_scan_plain(spec, xy))
     if R > 1:
         T[:, 0::2, :, :L // 8] = T[:, 1::2, :, :L // 8]
-        T[:, 0::2, :, L // 8:L // 4] = _neg_y(spec, T[:, 1::2, :,
-                                                     L // 8:L // 4])
+        T[:, 0::2, :, L // 8:L // 4] = _neg(spec, T[:, 1::2, :,
+                                                   L // 8:L // 4])
     excl, tot = k2.suffix_jac_scan(spec, T)
     pexcl, ptot = k2.suffix_jac_scan_plain(spec, T)
     assert torch.equal(excl, pexcl) and torch.equal(tot, ptot)
@@ -94,13 +111,18 @@ def test_kernels_match_plain_versions(curve, R, cuda_dev):
     P = T[:, 0].contiguous()
     Q = T[:, R - 1].contiguous()
     Q[..., :L // 8] = P[..., :L // 8]
-    Q[..., L // 8:L // 4] = _neg_y(spec, P[..., L // 8:L // 4])
+    Q[..., L // 8:L // 4] = _neg(spec, P[..., L // 8:L // 4])
     for k in (0, 1, 12):
-        assert torch.equal(kk.rcb_double_k_add(spec, P, Q, k),
-                           kk.rcb_double_k_add_plain(spec, P, Q, k)), k
+        assert torch.equal(dka(spec, P, Q, k),
+                           kk.double_k_add_plain(spec, P, Q, k)), k
     after = (k2.suffix_madd_scan.launches, k2.suffix_jac_scan.launches,
-             k2.rowsum.launches, kk.rcb_double_k_add.launches)
+             k2.rowsum.launches, dka.launches)
     assert [b - a for a, b in zip(counts, after)] == [1, 1, 1, 3]
+    if is_te(spec):
+        before = kk.te_double.launches
+        assert torch.equal(kk.te_double(spec, P),
+                           kk.te_double_plain(spec, P))
+        assert kk.te_double.launches == before + 1
 
 
 def _msm_case(curve, n, seed, sets):
@@ -109,14 +131,16 @@ def _msm_case(curve, n, seed, sets):
     pool += [curve.neg(P) for P in pool]
     prng = random.Random(seed)
     bases = [pool[prng.randrange(24)] for _ in range(n)]
-    bases[1] = None
+    bases[1] = curve.zero()
     ks = [[prng.randrange(curve.fr.p) for _ in range(n)] for _ in range(sets)]
     return bases, ks
 
 
 @pytest.mark.parametrize("curve,n,sets", [(curves.secq256k1, 1061, 1),
-                                          (curves.zorro, 4096, 2)],
-                         ids=["secq256k1-1061", "zorro-4096x2"])
+                                          (curves.zorro, 4096, 2),
+                                          (curves.curve25519, 1061, 2)],
+                         ids=["secq256k1-1061", "zorro-4096x2",
+                              "curve25519-1061x2"])
 def test_msm_matches_host(curve, n, sets, cuda_dev):
     bases, ks = _msm_case(curve, n, n, sets)
     got = msm_many(curve, bases, ks, device=cuda_dev)
@@ -194,3 +218,72 @@ def test_prove_on_card_matches_host_route(shrink, cuda_dev, monkeypatch):
     assert k2.suffix_madd_scan.launches > before[1]
     assert card.proof.to_bytes(curve) == host.proof.to_bytes(curve)
     ShuffleProof(card.proof).verify(pc, bp, Transcript(label), ic, oc)
+
+
+def _shuffle(curve, k: int, seed: int):
+    prng = random.Random(seed)
+    vals = [prng.getrandbits(64) for _ in range(k)]
+    perm = vals[:]
+    prng.shuffle(perm)
+    return vals, perm
+
+
+def _all_on_card(monkeypatch):
+    monkeypatch.setattr(engine.config, "device", "cuda")
+    monkeypatch.setattr(engine.config, "msm_device_threshold", 0)
+    monkeypatch.setattr(prover, "VECTOR_MIN_N", 1)
+    monkeypatch.setattr(ipp, "DEVICE_MIN_N", 1)
+
+
+def test_te_prove_on_card_matches_host_route(cuda_dev, monkeypatch):
+    """k = 64 curve25519 shuffle with every device branch on the card (the
+    128 witness commitments through the device Pedersen batch) equals the
+    host route's proof byte for byte, and verifies on the card."""
+    curve, k, label = curves.curve25519, 64, b"card te prove"
+    pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 2 * k, 1)
+    vals, perm = _shuffle(curve, k, k)
+
+    def prove():
+        return ShuffleProof.prove(seeded_rng(k), pc, bp, Transcript(label),
+                                  vals, perm)
+
+    monkeypatch.setattr(engine.config, "msm_device_threshold", 1 << 62)
+    host, _, _ = prove()
+    _all_on_card(monkeypatch)
+    before = (kk.te_double_k_add.launches, kk.te_double.launches,
+              k2.suffix_madd_scan.launches)
+    card, ic, oc = prove()
+    after = (kk.te_double_k_add.launches, kk.te_double.launches,
+             k2.suffix_madd_scan.launches)
+    assert all(b > a for a, b in zip(before, after)), (before, after)
+    assert card.proof.to_bytes(curve) == host.proof.to_bytes(curve)
+    ShuffleProof(card.proof).verify(pc, bp, Transcript(label), ic, oc)
+
+
+def test_te_batch_verify_on_card(cuda_dev, monkeypatch):
+    """16 curve25519 k = 8 proofs made on the card pass one batch_verify on
+    the card; the batch with one proof's t_x flipped is rejected."""
+    _all_on_card(monkeypatch)
+    curve, k = curves.curve25519, 8
+    pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 2 * k, 1)
+    items = []
+    for i in range(16):
+        vals, perm = _shuffle(curve, k, 100 + i)
+        sp, ic, oc = ShuffleProof.prove(seeded_rng(i), pc, bp,
+                                        Transcript(b"te batch"), vals, perm)
+        items.append((sp.proof, ic, oc))
+
+    def instances(its):
+        return [(ShuffleProof(p).build_verifier(pc, Transcript(b"te batch"),
+                                                ic, oc), p)
+                for p, ic, oc in its]
+
+    before = kk.te_double_k_add.launches
+    batch_verify(seeded_rng(7), instances(items), pc, bp)
+    assert kk.te_double_k_add.launches > before
+    blob = bytearray(items[5][0].to_bytes(curve))
+    blob[11 * len(curve.serialize_compressed(curve.gen))] ^= 1  # t_x
+    bad = list(items)
+    bad[5] = (R1CSProof.from_bytes(curve, bytes(blob)), *items[5][1:])
+    with pytest.raises(R1CSError):
+        batch_verify(seeded_rng(8), instances(bad), pc, bp)

@@ -150,8 +150,10 @@ def test_point_conversions_and_spec():
     spec = tc.spec_for(curve)
     assert not spec.is_a_zero and spec.a_small == 6 and spec.b3_small is None
     assert tc.spec_for(curves.secq256k1).b3_small == 21
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.spec_for(curves.curve25519)
+    te, jte = tc.spec_for(curves.curve25519), _jspec(curves.curve25519)
+    assert isinstance(te, tc.TECurveSpec) and te.fq.p == jte.fq.p
+    assert (te.a_mont_limbs, te.d_mont_limbs) == (jte.a_mont_limbs,
+                                                  jte.d_mont_limbs)
 
 
 def test_wrapper_rejects_bad_input():
