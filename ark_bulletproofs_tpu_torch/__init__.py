@@ -16,8 +16,8 @@ Public surface:
   engine                   - device and size routing (`engine.config`)
   curves, PedersenGens, BulletproofGens, Transcript, seeded_rng
   msm, msm_many            - host-facing device MSMs
-  Prover, Verifier, batch_verify, R1CSProof, ShuffleProof
-  InnerProductProof
+  Prover, prove_batch, Verifier, batch_verify, R1CSProof, ShuffleProof
+  InnerProductProof        - create, create_batch (P proofs in lockstep)
 """
 
 from . import curves, engine
@@ -27,7 +27,7 @@ from .generators import (BulletproofGens, BulletproofGensShare,
                          GeneratorsChain, PedersenGens)
 from .ipp import InnerProductProof
 from .ops.msm import msm, msm_many
-from .r1cs import Prover, R1CSProof, Verifier, batch_verify
+from .r1cs import Prover, R1CSProof, Verifier, batch_verify, prove_batch
 from .rand import OsRng, seeded_rng
 from .transcript.merlin import Transcript
 
@@ -36,6 +36,7 @@ __all__ = [
     "BulletproofGens", "BulletproofGensShare", "GeneratorsChain",
     "PedersenGens", "InnerProductProof", "Transcript", "OsRng",
     "seeded_rng", "Prover", "R1CSProof", "Verifier", "batch_verify",
+    "prove_batch",
     "ShuffleProof", "ProofError", "VerificationError", "MPCError",
     "R1CSError",
 ]

@@ -1,0 +1,95 @@
+// Complete short-Weierstrass group law in Jacobian coordinates (X, Y, Z) =
+// (x Z^2, y Z^3), identity Z = 0 (stored as (0, 0, 0)).
+//
+// Replaces the TPU kernel bodies _k_sw_double and _k_sw_add
+// (ark_bulletproofs_tpu/ops/kernels.py), followed operation for
+// operation, and through them the elementwise kernels sw_double_tiled and
+// sw_add_tiled (and sw_double_k_add_tiled's steps): dbl-2007-bl and
+// add-2007-bl (EFD). AZ selects a = 0 (secq256k1) at compile time; for
+// a != 0 (zorro) the doubling adds a ZZ^2 with a as a full product of
+// CurveConst::a_mont, as _k_sw_double does. The plain PyTorch versions are
+// ops/curve.py::_sw_double and ::_sw_add.
+//
+// The add is complete by selects, in _k_sw_add's order: P == Q takes the
+// doubling of P, P == -Q (both finite) sets Z = 0, P = O gives Q, Q = O
+// gives P. The TPU body computes the doubling on every lane; here it runs
+// only on the lanes that keep it (equal, finite operands), which changes
+// no output: every other lane's doubling is overwritten by a later select.
+//
+// Cost: 8 field products a doubling (10 for a != 0), 16 an add (24 or 26
+// on a doubling lane), against RCB's 8 and 12; the IPA's Q-term tree
+// (ops/ipa.py::_mul_point_dev) is the only caller, so no scan is built
+// on this model.
+#pragma once
+#include "rcb.cuh"
+
+__device__ __forceinline__ Pt jac_identity() {
+  Pt r;
+  r.X = fe_zero();
+  r.Y = fe_zero();
+  r.Z = fe_zero();
+  return r;
+}
+
+template <bool AZ>
+__device__ __forceinline__ Pt jac_double(const Pt& P, const CurveConst& cc) {
+  Fe XX = fe_mul(P.X, P.X, cc);
+  Fe YY = fe_mul(P.Y, P.Y, cc);
+  Fe ZZ = fe_mul(P.Z, P.Z, cc);
+  Fe YYYY = fe_mul(YY, YY, cc);
+  Fe xpyy = fe_add(P.X, YY, cc);
+  Fe S = fe_sub(fe_mul(xpyy, xpyy, cc), fe_add(XX, YYYY, cc), cc);
+  S = fe_add(S, S, cc);
+  Fe M = fe_add(fe_add(XX, XX, cc), XX, cc);
+  if (!AZ) {
+    Fe ZZ2 = fe_mul(ZZ, ZZ, cc);
+    M = fe_add(M, fe_mul(fe_from(cc.a_mont), ZZ2, cc), cc);
+  }
+  Fe M2 = fe_mul(M, M, cc);
+  Pt R;
+  R.X = fe_sub(M2, fe_add(S, S, cc), cc);
+  Fe e8 = fe_add(YYYY, YYYY, cc);
+  e8 = fe_add(e8, e8, cc);
+  e8 = fe_add(e8, e8, cc);
+  R.Y = fe_sub(fe_mul(M, fe_sub(S, R.X, cc), cc), e8, cc);
+  Fe ypz = fe_add(P.Y, P.Z, cc);
+  R.Z = fe_sub(fe_mul(ypz, ypz, cc), fe_add(YY, ZZ, cc), cc);
+  return R;
+}
+
+template <bool AZ>
+__device__ __forceinline__ Pt jac_add(const Pt& P, const Pt& Q,
+                                      const CurveConst& cc) {
+  bool p_inf = fe_is_zero(P.Z);
+  bool q_inf = fe_is_zero(Q.Z);
+  Fe Z1Z1 = fe_mul(P.Z, P.Z, cc);
+  Fe Z2Z2 = fe_mul(Q.Z, Q.Z, cc);
+  Fe U1 = fe_mul(P.X, Z2Z2, cc);
+  Fe U2 = fe_mul(Q.X, Z1Z1, cc);
+  Fe S1 = fe_mul(fe_mul(P.Y, Q.Z, cc), Z2Z2, cc);
+  Fe S2 = fe_mul(fe_mul(Q.Y, P.Z, cc), Z1Z1, cc);
+  Fe H = fe_sub(U2, U1, cc);
+  Fe rr0 = fe_sub(S2, S1, cc);
+  bool x_eq = fe_is_zero(H);
+  bool y_eq = fe_is_zero(rr0);
+  Fe rr = fe_add(rr0, rr0, cc);
+  Fe twoH = fe_add(H, H, cc);
+  Fe I = fe_mul(twoH, twoH, cc);
+  Fe J = fe_mul(H, I, cc);
+  Fe V = fe_mul(U1, I, cc);
+  Fe rr2 = fe_mul(rr, rr, cc);
+  Pt R;
+  R.X = fe_sub(rr2, fe_add(J, fe_add(V, V, cc), cc), cc);
+  Fe S1J = fe_mul(S1, J, cc);
+  R.Y = fe_sub(fe_mul(rr, fe_sub(V, R.X, cc), cc), fe_add(S1J, S1J, cc),
+               cc);
+  Fe zpz = fe_add(P.Z, Q.Z, cc);
+  Fe w = fe_sub(fe_mul(zpz, zpz, cc), fe_add(Z1Z1, Z2Z2, cc), cc);
+  R.Z = fe_mul(w, H, cc);
+  bool finite = !p_inf && !q_inf;
+  if (x_eq && y_eq && finite) R = jac_double<AZ>(P, cc);
+  if (x_eq && !y_eq && finite) R.Z = fe_zero();
+  if (p_inf) R = Q;
+  if (q_inf) R = P;
+  return R;
+}

@@ -11,10 +11,15 @@
 //   te_double_k_add   <- ark_bulletproofs_tpu/ops/kernels.py::te_double_k_add_tiled
 //                        and, with k = 0, ::te_add_tiled
 //   te_double         <- ark_bulletproofs_tpu/ops/kernels.py::te_double_tiled
+//   jac_double_k_add  <- ark_bulletproofs_tpu/ops/kernels.py::sw_add_tiled
+//                        (k = 0) and ::sw_double_k_add_tiled (k > 0)
+//   jac_double        <- ark_bulletproofs_tpu/ops/kernels.py::sw_double_tiled
 //
 // Each kernel is a template over a point model: RcbModel<true> (RCB, a = 0:
 // secq256k1), RcbModel<false> (RCB, general a: zorro) and TeModel (HWCD
-// extended: curve25519). A model supplies the point type, its identity,
+// extended: curve25519); JacModel<AZ> (Jacobian, jac.cuh) instantiates
+// only the elementwise double-k-add and doubling, for the Q terms of the
+// on-device Fiat-Shamir IPA (no scan runs on Jacobian points). A model supplies the point type, its identity,
 // add, mixed add, doubling, load and store; the launchers pick it from the
 // constants (te, a_zero), so each kernel is compiled once per model and
 // carries no dead registers of another. A 3-coordinate model reads and
@@ -50,6 +55,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "jac.cuh"
 #include "rcb.cuh"
 #include "te.cuh"
 
@@ -111,6 +117,33 @@ struct TeModel {
                                                size_t row, size_t L,
                                                size_t lane, const P& a) {
     pt4_store(base, rows, row, L, lane, a);
+  }
+};
+
+// Jacobian short-Weierstrass points (X, Y, Z) = (x Z^2, y Z^3), identity
+// (0, 0, 0), not RCB's (0, R, 0); no mixed add (no scan uses it).
+template <bool AZ>
+struct JacModel {
+  using P = Pt;
+  static __device__ __forceinline__ P identity(const CurveConst&) {
+    return jac_identity();
+  }
+  static __device__ __forceinline__ P add(const P& a, const P& b,
+                                          const CurveConst& cc) {
+    return jac_add<AZ>(a, b, cc);
+  }
+  static __device__ __forceinline__ P dbl(const P& a, const CurveConst& cc) {
+    return jac_double<AZ>(a, cc);
+  }
+  static __device__ __forceinline__ P load(const int32_t* base, size_t rows,
+                                           size_t row, size_t L,
+                                           size_t lane) {
+    return pt_load(base, rows, row, L, lane);
+  }
+  static __device__ __forceinline__ void store(int32_t* base, size_t rows,
+                                               size_t row, size_t L,
+                                               size_t lane, const P& a) {
+    pt_store(base, rows, row, L, lane, a);
   }
 };
 
@@ -276,5 +309,35 @@ extern "C" int abtpu_te_double(const void* P, void* out, int64_t m,
   if (!cc.te) return (int)cudaErrorInvalidValue;
   double_kernel<TeModel><<<blocks_for(m), THREADS, 0, s>>>(
       (const int32_t*)P, (int32_t*)out, m, cc);
+  return (int)cudaGetLastError();
+}
+
+// 2^k P + Q on Jacobian points (k = 0: sw_add_tiled's complete add).
+extern "C" int abtpu_jac_double_k_add(const void* P, const void* Q, void* out,
+                                      int64_t m, int32_t k, const void* words,
+                                      void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cc.te) return (int)cudaErrorInvalidValue;
+  if (cc.a_zero)
+    double_k_add_kernel<JacModel<true>><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
+  else
+    double_k_add_kernel<JacModel<false>><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int abtpu_jac_double(const void* P, void* out, int64_t m,
+                                const void* words, void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cc.te) return (int)cudaErrorInvalidValue;
+  if (cc.a_zero)
+    double_kernel<JacModel<true>><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (int32_t*)out, m, cc);
+  else
+    double_kernel<JacModel<false>><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (int32_t*)out, m, cc);
   return (int)cudaGetLastError();
 }

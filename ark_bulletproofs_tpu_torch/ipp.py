@@ -19,12 +19,18 @@ weights that accumulate the fold challenges:
   batched, and cacheable on device. Mathematically identical outputs, so
   the Fiat-Shamir transcript (and proof bytes) match the folded version.
 
-`create` takes the device route (ops/ipa.py::IpaDeviceProver, host
-Fiat-Shamir per round) from n >= DEVICE_MIN_N when the engine puts the
-2n + 1-term MSM on the device, or whenever a and b arrive as device
-tensors (the prover's device vector phase). Verification runs on the
-host; the JAX package's device `ipa_gh_msm` verify comes with the rest of
-its ops/verify.py in a later slice.
+`create` takes the device route from n >= DEVICE_MIN_N when the engine
+puts the 2n + 1-term MSM on the device, or whenever a and b arrive as
+device tensors (the prover's device vector phase). On a device whose type
+is in IPA_FS, and for n <= FS_MAX_N, the whole IPA runs with its
+Fiat-Shamir step on the card (ops/ipa.py::ipa_prove_fs, one fetch a
+proof); otherwise, and after the ~2^-128 case in which the card's
+`Fp::rand` finds no candidate, the per-round route (IpaDeviceProver: one
+round trip and a host Fiat-Shamir step per round). `create_batch` proves
+P transcripts in lockstep (ipa_prove_fs_batch or IpaBatchProver). Every
+route gives the same bytes. Verification runs on the host; the JAX
+package's device `ipa_gh_msm` verify comes with the rest of its
+ops/verify.py in a later slice.
 """
 
 from __future__ import annotations
@@ -39,6 +45,12 @@ from .util import inner_product
 
 # Smallest IPA the device route takes (the JAX package's value).
 DEVICE_MIN_N = 64
+# Device types on which the device route runs the on-device Fiat-Shamir
+# IPA (the JAX package's ABTPU_IPA_FS, on by default on the TPU); () keeps
+# every device IPA on the per-round route.
+IPA_FS = ("cuda",)
+# Largest n of the on-device Fiat-Shamir IPA (ABTPU_IPA_FS_MAX_N).
+FS_MAX_N = 65536
 
 
 @dataclass
@@ -188,15 +200,20 @@ class InnerProductProof:
         G_vec, H_vec, a_vec, b_vec,
     ) -> "InnerProductProof":
         """Device-resident creation (ops/ipa.py): the O(n) state stays on
-        the device between rounds; the host runs the Fiat-Shamir chain.
-        Transcript operations are those of the host path, so proofs and
-        challenges match byte for byte."""
-        from .ops.ipa import IpaDeviceProver
+        the device between rounds; the Fiat-Shamir chain runs on the card
+        (IPA_FS) or on the host. Transcript operations are those of the
+        host path, so proofs and challenges match byte for byte."""
+        from .ops.ipa import IpaDeviceProver, ipa_prove_fs
 
+        dev = engine.torch_device()
+        if dev.type in IPA_FS and len(G_vec) <= FS_MAX_N:
+            res = ipa_prove_fs(transcript, curve, Q, G_factors, H_factors,
+                               G_vec, H_vec, a_vec, b_vec, dev)
+            if res is not None:
+                return cls(*res)
         f = curve.fr
         st = IpaDeviceProver(
-            curve, Q, G_vec, H_vec, G_factors, H_factors, a_vec, b_vec,
-            engine.torch_device(),
+            curve, Q, G_vec, H_vec, G_factors, H_factors, a_vec, b_vec, dev,
         )
         L_vec, R_vec = [], []
         cur = len(G_vec)
@@ -211,6 +228,58 @@ class InnerProductProof:
             cur //= 2
         a0, b0 = st.final_ab()
         return cls(L_vec, R_vec, a0, b0)
+
+    @classmethod
+    def create_batch(cls, transcripts: list, curve, base_B, ws: list[int],
+                     G_factors_list, H_factors_list, G_vec: list,
+                     H_vec: list, a_list, b_list) -> list:
+        """P proofs in lockstep, one per transcript, over shared generator
+        vectors with Q_b = ws[b] * base_B (the R1CS shape, reference
+        src/r1cs/prover.rs:777-779). Each proof equals the one `create`
+        makes on the same transcript. From n >= DEVICE_MIN_N with the
+        2n + 1-term MSM on the device, every round's 2P MSMs run as one
+        batched device MSM (ops/ipa.py); below that, `create` per proof."""
+        n = len(G_vec)
+        P = len(a_list)
+        assert P == len(transcripts) == len(ws) > 0
+        assert n >= 1 and (n & (n - 1)) == 0, "length must be a power of two"
+        if not (n >= DEVICE_MIN_N and engine.use_device(2 * n + 1)):
+            return [
+                cls.create(transcripts[b], curve, curve.mul(base_B, ws[b]),
+                           G_factors_list[b], H_factors_list[b],
+                           list(G_vec), list(H_vec), a_list[b], b_list[b])
+                for b in range(P)
+            ]
+        from .ops.ipa import IpaBatchProver, ipa_prove_fs_batch
+
+        for t in transcripts:
+            protocol.innerproduct_domain_sep(t, n)
+        dev = engine.torch_device()
+        if dev.type in IPA_FS and n <= FS_MAX_N:
+            res = ipa_prove_fs_batch(transcripts, curve, base_B, ws,
+                                     G_factors_list, H_factors_list, G_vec,
+                                     H_vec, a_list, b_list, dev)
+            if res is not None:
+                return [cls(*r) for r in res]
+        f = curve.fr
+        st = IpaBatchProver(curve, base_B, ws, G_vec, H_vec, G_factors_list,
+                            H_factors_list, a_list, b_list, dev)
+        L_vecs = [[] for _ in range(P)]
+        R_vecs = [[] for _ in range(P)]
+        cur = n
+        while cur != 1:
+            us = []
+            for b, (L, R) in enumerate(st.round_commit(cur)):
+                L_vecs[b].append(L)
+                R_vecs[b].append(R)
+                t = transcripts[b]
+                protocol.append_point(t, curve, b"L", L)
+                protocol.append_point(t, curve, b"R", R)
+                us.append(protocol.challenge_scalar(t, curve, b"u"))
+            st.fold(cur, us, [f.inv(u) for u in us])
+            cur //= 2
+        return [cls(L_vecs[b], R_vecs[b], *ab)
+                for b, ab in enumerate(st.final_ab())]
 
     # --- verification ------------------------------------------------------
 

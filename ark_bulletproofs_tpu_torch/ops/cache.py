@@ -3,7 +3,11 @@
 Generator tables are deterministic and reused across proofs, so their
 points are converted to Montgomery limbs and moved to the device once
 per (table, curve, size, device), keyed weakly on the table object; so is
-the 2^i B | 2^i B_blinding table of a twisted-Edwards PedersenGens.
+the 2^i B | 2^i B_blinding table of a twisted-Edwards PedersenGens. The
+device IPA's [G | H] tables and the batch IPA's 2^i B table are kept by
+value for the life of the process (`keyed`: the generator vectors
+themselves, or the point), as the JAX package keeps them in its verify
+cache.
 `from_numpy` takes tables in the JAX package's numpy layout
 (ark_bulletproofs_tpu/ops/curve.py::affine_to_device: (m, 16) uint32
 Montgomery limbs and an (m,) identity mask) to the port's layout.
@@ -21,6 +25,7 @@ from .curve import affine_to_device, spec_for
 from .limbs import N_LIMBS, ints_to_limbs, limbs_from_numpy
 
 _CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_BY_KEY: dict = {}
 
 
 def from_numpy(X: np.ndarray, Y: np.ndarray, inf: np.ndarray, device):
@@ -40,6 +45,22 @@ def _cached(owner, key, make):
         hit = make()
         per[key] = hit
     return hit
+
+
+def keyed(key, make):
+    """make(), kept under a hashable key."""
+    hit = _BY_KEY.get(key)
+    if hit is None:
+        hit = _BY_KEY[key] = make()
+    return hit
+
+
+def ipa_table(curve, G_vec, H_vec, device):
+    """(X, Y, inf) of [G | H] for the device IPA (2n points), kept by the
+    vectors' content."""
+    key = ("ipa", curve.name, tuple(G_vec), tuple(H_vec), str(device))
+    return keyed(key, lambda: affine_to_device(
+        curve, list(G_vec) + list(H_vec), device))
 
 
 def bp_table(bp_gens, curve, n: int, device):

@@ -12,6 +12,17 @@ coordinate, leading axes, limbs, lanes, with NC = `n_coords(spec)`:
 Affine tables are (X, Y, inf) with X and Y (16, n) int32 and inf (n,)
 bool; the identity (None for SW, (0, 1) for TE) is marked in `inf` and
 stored as X = Y = 0.
+
+The on-device Fiat-Shamir IPA (ops/ipa.py) adds its Q terms in the JAX
+package's model coordinates instead: Jacobian (X, Y, Z) = (x Z^2, y Z^3)
+on a short-Weierstrass curve, identity Z = 0 (`point_zero` is
+(0, 0, 0)), and TE extended as above. `_sw_double` and `_sw_add` are the
+Jacobian law in plain PyTorch, the plain versions of csrc/jac.cuh: they
+follow the kernel bodies `_k_sw_double` / `_k_sw_add` of
+ark_bulletproofs_tpu/ops/kernels.py operation for operation (dbl-2007-bl;
+add-2007-bl with the unconditional doubling and the selects doubling,
+cancel, P = O, Q = O in that order), stacking independent products into
+one call, which changes no value. They return int64.
 """
 
 from __future__ import annotations
@@ -103,6 +114,100 @@ def is_te(spec) -> bool:
 def n_coords(spec) -> int:
     """Coordinates of a device point: 4 for TE extended, 3 for SW."""
     return 4 if is_te(spec) else 3
+
+
+def point_zero(spec, lanes: int, device) -> torch.Tensor:
+    """(NC, 16, lanes) int64 model identity: Jacobian (0, 0, 0), or TE
+    (0 : R : 0 : R)."""
+    P = torch.zeros(n_coords(spec), 16, lanes, dtype=torch.int64,
+                    device=device)
+    if is_te(spec):
+        P[1] = P[3] = df.const(spec.fq.r_limbs, device)
+    return P
+
+
+def is_zero(spec, P: torch.Tensor) -> torch.Tensor:
+    """Lane mask of the identity: Z = 0 (Jacobian), or X = 0 and Y = Z
+    (TE extended)."""
+    if is_te(spec):
+        return df.is_zero(P[0]) & (P[1] == P[3]).all(dim=-2)
+    return df.is_zero(P[2])
+
+
+def _mm(fs, *pairs):
+    """Independent Montgomery products in one plain call."""
+    return df.mont_mul_plain(fs, torch.stack([a.long() for a, _ in pairs]),
+                             torch.stack([b.long() for _, b in pairs])
+                             ).unbind(0)
+
+
+def _sw_double(spec: CurveSpec, P: torch.Tensor) -> torch.Tensor:
+    """Jacobian doubling, `_k_sw_double` (dbl-2007-bl): 8 products, 10
+    for a != 0 (M += a ZZ^2, a as a full product). The identity (Z = 0)
+    doubles to Z = 0."""
+    fs = spec.fq
+    X1, Y1, Z1 = P.long()
+    XX, YY, ZZ = _mm(fs, (X1, X1), (Y1, Y1), (Z1, Z1))
+    xpyy = df.add(fs, X1, YY)
+    ypz = df.add(fs, Y1, Z1)
+    YYYY, xpyy2, ypz2 = _mm(fs, (YY, YY), (xpyy, xpyy), (ypz, ypz))
+    S = df.sub(fs, xpyy2, df.add(fs, XX, YYYY))
+    S = df.add(fs, S, S)
+    M = df.add(fs, df.add(fs, XX, XX), XX)
+    if not spec.is_a_zero:
+        (ZZ2,) = _mm(fs, (ZZ, ZZ))
+        (aZZ2,) = _mm(fs, (df.const(spec.a_mont_limbs, P.device)
+                           .expand_as(ZZ2), ZZ2))
+        M = df.add(fs, M, aZZ2)
+    (M2,) = _mm(fs, (M, M))
+    X3 = df.sub(fs, M2, df.add(fs, S, S))
+    (MSX,) = _mm(fs, (M, df.sub(fs, S, X3)))
+    Y3 = df.sub(fs, MSX, df.mul_small(fs, YYYY, 8))
+    Z3 = df.sub(fs, ypz2, df.add(fs, YY, ZZ))
+    return torch.stack([X3, Y3, Z3])
+
+
+def _sw_add(spec: CurveSpec, P: torch.Tensor,
+            Q: torch.Tensor) -> torch.Tensor:
+    """Complete Jacobian P + Q, `_k_sw_add` (add-2007-bl): 16 products
+    and the doubling of P, computed on every lane, then the selects."""
+    fs = spec.fq
+    P, Q = P.long(), Q.long()
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    p_inf = df.is_zero(Z1)
+    q_inf = df.is_zero(Z2)
+    Z1Z1, Z2Z2 = _mm(fs, (Z1, Z1), (Z2, Z2))
+    U1, U2, A, B = _mm(fs, (X1, Z2Z2), (X2, Z1Z1), (Y1, Z2), (Y2, Z1))
+    S1, S2 = _mm(fs, (A, Z2Z2), (B, Z1Z1))
+    H = df.sub(fs, U2, U1)
+    rr0 = df.sub(fs, S2, S1)
+    x_eq = df.is_zero(H)
+    y_eq = df.is_zero(rr0)
+    rr = df.add(fs, rr0, rr0)
+    twoH = df.add(fs, H, H)
+    (I,) = _mm(fs, (twoH, twoH))
+    J, V, rr2 = _mm(fs, (H, I), (U1, I), (rr, rr))
+    X3 = df.sub(fs, rr2, df.add(fs, J, df.add(fs, V, V)))
+    (S1J,) = _mm(fs, (S1, J))
+    (t1,) = _mm(fs, (rr, df.sub(fs, V, X3)))
+    Y3 = df.sub(fs, t1, df.add(fs, S1J, S1J))
+    zpz = df.add(fs, Z1, Z2)
+    (zpz2,) = _mm(fs, (zpz, zpz))
+    w = df.sub(fs, zpz2, df.add(fs, Z1Z1, Z2Z2))
+    (Z3,) = _mm(fs, (w, H))
+    R = torch.stack([X3, Y3, Z3])
+    finite = ~p_inf & ~q_inf
+    both = x_eq & y_eq
+    # As in csrc/jac.cuh, the doubling is computed only where a lane keeps
+    # it (P == Q, both finite): on every other lane a later select
+    # overwrites it, so the output is the body's.
+    if bool((both & finite).any()):
+        R = df.select(both, _sw_double(spec, P), R)
+    cancel = x_eq & ~y_eq & finite
+    R[2] = df.select(cancel, torch.zeros_like(R[2]), R[2])
+    R = df.select(p_inf, Q, R)
+    return df.select(q_inf, P, R)
 
 
 def affine_to_device(curve, points, device=None):

@@ -21,11 +21,28 @@ share a live slot, `_shrink` materialises the folded table at width cur
 (one batched base_map MSM) and later rounds run cur-term MSMs. Group math
 is exact, so L, R and the proof bytes equal the host route's.
 
-Vectors are (16, N) limbs (Montgomery unless said otherwise); on the card
-every field product is one launch of the Montgomery-product kernel
-(field.mont_mul). Not ported: the JAX package's fused `_round_step` (it
-only saves TPU dispatches), the sharded functions, the on-device
-Fiat-Shamir provers and the batch prover.
+Vectors are (16, N) limbs (Montgomery unless said otherwise), or (P, 16,
+N) for P proofs in lockstep: `_round_scalars_compact` and `_fold` take
+leading batch axes. On the card every field product is one launch of the
+Montgomery-product kernel (field.mont_mul).
+
+The on-device Fiat-Shamir route (`ipa_prove_fs`, `ipa_prove_fs_batch`)
+keeps the whole round on the card: the Q term c * Q as a masked tree over
+a 2^i Q table (`_q_doubles`, `_mul_point_dev`; Jacobian points and the
+`jac_double_k_add` / `jac_double` kernels on a short-Weierstrass curve,
+`te_double_k_add` / `te_double` on a twisted-Edwards one), S = MSM + c *
+Q, then one `fs_round` launch (ops/fs.py: affine L and R, the Merlin
+appends, the challenge u and its inverse), and the fold. The transcript
+position stays on the host; the rounds make no device-to-host round trip
+of their own, and one fetch at the end brings L, R, the challenges, a, b
+and the final state back for a host replay of the transcript, which
+advances the live transcript and checks the card's bytes. Between
+segments of rounds the table shrinks on the card (`_shrink_fs_dev`).
+
+`IpaBatchProver` is the per-round route for P proofs in lockstep: one
+2P-set MSM a round and one host Fiat-Shamir step per proof. Not ported:
+the JAX package's fused `_round_step` programs (they only save TPU
+dispatches) and the sharded functions.
 """
 
 from __future__ import annotations
@@ -33,8 +50,14 @@ from __future__ import annotations
 import torch
 
 from .. import native
+from ..transcript import protocol
+from . import cache as dcache
 from . import field as df
-from .curve import affine_to_device, point_batch_to_host, spec_for
+from . import fs
+from . import kernels as kk
+from . import proj
+from .curve import (affine_to_device, is_te, n_coords, point_batch_to_host,
+                    point_zero, spec_for)
 from .limbs import N_LIMBS, ints_to_limbs, limbs_to_ints
 from ..parallel.msm import msm_device_mapped
 
@@ -44,6 +67,16 @@ from ..parallel.msm import msm_device_mapped
 # defaults.
 SHRINK_T = 128
 SHRINK_SETS = 1024
+# The FS route's segment plan (the JAX package's ABTPU_IPA_FS_SEG and
+# ABTPU_IPA_FS_SEG_MIN): FS_SEG rounds at full width, then the table
+# shrinks on the card by 2^FS_SEG, while the width is above FS_SEG_MIN.
+# The JAX package shrinks by 2^4, each set then a 16-term MSM on its v1
+# Pippenger; the port has only the v2 MSM, which pads a set to 256
+# terms, so it shrinks by 2^7 = SHRINK_T as the per-round route does
+# (at n = 2^16 on the H100 the 2^4 plan took 1.13 s against the
+# per-round route's 0.57 s, chip_smoke.py).
+FS_SEG = 7
+FS_SEG_MIN = 8192
 
 
 def _masks(N: int, m: int, cur: int, device):
@@ -55,11 +88,12 @@ def _masks(N: int, m: int, cur: int, device):
 def _fold(fr, a, b, gm, hm, u, u_inv, m: int, cur: int):
     """Fold the witness halves and update the base weights after
     challenge u (cur: the round's width, m = cur / 2; u, u_inv: (16, 1)
-    Montgomery). Two product launches."""
+    Montgomery, or (P, 16, 1) for (P, 16, N) vectors). Two product
+    launches."""
     N = a.shape[-1]
     idx, _, right, active = _masks(N, m, cur, a.device)
     up = (idx + m).clamp(max=N - 1)
-    p4 = df.mont_mul(fr, torch.stack([a, a[:, up], b, b[:, up]]),
+    p4 = df.mont_mul(fr, torch.stack([a, a[..., up], b, b[..., up]]),
                      torch.stack([u, u_inv, u_inv, u]))
     p2 = df.mont_mul(fr, torch.stack([gm, hm]), torch.stack([
         df.select(right, u, u_inv), df.select(right, u_inv, u)]))
@@ -71,12 +105,14 @@ def _fold(fr, a, b, gm, hm, u, u_inv, m: int, cur: int):
 
 def _round_scalars_compact(fr, a, b, gm, hm, qw, m: int, cur: int):
     """One round's compact MSM inputs: (rows (2, 16, N) canonical,
-    base_map (2, N) into [G | H], cq (2, 16, 1) canonical Q scalars)."""
+    base_map (2, N) into [G | H], cq (2, 16, 1) canonical Q scalars c_L
+    qw, c_R qw). With (P, 16, N) vectors and qw (P, 16, 1), rows are (2,
+    P, 16, N) and cq (2, P, 16, 1)."""
     N = a.shape[-1]
     idx, i, right, active = _masks(N, m, cur, a.device)
     up = (i + m).clamp(max=N - 1)
     dn = (i - m).clamp(min=0)
-    a_up, b_up, a_dn, b_dn = a[:, up], b[:, up], a[:, dn], b[:, dn]
+    a_up, b_up, a_dn, b_dn = a[..., up], b[..., up], a[..., dn], b[..., dn]
     prods = df.mont_mul(fr, torch.stack([a_dn, b_up, a_up, b_dn, a, a_up]),
                         torch.stack([gm, hm, gm, hm, b_up, b]))
     # row_L: a_dn * gm on right-half slots (base G_i), b_up * hm on
@@ -90,6 +126,16 @@ def _round_scalars_compact(fr, a, b, gm, hm, qw, m: int, cur: int):
     cq = df.from_mont(fr, df.mont_mul(fr, c, qw))
     rows = df.from_mont(fr, torch.stack([row_L, row_R]))
     return rows, bm, cq
+
+
+def _round_scalars_compact_batch(fr, A, Bv, GM, HM, QW, m: int, cur: int):
+    """The compact round of P lockstep proofs ((P, 16, N) vectors, QW (P,
+    16, 1)): (scal (2P, 16, N), base_map (2P, N), cq (2P, 16, 1)), set 2b
+    the L of proof b and set 2b + 1 its R."""
+    rows, bm, cq = _round_scalars_compact(fr, A, Bv, GM, HM, QW, m, cur)
+    P, N = A.shape[0], A.shape[-1]
+    return (rows.transpose(0, 1).reshape(2 * P, N_LIMBS, N),
+            bm.repeat(P, 1), cq.transpose(0, 1).reshape(2 * P, N_LIMBS, 1))
 
 
 def _cq_ints(curve, rows: torch.Tensor) -> list[int]:
@@ -116,6 +162,44 @@ def _host_q_jacs(curve, Q, values: list[int]) -> list:
     return [curve.to_proj(curve.mul(Q, v)) for v in values]
 
 
+def _mont(curve, xs, device) -> torch.Tensor:
+    """Scalars as (16, n) Montgomery limbs on `device` (device tensors from
+    the vector phase pass through)."""
+    if isinstance(xs, torch.Tensor):
+        return xs
+    p, R = curve.fr.p, curve.fr.R
+    return ints_to_limbs([x % p * R % p for x in xs], device)
+
+
+def _mont_rows(curve, rows, device) -> torch.Tensor:
+    """P lists of n scalars -> (P, 16, n) Montgomery limbs."""
+    P, n = len(rows), len(rows[0])
+    flat = _mont(curve, [x for row in rows for x in row], device)
+    return flat.reshape(N_LIMBS, P, n).permute(1, 0, 2).contiguous()
+
+
+def _shrink_msm(spec, fr, X, Y, inf, gm, hm, cur: int) -> torch.Tensor:
+    """The folded table at width cur: G'_j = sum_t gm[j + t cur] G[j + t
+    cur] (and H'), as base_map MSMs of 2 cur sets of T = N / cur terms,
+    SHRINK_SETS sets at a time. (NC, 16, 2 cur) model-native points."""
+    N = gm.shape[-1]
+    T = N // cur
+    # set j's scalars are gm[j], gm[j + cur], ..., gm[j + (T-1) cur]
+    gm_r = gm.reshape(N_LIMBS, T, cur).permute(2, 0, 1)
+    hm_r = hm.reshape(N_LIMBS, T, cur).permute(2, 0, 1)
+    scal = df.from_mont(fr, torch.cat([gm_r, hm_r]))  # (2 cur, 16, T)
+    dev = gm.device
+    bm = (torch.arange(cur, device=dev)[:, None]
+          + torch.arange(T, device=dev)[None, :] * cur)
+    bm = torch.cat([bm, bm + N])  # (2 cur, T)
+    return torch.cat([
+        msm_device_mapped(spec, X, Y, inf,
+                          scal[s:s + SHRINK_SETS].to(torch.int32)
+                          .contiguous(), bm[s:s + SHRINK_SETS])
+        for s in range(0, 2 * cur, SHRINK_SETS)
+    ], dim=-1)
+
+
 class IpaDeviceProver:
     """Holds the device-resident state for one IPA proof creation."""
 
@@ -127,19 +211,12 @@ class IpaDeviceProver:
         self.device = device
         self.N = len(G_vec)
         self.Q = Q  # host affine; the c * Q terms are added on the host
-        self.X, self.Y, self.inf = affine_to_device(
-            curve, list(G_vec) + list(H_vec), device)
-        p, R = curve.fr.p, curve.fr.R
-
-        def mont(xs):
-            if isinstance(xs, torch.Tensor):
-                return xs  # already a device Montgomery limb tensor
-            return ints_to_limbs([x % p * R % p for x in xs], device)
-
-        self.a = mont(a_vec)
-        self.b = mont(b_vec)
-        self.gm = mont(G_factors)
-        self.hm = mont(H_factors)
+        self.X, self.Y, self.inf = dcache.ipa_table(curve, G_vec, H_vec,
+                                                    device)
+        self.a = _mont(curve, a_vec, device)
+        self.b = _mont(curve, b_vec, device)
+        self.gm = _mont(curve, G_factors, device)
+        self.hm = _mont(curve, H_factors, device)
         self._one_q = df.mont_one(self.fr, 1, device)
 
     def _u_limbs(self, u: int, u_inv: int):
@@ -160,27 +237,14 @@ class IpaDeviceProver:
         return SHRINK_T > 0 and cur >= 16 and self.N // cur >= SHRINK_T
 
     def _shrink(self, cur: int) -> None:
-        """Materialise the folded table at width `cur`: one batched
-        base_map MSM over the T = N / cur segments per live slot, one host
-        affine round trip, weights reset to one. N and the table shrink
-        to cur as in the JAX package, so later rounds run cur-term MSMs."""
-        N, T = self.N, self.N // cur
-        # set j's scalars are gm[j], gm[j + cur], ..., gm[j + (T-1) cur]
-        gm_r = self.gm.reshape(N_LIMBS, T, cur).permute(2, 0, 1)
-        hm_r = self.hm.reshape(N_LIMBS, T, cur).permute(2, 0, 1)
-        scal = df.from_mont(self.fr, torch.cat([gm_r, hm_r]))  # (2cur,16,T)
-        dev = self.device
-        bm = (torch.arange(cur, device=dev)[:, None]
-              + torch.arange(T, device=dev)[None, :] * cur)
-        bm = torch.cat([bm, bm + N])  # (2 cur, T)
-        pts = torch.cat([
-            msm_device_mapped(
-                self.spec, self.X, self.Y, self.inf,
-                scal[s:s + SHRINK_SETS].to(torch.int32).contiguous(),
-                bm[s:s + SHRINK_SETS])
-            for s in range(0, 2 * cur, SHRINK_SETS)
-        ], dim=-1)
+        """Materialise the folded table at width `cur` (`_shrink_msm`),
+        one host affine round trip, weights reset to one. N and the table
+        shrink to cur as in the JAX package, so later rounds run cur-term
+        MSMs."""
+        pts = _shrink_msm(self.spec, self.fr, self.X, self.Y, self.inf,
+                          self.gm, self.hm, cur)
         aff = point_batch_to_host(self.curve, pts)
+        dev = self.device
         self.X, self.Y, self.inf = affine_to_device(self.curve, aff, dev)
         self.a = self.a[:, :cur]
         self.b = self.b[:, :cur]
@@ -211,3 +275,282 @@ class IpaDeviceProver:
         a0, b0 = limbs_to_ints(torch.cat([self.a[:, :1], self.b[:, :1]],
                                          dim=1))
         return a0 * Rinv % p, b0 * Rinv % p
+
+
+class IpaBatchProver:
+    """Device state of P proofs created in lockstep over one shared base
+    table [G | H], with Q_b = w_b B (the R1CS shape, reference
+    src/r1cs/prover.rs:777-779): each round is one 2P-set compact MSM and
+    one fetch, the Q terms c w_b B are added on the host through the
+    native fixed-base path, and the host runs each proof's Fiat-Shamir
+    step (the JAX package's IpaBatchProver, compact path)."""
+
+    def __init__(self, curve, base_B, ws, G_vec, H_vec, G_factors_list,
+                 H_factors_list, a_list, b_list, device):
+        self.curve = curve
+        self.spec = spec_for(curve)
+        self.fr = df.spec_for(curve.fr)
+        self.device = device
+        self.P = len(a_list)
+        self.base_B = base_B
+        self.X, self.Y, self.inf = dcache.ipa_table(curve, G_vec, H_vec,
+                                                    device)
+        self.A = _mont_rows(curve, a_list, device)
+        self.B = _mont_rows(curve, b_list, device)
+        self.GM = _mont_rows(curve, G_factors_list, device)
+        self.HM = _mont_rows(curve, H_factors_list, device)
+        self.QW = _mont(curve, ws, device).T.unsqueeze(-1).contiguous()
+
+    def round_commit(self, cur: int) -> list:
+        """[(L_b, R_b)] host affine points for the round of width cur."""
+        c = self.curve
+        scal, bm, cq = _round_scalars_compact_batch(
+            self.fr, self.A, self.B, self.GM, self.HM, self.QW, cur // 2,
+            cur)
+        pts = msm_device_mapped(self.spec, self.X, self.Y, self.inf,
+                                scal.to(torch.int32).contiguous(), bm)
+        lr = point_batch_to_host(c, pts)
+        qj = _host_q_jacs(c, self.base_B, _cq_ints(c, cq))
+        aff = c.batch_to_affine([c.proj_add(c.to_proj(lr[k]), qj[k])
+                                 for k in range(2 * self.P)])
+        return [(aff[2 * b], aff[2 * b + 1]) for b in range(self.P)]
+
+    def fold(self, cur: int, us: list[int], u_invs: list[int]) -> None:
+        U = _mont(self.curve, us, self.device).T.unsqueeze(-1)
+        Ui = _mont(self.curve, u_invs, self.device).T.unsqueeze(-1)
+        self.A, self.B, self.GM, self.HM = _fold(
+            self.fr, self.A, self.B, self.GM, self.HM, U, Ui, cur // 2, cur)
+
+    def final_ab(self) -> list[tuple[int, int]]:
+        Rinv, p = self.curve.fr.R_inv, self.curve.fr.p
+        ab = limbs_to_ints(torch.cat([self.A[:, :, 0].T, self.B[:, :, 0].T],
+                                     dim=1))
+        return [(ab[b] * Rinv % p, ab[self.P + b] * Rinv % p)
+                for b in range(self.P)]
+
+
+# --- on-device Fiat-Shamir ------------------------------------------------
+
+
+def _model_add(spec, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """Complete P + Q in the model coordinates: Jacobian (SW) or
+    extended (TE)."""
+    if is_te(spec):
+        return kk.te_double_k_add(spec, P, Q, 0)
+    return kk.jac_double_k_add(spec, P, Q, 0)
+
+
+def _q_doubles(curve, Q, device) -> torch.Tensor:
+    """(NC, 16, 256) int32 model coordinates of 2^i Q, i < 256: 255
+    doubling launches (`jac_double`, or `te_double` on a twisted-Edwards
+    curve), the JAX package's 256-step scan."""
+    spec = spec_for(curve)
+    f = curve.fq
+    x, y = Q
+    coords = [x, y, x * y % f.p, 1] if is_te(spec) else [x, y, 1]
+    P = ints_to_limbs([v * f.R % f.p for v in coords], device)
+    P = P.T.reshape(len(coords), N_LIMBS, 1).contiguous()
+    dbl = kk.te_double if is_te(spec) else kk.jac_double
+    rows = [P]
+    for _ in range(255):
+        P = dbl(spec, P)
+        rows.append(P)
+    return torch.cat(rows, dim=-1)
+
+
+def _mul_point_dev(spec, p2: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """k_b * Q for (B, 16, 1) canonical scalars from the 2^i Q table p2:
+    a per-bit select into (NC, 16, 256, B), then 8 halving steps, each one
+    model-add launch adding slot j + h to slot j < h (the JAX package's
+    masked tree, whose other lanes are never read). (NC, 16, B)."""
+    B = k.shape[0]
+    nc = n_coords(spec)
+    j = torch.arange(256, device=k.device)
+    bits = ((k[:, :, 0].long().T[j // 16] >> (j % 16)[:, None]) & 1).bool()
+    ident = point_zero(spec, 1, k.device).to(torch.int32)
+    acc = torch.where(bits, p2[..., None], ident[..., None])  # (NC,16,256,B)
+    h = 256
+    while h > 1:
+        h //= 2
+        lo = acc[:, :, :h].reshape(nc, N_LIMBS, h * B).contiguous()
+        hi = acc[:, :, h:].reshape(nc, N_LIMBS, h * B).contiguous()
+        acc = _model_add(spec, lo, hi).reshape(nc, N_LIMBS, h, B)
+    return acc[:, :, 0]
+
+
+def _shrink_fs_dev(spec, fr, X, Y, inf, gm, hm, cur: int):
+    """The segmented shrink on the card: `_shrink_msm`, then the affine
+    table (X / Z, Y / Z in Montgomery form; an RCB identity, Z = 0, as X =
+    Y = 0 marked in inf) by one batch inversion, with no host round
+    trip."""
+    fq = spec.fq
+    pts = _shrink_msm(spec, fr, X, Y, inf, gm, hm, cur)
+    z = pts[-1]
+    zi = fs.mont_inv_batch(fq, z)
+    xa, ya = df.mont_mul(fq, pts[:2], zi)
+    inf2 = df.is_zero(z)
+    zero = torch.zeros_like(xa)
+    return (df.select(inf2, zero, xa).to(torch.int32),
+            df.select(inf2, zero, ya).to(torch.int32), inf2)
+
+
+def _fs_rounds(spec, fr, rounds: int, X, Y, inf, a, b, gm, hm, qw, p2, st,
+               pos: int, pb: int, outs: list):
+    """`rounds` IPA rounds with the Fiat-Shamir step on the card, from the
+    width of a (P = 1: (16, N) vectors, qw (16, 1); P lockstep proofs: (P,
+    16, N) and (P, 16, 1)). Appends each round's (xy, u, flags) of
+    `fs.fs_round` to outs; returns (a, b, gm, hm, st, pos, pb)."""
+    N = a.shape[-1]
+    batch = a.dim() == 3
+    for r in range(rounds):
+        cur = N >> r
+        m = cur // 2
+        if batch:
+            scal, bm, cq = _round_scalars_compact_batch(fr, a, b, gm, hm, qw,
+                                                        m, cur)
+        else:
+            scal, bm, cq = _round_scalars_compact(fr, a, b, gm, hm, qw, m,
+                                                  cur)
+        pts = proj.to_jacobian(spec, msm_device_mapped(
+            spec, X, Y, inf, scal.to(torch.int32).contiguous(), bm))
+        S = _model_add(spec, pts.to(torch.int32).contiguous(),
+                       _mul_point_dev(spec, p2, cq))
+        xy, u, st, flags, pos, pb = fs.fs_round(spec, fr, S, st, pos, pb)
+        if batch:
+            U, Ui = (u[i].T.unsqueeze(-1) for i in range(2))
+        else:
+            U, Ui = u[0], u[1]
+        a, b, gm, hm = _fold(fr, a, b, gm, hm, U, Ui, m, cur)
+        outs.append((xy, u[0], flags))
+    return a, b, gm, hm, st, pos, pb
+
+
+def _state_of(strobes, device) -> torch.Tensor:
+    return torch.tensor([list(s.state) for s in strobes], dtype=torch.int32,
+                        device=device)
+
+
+def _fetch(outs, a0, b0, st):
+    """One device-to-host copy of every round's output and the finals:
+    (xy (rounds, 2, 16, 2P), u (rounds, 16, P), flags (rounds, 3, P), a0,
+    b0 (16, P), st (P, 200)) on the host."""
+    parts = [torch.stack([o[i].to(torch.int32) for o in outs])
+             for i in range(3)] + [a0, b0, st]
+    flat = torch.cat([t.reshape(-1).to(torch.int32) for t in parts]).cpu()
+    out, off = [], 0
+    for t in parts:
+        out.append(flat[off:off + t.numel()].reshape(t.shape))
+        off += t.numel()
+    return out
+
+
+def _replay(curve, transcripts, xy, us, flags, pos: int, pb: int, st_dev):
+    """Host replay of the card's rounds on the live transcripts: appends L
+    and R and squeezes each challenge, as the per-round route does. Returns
+    the L and R vectors per proof; raises when a challenge or a final
+    state differs from the card's (the card draws `Fp::rand` to the end,
+    so a difference is a fault, not a rejection)."""
+    te = is_te(spec_for(curve))
+    p, Rinv = curve.fr.p, curve.fr.R_inv
+    rounds = us.shape[0]
+    out = []
+    for bi, t in enumerate(transcripts):
+        vecs = ([], [])
+        for r in range(rounds):
+            for side in range(2):
+                x, y = limbs_to_ints(xy[r, :, :, 2 * bi + side].T)
+                pt = None if flags[r, side, bi] and not te else (x, y)
+                vecs[side].append(pt)
+            protocol.append_point(t, curve, b"L", vecs[0][r])
+            protocol.append_point(t, curve, b"R", vecs[1][r])
+            u_host = protocol.challenge_scalar(t, curve, b"u")
+            if u_host != limbs_to_ints(us[r, :, bi])[0] * Rinv % p:
+                raise RuntimeError("device Fiat-Shamir challenge differs "
+                                   "from the host replay")
+        s = t._strobe
+        if (bytes(s.state) != bytes(st_dev[bi].tolist()) or s.pos != pos
+                or s.pos_begin != pb):
+            raise RuntimeError("device Fiat-Shamir state diverged from the "
+                               "host replay")
+        out.append(vecs)
+    return out
+
+
+def _finish(curve, transcripts, outs, a0, b0, st, pos: int, pb: int):
+    """Fetch, check and replay: [(L_vec, R_vec, a, b)] per transcript, or
+    None (transcripts unchanged) if a draw of `Fp::rand` found no
+    candidate in RAND_BLOCKS ChaCha20 blocks (about 2^-128 a draw)."""
+    xy, us, flags, a0, b0, st = _fetch(outs, a0, b0, st)
+    if not bool(flags[:, 2].all()):
+        return None
+    vecs = _replay(curve, transcripts, xy, us, flags, pos, pb, st)
+    p, Rinv = curve.fr.p, curve.fr.R_inv
+    A0, B0 = limbs_to_ints(a0), limbs_to_ints(b0)
+    return [(L, R, A0[i] * Rinv % p, B0[i] * Rinv % p)
+            for i, (L, R) in enumerate(vecs)]
+
+
+def ipa_prove_fs(transcript, curve, Q, G_factors, H_factors, G_vec, H_vec,
+                 a_vec, b_vec, device):
+    """One IPA proof with the Fiat-Shamir step on the card (the JAX
+    package's `ipa_prove_fs`). Segment plan: FS_SEG rounds at full width,
+    then `_shrink_fs_dev` to width / 2^FS_SEG, while the width is above
+    FS_SEG_MIN; the rest in one segment. Returns (L_vec, R_vec, a, b), the
+    live transcript advanced exactly as the per-round route advances it,
+    or None with the transcript unchanged (see `_finish`); raises if the
+    card's challenges or transcript state differ from the host replay."""
+    spec, fr = spec_for(curve), df.spec_for(curve.fr)
+    N = len(G_vec)
+    lg_n = N.bit_length() - 1
+    X, Y, inf = dcache.ipa_table(curve, G_vec, H_vec, device)
+    a, b = _mont(curve, a_vec, device), _mont(curve, b_vec, device)
+    gm, hm = _mont(curve, G_factors, device), _mont(curve, H_factors, device)
+    one_q = df.mont_one(fr, 1, device)
+    p2 = _q_doubles(curve, Q, device)
+    s = transcript._strobe
+    st, pos, pb = _state_of([s], device), s.pos, s.pos_begin
+    outs = []
+    width, done = N, 0
+    while done < lg_n:
+        shrink = (FS_SEG > 0 and width > FS_SEG_MIN
+                  and lg_n - done > FS_SEG and (width >> FS_SEG) >= 16)
+        rounds = FS_SEG if shrink else lg_n - done
+        a, b, gm, hm, st, pos, pb = _fs_rounds(
+            spec, fr, rounds, X, Y, inf, a, b, gm, hm, one_q, p2, st, pos,
+            pb, outs)
+        done += rounds
+        if shrink:
+            width >>= FS_SEG
+            X, Y, inf = _shrink_fs_dev(spec, fr, X, Y, inf, gm, hm, width)
+            a, b = a[:, :width], b[:, :width]
+            gm = hm = df.mont_one(fr, width, device)
+    res = _finish(curve, [transcript], outs, a[:, :1], b[:, :1], st, pos, pb)
+    return None if res is None else res[0]
+
+
+def ipa_prove_fs_batch(transcripts, curve, base_B, ws, G_factors_list,
+                       H_factors_list, G_vec, H_vec, a_list, b_list, device):
+    """P proofs in lockstep with the Fiat-Shamir step on the card (the
+    JAX package's `ipa_prove_fs_batch`), Q_b = ws[b] base_B: P STROBE
+    states share one host position, every round is one 2P-set MSM, one
+    Q-term tree over the cached 2^i base_B table and one `fs_round` launch
+    over P threads. Returns [(L_vec, R_vec, a, b)], or None when the
+    transcripts are not in lockstep or as `ipa_prove_fs`."""
+    strobes = [t._strobe for t in transcripts]
+    if len({(s.pos, s.pos_begin) for s in strobes}) != 1:
+        return None
+    spec, fr = spec_for(curve), df.spec_for(curve.fr)
+    X, Y, inf = dcache.ipa_table(curve, G_vec, H_vec, device)
+    A, Bv = (_mont_rows(curve, v, device) for v in (a_list, b_list))
+    GM, HM = (_mont_rows(curve, v, device)
+              for v in (G_factors_list, H_factors_list))
+    QW = _mont(curve, ws, device).T.unsqueeze(-1).contiguous()
+    p2 = dcache.keyed(("ipa q", curve.name, base_B, str(device)),
+                      lambda: _q_doubles(curve, base_B, device))
+    st = _state_of(strobes, device)
+    outs = []
+    A, Bv, GM, HM, st, pos, pb = _fs_rounds(
+        spec, fr, len(G_vec).bit_length() - 1, X, Y, inf, A, Bv, GM, HM, QW,
+        p2, st, strobes[0].pos, strobes[0].pos_begin, outs)
+    return _finish(curve, transcripts, outs, A[:, :, 0].T, Bv[:, :, 0].T, st,
+                   pos, pb)

@@ -7,14 +7,19 @@
   te_double_k_add  <- ::te_double_k_add_tiled and, with k = 0,
       ::te_add_tiled: the same steps on a twisted-Edwards curve, and the
       device Pedersen batch's halving tree (ops/prove.py);
-  te_double        <- ::te_double_tiled: the 2^i B tables of that batch.
+  te_double        <- ::te_double_tiled: the 2^i B tables of that batch
+      and of the on-device Fiat-Shamir IPA's Q terms (ops/ipa.py);
+  jac_double_k_add <- ::sw_add_tiled (k = 0) and ::sw_double_k_add_tiled:
+      Jacobian points (csrc/jac.cuh), the on-device Fiat-Shamir IPA's
+      c * Q tree and S = MSM + c * Q on short-Weierstrass curves;
+  jac_double       <- ::sw_double_tiled: that IPA's 2^i Q table.
 
 `k` is a runtime argument, so one kernel serves both the Horner step and
-the add. `double_k_add` and `add` pick the wrapper by the spec's type.
-The wrappers take points in the boundary layout, (NC, 16, m) int32
-(coordinate, limb, lane; NC = 3 for SW, 4 for TE). On a CPU tensor each
-runs its plain version below; on a CUDA tensor it launches its kernel, or
-raises.
+the add. `double_k_add` and `add` pick the RCB or TE wrapper by the
+spec's type. The wrappers take points in the boundary layout, (NC, 16, m)
+int32 (coordinate, limb, lane; NC = 3 for SW, 4 for TE). On a CPU tensor
+each runs its plain version below; on a CUDA tensor it launches its
+kernel, or raises.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 
 from . import _build
 from . import proj
-from .curve import is_te, n_coords
+from .curve import _sw_add, _sw_double, is_te, n_coords
 from .limbs import N_LIMBS
 
 
@@ -76,14 +81,32 @@ def lane_slices(L: int, device: torch.device) -> list[slice]:
     return [slice(o, min(o + step, L)) for o in range(0, L, step)]
 
 
+def _by_lanes(fn, *points) -> torch.Tensor:
+    """fn over lane slices of the points, int32 out."""
+    return torch.cat([
+        fn(*(P[..., sl] for P in points))
+        for sl in lane_slices(points[0].shape[-1], points[0].device)
+    ], dim=-1).to(torch.int32)
+
+
 def double_k_add_plain(spec, P: torch.Tensor, Q: torch.Tensor,
                        k: int) -> torch.Tensor:
-    """The plain version of both double-k-add kernels (proj.double_k_add
-    dispatches on the spec)."""
-    return torch.cat([
-        proj.double_k_add(spec, P[..., sl], Q[..., sl], k)
-        for sl in lane_slices(P.shape[-1], P.device)
-    ], dim=-1).to(torch.int32)
+    """The plain version of the RCB and TE double-k-add kernels
+    (proj.double_k_add dispatches on the spec)."""
+    return _by_lanes(lambda p, q: proj.double_k_add(spec, p, q, k), P, Q)
+
+
+def jac_double_k_add_plain(spec, P: torch.Tensor, Q: torch.Tensor,
+                           k: int) -> torch.Tensor:
+    """The plain version of `jac_double_k_add`: k Jacobian doublings,
+    then the complete Jacobian add."""
+
+    def f(p, q):
+        for _ in range(k):
+            p = _sw_double(spec, p)
+        return _sw_add(spec, p, q)
+
+    return _by_lanes(f, P, Q)
 
 
 def _check_model(name: str, spec, te: bool) -> None:
@@ -93,7 +116,7 @@ def _check_model(name: str, spec, te: bool) -> None:
                         " curve")
 
 
-def _double_k_add(wrapper, spec, P, Q, k: int):
+def _double_k_add(wrapper, plain, spec, P, Q, k: int):
     """Checks, then the plain version (CPU) or the wrapper's kernel
     (CUDA), counted on the wrapper."""
     name = wrapper.__name__
@@ -105,7 +128,7 @@ def _double_k_add(wrapper, spec, P, Q, k: int):
         raise ValueError(f"{name}: k={k} out of range")
     dev = same_device(P, Q)
     if dev.type == "cpu":
-        return double_k_add_plain(spec, P, Q, k)
+        return plain(spec, P, Q, k)
     if m == 0:
         raise ValueError(f"{name}: empty input")
     out = torch.empty_like(P)
@@ -119,7 +142,7 @@ def rcb_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
     """2^k * P + Q lane-wise on a short-Weierstrass curve; P, Q: (3, 16,
     m) int32."""
     _check_model("rcb_double_k_add", spec, te=False)
-    return _double_k_add(rcb_double_k_add, spec, P, Q, k)
+    return _double_k_add(rcb_double_k_add, double_k_add_plain, spec, P, Q, k)
 
 
 def te_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
@@ -127,34 +150,58 @@ def te_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
     """2^k * P + Q lane-wise on a twisted-Edwards curve; P, Q: (4, 16, m)
     int32 extended points."""
     _check_model("te_double_k_add", spec, te=True)
-    return _double_k_add(te_double_k_add, spec, P, Q, k)
+    return _double_k_add(te_double_k_add, double_k_add_plain, spec, P, Q, k)
+
+
+def jac_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """2^k * P + Q lane-wise on Jacobian short-Weierstrass points; P, Q:
+    (3, 16, m) int32, identity Z = 0."""
+    _check_model("jac_double_k_add", spec, te=False)
+    return _double_k_add(jac_double_k_add, jac_double_k_add_plain, spec, P,
+                         Q, k)
 
 
 def te_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
-    return torch.cat([
-        proj.double(spec, P[..., sl])
-        for sl in lane_slices(P.shape[-1], P.device)
-    ], dim=-1).to(torch.int32)
+    return _by_lanes(lambda p: proj.double(spec, p), P)
+
+
+def jac_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
+    return _by_lanes(lambda p: _sw_double(spec, p), P)
+
+
+def _double(wrapper, plain, spec, P):
+    name = wrapper.__name__
+    m = P.shape[-1]
+    check_tensor(P, (n_coords(spec), N_LIMBS, m), f"{name} P")
+    if P.device.type == "cpu":
+        return plain(spec, P)
+    if m == 0:
+        raise ValueError(f"{name}: empty input")
+    out = torch.empty_like(P)
+    launch(name, spec, P.device, P.data_ptr(), out.data_ptr(), m)
+    wrapper.launches += 1
+    return out
 
 
 def te_double(spec, P: torch.Tensor) -> torch.Tensor:
     """2P lane-wise on a twisted-Edwards curve; P: (4, 16, m) int32."""
     _check_model("te_double", spec, te=True)
-    m = P.shape[-1]
-    check_tensor(P, (4, N_LIMBS, m), "te_double P")
-    if P.device.type == "cpu":
-        return te_double_plain(spec, P)
-    if m == 0:
-        raise ValueError("te_double: empty input")
-    out = torch.empty_like(P)
-    launch("te_double", spec, P.device, P.data_ptr(), out.data_ptr(), m)
-    te_double.launches += 1
-    return out
+    return _double(te_double, te_double_plain, spec, P)
+
+
+def jac_double(spec, P: torch.Tensor) -> torch.Tensor:
+    """2P lane-wise on Jacobian short-Weierstrass points; P: (3, 16, m)
+    int32."""
+    _check_model("jac_double", spec, te=False)
+    return _double(jac_double, jac_double_plain, spec, P)
 
 
 rcb_double_k_add.launches = 0
 te_double_k_add.launches = 0
 te_double.launches = 0
+jac_double_k_add.launches = 0
+jac_double.launches = 0
 
 
 def double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,

@@ -239,3 +239,18 @@ def double_k_add(spec, P, Q, k: int) -> torch.Tensor:
     for _ in range(k):
         P = double(spec, P)
     return add(spec, P, Q)
+
+
+def to_jacobian(spec, P: torch.Tensor) -> torch.Tensor:
+    """RCB (X : Y : Z) -> the same point in Jacobian coordinates (XZ, YZ^2,
+    Z), three products through `df.mont_mul` (the kernel on the card); the
+    identity (0 : R : 0) maps to (0, 0, 0). TE extended points pass
+    through (ark_bulletproofs_tpu/ops/proj.py::to_jacobian)."""
+    if is_te(spec):
+        return P
+    fs = spec.fq
+    X, Y, Z = P
+    Z2 = df.mont_mul(fs, Z, Z)
+    XZ, YZ2 = df.mont_mul(fs, torch.stack([X, Y]),
+                          torch.stack([Z.to(Z2.dtype), Z2]))
+    return torch.stack([XZ, YZ2, Z.to(XZ.dtype)])

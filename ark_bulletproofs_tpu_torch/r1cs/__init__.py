@@ -7,7 +7,7 @@ from .constraint_system import (
 )
 from .linear_combination import LinearCombination, Variable
 from .proof import R1CSProof
-from .prover import Prover, RandomizingProver
+from .prover import Prover, RandomizingProver, prove_batch
 from .verifier import RandomizingVerifier, Verifier, batch_verify
 
 __all__ = [
@@ -19,6 +19,7 @@ __all__ = [
     "R1CSProof",
     "Prover",
     "RandomizingProver",
+    "prove_batch",
     "Verifier",
     "RandomizingVerifier",
     "batch_verify",

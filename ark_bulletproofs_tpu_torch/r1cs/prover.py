@@ -516,3 +516,167 @@ class RandomizingProver(RandomizedConstraintSystem):
         return protocol.challenge_scalar(
             self.prover._transcript, self.prover.curve, label
         )
+
+
+def prove_batch(provers: list, prngs: list,
+                bp_gens: BulletproofGens) -> list:
+    """Proofs of P constraint systems of one shape, made in lockstep.
+
+    Each proof equals `provers[b].prove(prngs[b], bp_gens)` byte for byte:
+    every prover keeps its own transcript and RNG, and the phases run in
+    the same order within each proof. Across the batch, the three
+    commitments of each phase for all P provers are one `engine.msm_many`
+    call (3P scalar sets over [B_blinding | G | H]), and the IPA is
+    `InnerProductProof.create_batch` (one batched device MSM a round with
+    the Fiat-Shamir steps of all P proofs together). The l and r
+    polynomials run on the host, per proof, as in the JAX package's
+    `prove_batch` (reference src/r1cs/prover.rs:444 proves one at a
+    time). Requires equal n1 and, after phase 2, equal n."""
+    P = len(provers)
+    assert P == len(prngs) and P > 0
+    curve = provers[0].curve
+    fr = curve.fr
+    p = fr.p
+
+    rngs, states = [], []
+    for prover, prng in zip(provers, prngs):
+        t = prover._transcript
+        t.append_u64(b"m", len(prover.v))
+        builder = t.build_rng().rekey_with_witness_many(
+            b"v_blinding", [fr.to_bytes(v_b) for v_b in prover.v_blinding])
+        rngs.append(builder.finalize(prng))
+
+    n1 = len(provers[0].a_L)
+    if any(len(pr.a_L) != n1 for pr in provers):
+        raise ValueError("prove_batch requires equal phase-1 shapes")
+    if bp_gens.gens_capacity < n1:
+        raise R1CSInvalidGeneratorsLength()
+    gens = bp_gens.share(0)
+    Bb = provers[0].pc_gens.B_blinding
+
+    for rng in rngs:
+        d = fr.rand_many(rng, 3 + 2 * n1)
+        states.append({"i1": d[0], "o1": d[1], "s1": d[2],
+                       "s_L1": d[3:3 + n1], "s_R1": d[3 + n1:]})
+
+    with phase("prove_batch:phase1_msm"):
+        sets = []
+        for prover, st in zip(provers, states):
+            sets.append([st["i1"]] + prover.a_L + prover.a_R)
+            sets.append([st["o1"]] + prover.a_O + [0] * n1)
+            sets.append([st["s1"]] + st["s_L1"] + st["s_R1"])
+        pts = engine.msm_many(curve, [Bb] + gens.G(n1) + gens.H(n1), sets)
+
+    for b, (prover, st) in enumerate(zip(provers, states)):
+        st["A_I1"], st["A_O1"], st["S1"] = pts[3 * b: 3 * b + 3]
+        t = prover._transcript
+        protocol.append_point(t, curve, b"A_I1", st["A_I1"])
+        protocol.append_point(t, curve, b"A_O1", st["A_O1"])
+        protocol.append_point(t, curve, b"S1", st["S1"])
+        prover._create_randomized_constraints()
+
+    n = len(provers[0].a_L)
+    if any(len(pr.a_L) != n for pr in provers):
+        raise ValueError("prove_batch requires equal phase-2 shapes")
+    n2 = n - n1
+    padded_n = next_power_of_two(n)
+    pad = padded_n - n
+    if bp_gens.gens_capacity < padded_n:
+        raise R1CSInvalidGeneratorsLength()
+
+    for st, rng in zip(states, rngs):
+        if n2:
+            d = fr.rand_many(rng, 3 + 2 * n2)
+            st["i2"], st["o2"], st["s2"] = d[0], d[1], d[2]
+            st["s_L2"], st["s_R2"] = d[3:3 + n2], d[3 + n2:]
+        else:
+            st["i2"] = st["o2"] = st["s2"] = 0
+            st["s_L2"], st["s_R2"] = [], []
+
+    with phase("prove_batch:phase2_msm"):
+        if n2:
+            sets = []
+            for prover, st in zip(provers, states):
+                sets.append([st["i2"]] + prover.a_L[n1:] + prover.a_R[n1:])
+                sets.append([st["o2"]] + prover.a_O[n1:] + [0] * n2)
+                sets.append([st["s2"]] + st["s_L2"] + st["s_R2"])
+            pts = engine.msm_many(
+                curve, [Bb] + gens.G(n)[n1:] + gens.H(n)[n1:], sets)
+        else:
+            pts = [curve.zero()] * (3 * P)
+
+    ipa_in = []  # (transcript, w, G_factors, H_factors, l, r) per proof
+    partial = []
+    with phase("prove_batch:polynomials"):
+        for b, (prover, st, rng) in enumerate(zip(provers, states, rngs)):
+            t = prover._transcript
+            A_I2, A_O2, S2 = pts[3 * b: 3 * b + 3]
+            protocol.append_point(t, curve, b"A_I2", A_I2)
+            protocol.append_point(t, curve, b"A_O2", A_O2)
+            protocol.append_point(t, curve, b"S2", S2)
+            y = protocol.challenge_scalar(t, curve, b"y")
+            z = protocol.challenge_scalar(t, curve, b"z")
+            wL, wR, wO, wV = prover.flattened_constraints(z)
+            exp_y_inv = exp_vec(fr, fr.inv(y), padded_n)
+            s_L = st["s_L1"] + st["s_L2"]
+            s_R = st["s_R1"] + st["s_R2"]
+            l_poly = VecPoly3(fr, n)
+            r_poly = VecPoly3(fr, n)
+            exp_y = 1
+            for i in range(n):
+                l_poly.c1[i] = (prover.a_L[i] + exp_y_inv[i] * wR[i]) % p
+                l_poly.c2[i] = prover.a_O[i]
+                l_poly.c3[i] = s_L[i]
+                r_poly.c0[i] = (wO[i] - exp_y) % p
+                r_poly.c1[i] = (exp_y * prover.a_R[i] + wL[i]) % p
+                r_poly.c3[i] = exp_y * s_R[i] % p
+                exp_y = exp_y * y % p
+            t_poly = VecPoly3.special_inner_product(l_poly, r_poly)
+            tb = [fr.rand(rng) for _ in range(5)]  # t_1, t_3 .. t_6 blindings
+            Ts = prover.pc_gens.commit_many(
+                [t_poly.t1, t_poly.t3, t_poly.t4, t_poly.t5, t_poly.t6], tb)
+            for label, T in zip((b"T_1", b"T_3", b"T_4", b"T_5", b"T_6"),
+                                Ts):
+                protocol.append_point(t, curve, label, T)
+            u = protocol.challenge_scalar(t, curve, b"u")
+            x = protocol.challenge_scalar(t, curve, b"x")
+            t_2_blinding = sum(c * vb for c, vb in
+                               zip(wV, prover.v_blinding)) % p
+            t_x = t_poly.eval(x)
+            t_x_blinding = Poly6(fr, tb[0], t_2_blinding, *tb[1:]).eval(x)
+            l_vec = l_poly.eval(x) + [0] * pad
+            r_vec = r_poly.eval(x) + [0] * pad
+            exp_y = fr.pow(y, n)
+            for i in range(n, padded_n):
+                r_vec[i] = (p - exp_y) % p
+                exp_y = exp_y * y % p
+            i_blinding = (st["i1"] + u * st["i2"]) % p
+            o_blinding = (st["o1"] + u * st["o2"]) % p
+            s_blinding = (st["s1"] + u * st["s2"]) % p
+            e_blinding = x * (i_blinding + x * (o_blinding
+                                                + x * s_blinding)) % p
+            protocol.append_scalar(t, curve, b"t_x", t_x)
+            protocol.append_scalar(t, curve, b"t_x_blinding", t_x_blinding)
+            protocol.append_scalar(t, curve, b"e_blinding", e_blinding)
+            w = protocol.challenge_scalar(t, curve, b"w")
+            G_factors = [1] * n1 + [u] * (n2 + pad)
+            H_factors = [yi * gf % p for yi, gf in zip(exp_y_inv, G_factors)]
+            ipa_in.append((t, w, G_factors, H_factors, l_vec, r_vec))
+            partial.append(dict(
+                A_I1=st["A_I1"], A_O1=st["A_O1"], S1=st["S1"], A_I2=A_I2,
+                A_O2=A_O2, S2=S2, T_1=Ts[0], T_3=Ts[1], T_4=Ts[2], T_5=Ts[3],
+                T_6=Ts[4], t_x=t_x, t_x_blinding=t_x_blinding,
+                e_blinding=e_blinding))
+            l_poly.clear()
+            r_poly.clear()
+            for key in ("s_L1", "s_R1", "s_L2", "s_R2"):
+                st[key][:] = [0] * len(st[key])
+
+    with phase("prove_batch:ipa"):
+        ts, ws, gfs, hfs, ls, rs = zip(*ipa_in)
+        ipa_proofs = InnerProductProof.create_batch(
+            list(ts), curve, provers[0].pc_gens.B, list(ws), list(gfs),
+            list(hfs), gens.G(padded_n), gens.H(padded_n), list(ls),
+            list(rs))
+    return [R1CSProof(ipp_proof=ip, **kw)
+            for kw, ip in zip(partial, ipa_proofs)]

@@ -48,3 +48,8 @@ def report() -> str:
             f"mean={sum(ts)/len(ts)*1e3:8.2f} ms"
         )
     return "\n".join(lines)
+
+
+def total(name: str) -> float:
+    """Seconds spent in phase `name` since the last reset."""
+    return sum(_TIMES.get(name, ()))

@@ -7,29 +7,35 @@ Phases, each printed with its seconds:
   1. build: the card's name, power limit and maximum SM clock, then nvcc
      builds the kernels (csrc/*.cu, one process per source, in parallel)
      for sm_90a into ark_bulletproofs_tpu_torch/_build/ and prints
-     ptxas's registers and spills per MSM kernel, and g++ the native host
+     ptxas's registers and spills per kernel, and g++ the native host
      library (csrc/host/), which must load;
   2. kernels: each kernel against its plain PyTorch version on the card,
      bit-equal limbs: the MSM kernels on secq256k1 and zorro (RCB) and on
      curve25519 (twisted-Edwards: the TE instantiations of the three
      scans, te_double_k_add and te_double) with identity, doubling and
-     P + (-P) lanes, mont_mul on two fr fields at 1,000, 6 x 2048 and
-     9 x 2048 lanes, with a (16, 1) operand and with 0, 1 and p - 1 lanes,
-     and at the prover's (6, 4, 9) x 16 x 2048 row shapes; then each
-     timed at its main-path shape (n = 2^20 MSM on secq256k1 and on
-     curve25519; mont_mul at the k = 1024 fold's 6 x 2048 lanes;
-     te_double at the commit table's 2 lanes), the kernel alone by
-     replaying a CUDA graph of its launches, beside its plain version and
-     its bound;
+     P + (-P) lanes; the Jacobian jac_double_k_add (k = 0, 1, 4) and
+     jac_double on secq256k1 and zorro with doubling, P + (-P), O + P and
+     P + O lanes at the batch tree's 65,536 lanes and the Q table's one;
+     fs_round at P = 1 and 128 transcripts on the three curves; mont_mul
+     on two fr fields at 1,000, 6 x 2048 and 9 x 2048 lanes, with a
+     (16, 1) operand and with 0, 1 and p - 1 lanes, and at the prover's
+     (6, 4, 9) x 16 x 2048 row shapes; then each timed at its main-path
+     shape (n = 2^20 MSM on secq256k1 and on curve25519; mont_mul at the
+     k = 1024 fold's 6 x 2048 lanes; te_double at the commit table's 2
+     lanes; jac_double_k_add at the P = 128 batch tree's first 32,768
+     lanes, jac_double at one lane, fs_round at P = 1 and 128), the
+     kernel alone by replaying a CUDA graph of its launches, beside its
+     plain version and its bound;
   3. msm: n = 2^20 secq256k1 through the port's `msm`, equal to the native
      host Pippenger, then timed (median of 5) with its peak memory;
   4. shuffle: a k = 1024 secq256k1 shuffle proved on the card through the
-     device branches (tabled phase MSMs, vector phase, IPA), with its
-     protocol phases on the host clock, proved again on the port's host
-     route, the two proofs byte-equal; the card's proof verified on the
-     card three times (first, then twice after a gc.collect()), with the
-     full garbage collections inside each run; a flipped byte and swapped
-     commitments rejected;
+     device branches (tabled phase MSMs, vector phase, the IPA on the
+     on-device Fiat-Shamir route), with its protocol phases on the host
+     clock, proved again with the IPA on the per-round card route and on
+     the port's host route, the three proofs byte-equal; the card's proof
+     verified on the card three times (first, then twice after a
+     gc.collect()), with the full garbage collections inside each run; a
+     flipped byte and swapped commitments rejected;
   5. batch_verify: the 1024 cached k = 8 proofs accepted, a batch with one
      tampered proof rejected;
   6. msm curve25519: as phase 3, the oracle the pure-Python host
@@ -37,11 +43,21 @@ Phases, each printed with its seconds:
   7. shuffle curve25519: as phase 4 (the witness commitments through the
      device Pedersen batch on the card; on the host route through the
      host's double-and-add);
-  8. launches: each path of phases 3-7 (the msm, the card prove, the card
-     verify, batch_verify, and curve25519's msm, prove and verify) runs
-     with every launch count set to 0 just before it and read just after;
-     each of its kernels launched;
-  9. traces: the card prove (secq256k1 and curve25519) and the verify
+  8. ipa n=2^16 secq256k1: one IPA on the on-device Fiat-Shamir route
+     and on the per-round route, byte-equal, each run twice, with the
+     device-to-host syncs of one run of each;
+  9. ipa zorro n=1024: the same on zorro (a != 0 in jac_double);
+ 10. create_batch n=64 P=128 secq256k1: the lockstep batch IPA on the FS
+     route (ipa_prove_fs_batch) and on the per-round route
+     (IpaBatchProver), each proof byte-equal to a serial host `create`,
+     each route run twice, proofs/s;
+ 11. prove_batch P=128 k=32 shuffles secq256k1: byte-equal to a serial
+     host-route prove on a sample of 16, all accepted by batch_verify, a
+     tampered one rejected, proofs/s;
+ 12. launches: each path of phases 3-11 runs with every launch count set
+     to 0 just before it and read just after; each of its kernels
+     launched;
+ 13. traces: the card prove (secq256k1 and curve25519) and the verify
      once more each under torch.profiler, which splits card time from
      host time and names the largest kernels (last, so that no timing
      above runs after a profiler session).
@@ -74,6 +90,8 @@ BATCH_CACHE = os.path.join(ROOT, "benches",
 L_MAIN = 22 * 1024  # scan lanes at n = 2^20: W * C = 22 * 1024
 MM_LANES = 6 * 2048  # the k = 1024 IPA fold's product launch
 MSM_CU = "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu"
+FS_CU = "ark_bulletproofs_tpu_torch/csrc/fs_kernels.cu"
+TREE_LANES = 128 * 256  # the first step of the P = 128 batch's c * Q tree
 # The kernels JSON line, one entry per kernel and point model: (entry
 # name, wrapper, model of the paths it counts, source, TPU kernels it
 # replaces). "[te]" entries are the twisted-Edwards instantiations of the
@@ -103,6 +121,13 @@ ENTRIES = [
      "ark_bulletproofs_tpu/ops/kernels.py:780"),
     ("te_double", "te_double", "te", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:794"),
+    ("jac_double_k_add", "jac_double_k_add", "sw", MSM_CU,
+     "ark_bulletproofs_tpu/ops/kernels.py:359"),
+    ("jac_double", "jac_double", "sw", MSM_CU,
+     "ark_bulletproofs_tpu/ops/kernels.py:413"),
+    # port-only: the JAX package runs this round body as XLA ops
+    ("fs_round", "fs_round", None, FS_CU,
+     "ark_bulletproofs_tpu/ops/ipa.py:550"),
 ]
 SCANS = ("suffix_madd_scan", "suffix_jac_scan", "rowsum")
 # The bound: the larger of bytes over the card's memory rate and 32-bit
@@ -112,13 +137,20 @@ SCANS = ("suffix_madd_scan", "suffix_jac_scan", "rowsum")
 # products for m * p: 264 instructions. On secq256k1 (a = 0, 3b = 21 by
 # double-and-add) csrc/rcb.cuh spends 12 products on an add, 11 on a
 # mixed add and 8 on a doubling; on curve25519 csrc/te.cuh spends 11 on
-# each (a and d as full products).
+# each (a and d as full products). csrc/jac.cuh spends 16 on a Jacobian
+# add, and 8 more (10 for a != 0) on each lane that doubles.
 HBM_BYTES_PER_S = 3.35e12
 MULS_PER_FE_MUL = 264
 FE_MULS = {"sw": {"add": 12, "madd": 11, "double": 8},
-           "te": {"add": 11, "madd": 11, "double": 11}}
+           "te": {"add": 11, "madd": 11, "double": 11},
+           "jac": {"add": 16, "double": 8, "double_a": 10}}
 MSM_KERNELS = {"sw": SCANS + ("rcb_double_k_add",),
                "te": SCANS + ("te_double_k_add",)}
+# The on-device Fiat-Shamir IPA's kernels beyond the MSM's: the c * Q
+# tree and the 2^i Q table, and the round's transcript step.
+FS_KERNELS = {"sw": ("mont_mul", "jac_double_k_add", "jac_double",
+                     "fs_round"),
+              "te": ("mont_mul", "te_double", "fs_round")}
 
 
 @contextlib.contextmanager
@@ -436,6 +468,135 @@ class KernelCheck:
                 *self.bound(2 * 4 * 16 * 2 * 4,
                             2 * fe["double"] * MULS_PER_FE_MUL))
 
+    def model_points(self, curve, spec, R: int, L: int, seed: int):
+        """(NC, R, 16, L) points in the on-device Fiat-Shamir IPA's model
+        coordinates from affine_rows, each with a random Z: Jacobian (x
+        Z^2, y Z^3, Z), its identity lanes (y = 0 there) as (0, 0, 0); or
+        TE extended (x Z, y Z, x y Z, Z), the y = 0 lanes made (0, 1).
+        Also returns the (R, L) identity mask."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import field as df
+
+        fq = spec.fq
+        xy = self.affine_rows(curve, spec, R, L, seed)
+        ident = df.is_zero(xy[1])  # (R, L)
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        z = torch.randint(0, 1 << 16, (R, 16, L), generator=g,
+                          device=self.dev, dtype=torch.int32)
+        z[:, 15] = 0  # below p
+        z[:, 0] |= 1  # not zero
+        mm = lambda a, b: df.mont_mul(fq, a, b).to(torch.int32)  # noqa
+        if model(spec) == "te":
+            one = df.const(fq.r_limbs, self.dev).to(torch.int32)
+            x = torch.where(ident.unsqueeze(-2), 0, xy[0])
+            y = torch.where(ident.unsqueeze(-2), one, xy[1])
+            return torch.stack([mm(x, z), mm(y, z), mm(mm(x, y), z), z]
+                               ).contiguous(), ident
+        z2 = mm(z, z)
+        P = torch.stack([mm(xy[0], z2), mm(xy[1], mm(z2, z)), z])
+        return torch.where(ident.unsqueeze(-2), 0, P).contiguous(), ident
+
+    def run_jac(self, curve, seed: int, timed: bool) -> None:
+        """jac_double_k_add (k = 0, 1, 4) and jac_double bit-equal to their
+        plain versions at the batch tree's 65,536 lanes and the Q table's
+        one: P = row 0 and Q = row 1 of model_points, so the lanes hold
+        doublings (the same point under two Z), P + (-P), O + Q, P + O and
+        O + O."""
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
+        t0 = time.perf_counter()
+        for L in (2 * 128 * 256, 1):
+            T, _ = self.model_points(curve, spec, 2, L, seed + L)
+            P, Q = T[:, 0].contiguous(), T[:, 1].contiguous()
+            for k in (0, 1, 4):
+                self.compare("jac_double_k_add",
+                             kk.jac_double_k_add(spec, P, Q, k),
+                             kk.jac_double_k_add_plain(spec, P, Q, k))
+            self.compare("jac_double", kk.jac_double(spec, P),
+                         kk.jac_double_plain(spec, P))
+        print(f"   {curve.name} jac_double_k_add (k = 0, 1, 4) and "
+              f"jac_double at 65536 and 1 lanes: bit-equal "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not timed:
+            return
+        fe = FE_MULS["jac"]
+        dbl = fe["double"] if spec.is_a_zero else fe["double_a"]
+        T, ident = self.model_points(curve, spec, 2, TREE_LANES, seed)
+        P, Q = T[:, 0].contiguous(), T[:, 1].contiguous()
+        xy = self.affine_rows(curve, spec, 2, TREE_LANES, seed)
+        doubling = int(((xy[:, 0] == xy[:, 1]).all(dim=1).all(dim=0)
+                        & ~ident[0] & ~ident[1]).sum())
+        m = TREE_LANES
+        self.times["jac_double_k_add"] = (
+            graph_ms(lambda: kk.jac_double_k_add(spec, P, Q, 0), 20),
+            host_ms(lambda: kk.jac_double_k_add_plain(spec, P, Q, 0)),
+            *self.bound(3 * 3 * 16 * m * 4,
+                        (m * fe["add"] + doubling * dbl) * MULS_PER_FE_MUL))
+        P1 = P[..., :1].contiguous()
+        self.times["jac_double"] = (
+            graph_ms(lambda: kk.jac_double(spec, P1), 100),
+            host_ms(lambda: kk.jac_double_plain(spec, P1)),
+            *self.bound(2 * 3 * 16 * 4, dbl * MULS_PER_FE_MUL))
+
+    @staticmethod
+    def fs_round_muls(curve, spec, P: int) -> int:
+        """Multiply instructions of one fs_round launch over P transcripts:
+        per transcript two Fermat inversions in fq (square-and-multiply
+        over p - 2) with the affine and out-of-Montgomery products, one in
+        fr. Keccak, ChaCha20 and the comparisons do no multiplies and are
+        left out, so this is a lower bound."""
+
+        def inv(p: int) -> int:
+            e = p - 2
+            return e.bit_length() - 1 + bin(e).count("1") - 1
+
+        side = inv(curve.fq.p) + (4 if model(spec) == "te" else 6)
+        return P * (2 * side + inv(curve.fr.p)) * MULS_PER_FE_MUL
+
+    def run_fs_round(self, curve, seed: int, timed: bool) -> None:
+        """fs_round bit-equal to fs_round_plain (affine L and R, the
+        state, u and u^-1, the flags, the positions) for P = 1 and 128
+        transcripts at three positions, the last crossing the STROBE
+        rate; timed at P = 1 (a single proof) and 128 (the batch)."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import field as df
+        from ark_bulletproofs_tpu_torch.ops import fs
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
+        fr = df.spec_for(curve.fr)
+        t0 = time.perf_counter()
+        for P in (1, 128):
+            S, _ = self.model_points(curve, spec, 1, 2 * P, seed + P)
+            S = S[:, 0].contiguous()
+            g = torch.Generator(device=self.dev).manual_seed(seed)
+            st = torch.randint(0, 256, (P, 200), generator=g,
+                               device=self.dev, dtype=torch.int32)
+            for pos, pb in ((3, 1), (90, 85), (160, 150)):
+                got = fs.fs_round(spec, fr, S, st, pos, pb)
+                want = fs.fs_round_plain(spec, fr, S, st, pos, pb)
+                self.compare("fs_round", got[:4], want[:4])
+                if got[4:] != want[4:]:
+                    raise AssertionError(f"fs_round positions {got[4:]} != "
+                                         f"{want[4:]}")
+            if timed:
+                nc = S.shape[0]
+                nbytes = (nc * 16 * 2 * P + 2 * 200 * P + 2 * 16 * 2 * P
+                          + 2 * 16 * P + 3 * P) * 4
+                key = "fs_round" if P == 1 else "fs_round P=128"
+                self.times[key] = (
+                    graph_ms(lambda: fs.fs_round(spec, fr, S, st, 160, 150),
+                             20),
+                    host_ms(lambda: fs.fs_round_plain(spec, fr, S, st, 160,
+                                                      150)),
+                    *self.bound(nbytes, self.fs_round_muls(curve, spec, P)))
+        print(f"   {curve.name} fs_round at P = 1 and 128: bit-equal "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     def run_mont_mul(self, curve, seed: int, timed: bool) -> None:
         """mont_mul bit-equal to its plain version on curve.fr, flat and at
         the prover's row shapes, then timed at MM_LANES lanes (the k = 1024
@@ -629,15 +790,16 @@ def phase_shuffle(curve, launches: Launches) -> tuple:
 
     from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
                                             ShuffleProof, Transcript,
-                                            engine, seeded_rng)
+                                            engine, ipp, seeded_rng)
     from ark_bulletproofs_tpu_torch.ops.curve import spec_for
     from ark_bulletproofs_tpu_torch.utils import profiling
 
     spec = spec_for(curve)
     msm_kernels = MSM_KERNELS[model(spec)]
-    prove_kernels = msm_kernels + ("mont_mul",)
-    if model(spec) == "te":  # the witness commits' 2^i B table
-        prove_kernels += ("te_double",)
+    round_kernels = msm_kernels + ("mont_mul",)
+    # the FS route's Q table; on curve25519 also the witness commits' 2^i
+    # B table (te_double), built by the first prove and kept after it
+    prove_kernels = msm_kernels + FS_KERNELS[model(spec)]
     t0 = time.perf_counter()
     pc = PedersenGens.default(curve)
     bp = BulletproofGens(curve, 2 * SHUFFLE_K, 1)
@@ -661,11 +823,44 @@ def phase_shuffle(curve, launches: Launches) -> tuple:
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     card = sp.proof.to_bytes(curve)
-    print(f"   {curve.name} card prove k={SHUFFLE_K}: {card_s:.3f} s "
-          f"({len(card)} bytes, "
+    card_ipa = profiling.total("prove:ipa")
+    print(f"   {curve.name} card prove k={SHUFFLE_K}, IPA on the on-device "
+          f"Fiat-Shamir route: {card_s:.3f} s ({len(card)} bytes, "
           f"{full_collections() - full} full collections); its phases:",
           flush=True)
     print_phases()
+    saved = ipp.IPA_FS
+    ipp.IPA_FS = ()  # the per-round route: host Fiat-Shamir every round
+    try:
+        t0 = time.perf_counter()
+        sp_rounds, _, _ = launches.run(path_name("prove per-round", curve),
+                                       prove, round_kernels, spec)
+        torch.cuda.synchronize()
+        rounds_s = time.perf_counter() - t0
+    finally:
+        ipp.IPA_FS = saved
+    if sp_rounds.proof.to_bytes(curve) != card:
+        raise AssertionError("the FS-route proof differs from the per-round "
+                             "route's")
+    ipa_ms = {"fs": [card_ipa * 1e3],
+              "per-round": [profiling.total("prove:ipa") * 1e3]}
+    print(f"   {curve.name} card prove k={SHUFFLE_K}, IPA on the per-round "
+          f"route: {rounds_s:.3f} s, byte-equal", flush=True)
+    for route in ("per-round", "fs"):  # once more each, in turn
+        ipp.IPA_FS = saved if route == "fs" else ()
+        try:
+            profiling.reset()
+            prove()
+            torch.cuda.synchronize()
+            ipa_ms[route].append(profiling.total("prove:ipa") * 1e3)
+        finally:
+            ipp.IPA_FS = saved
+    print(f"   {curve.name} k={SHUFFLE_K} prove:ipa, two proves a route in "
+          f"the order fs, per-round, per-round, fs: FS route "
+          f"{ipa_ms['fs'][0]:.1f} and {ipa_ms['fs'][1]:.1f} ms; per-round "
+          f"route {ipa_ms['per-round'][0]:.1f} and "
+          f"{ipa_ms['per-round'][1]:.1f} ms", flush=True)
+    profiling.reset()
     threshold = engine.config.msm_device_threshold
     engine.config.msm_device_threshold = 1 << 62  # nothing reaches the card
     try:
@@ -677,7 +872,8 @@ def phase_shuffle(curve, launches: Launches) -> tuple:
     if sp_host.proof.to_bytes(curve) != card:
         raise AssertionError("card proof differs from the host-route proof")
     print(f"   {curve.name} host-route prove k={SHUFFLE_K}: {host_s:.3f} s; "
-          f"the two proofs are byte-equal", flush=True)
+          f"the three proofs are byte-equal", flush=True)
+
     def verify():
         ShuffleProof(sp.proof).verify(pc, bp, Transcript(label), ic, oc)
 
@@ -745,13 +941,295 @@ def phase_batch(curve, launches: Launches) -> None:
         seeded_rng(1001), instances(bad), pc, bp))
 
 
+def count_syncs(fn):
+    """(fn(), the device-to-host synchronisations that PyTorch reports
+    during it: torch.cuda.set_sync_debug_mode warns on each .item(),
+    .cpu(), nonzero and blocking copy)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = (f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}")
+            sites[where] = sites.get(where, 0) + 1
+    return out, sites
+
+
+def print_syncs(what: str, sites: dict) -> None:
+    top = sorted(sites.items(), key=lambda kv: -kv[1])
+    print(f"   {what}: {sum(sites.values())} device-to-host syncs; by call "
+          f"site: {', '.join(f'{k} x{v}' for k, v in top)}", flush=True)
+
+
+def random_scalars(curve, count: int, seed: int) -> list[int]:
+    import numpy as np
+
+    raw = np.random.default_rng(seed).integers(
+        0, 1 << 16, size=(count, 16), dtype=np.uint16).tobytes()
+    r = curve.fr.p
+    return [int.from_bytes(raw[32 * i:32 * i + 32], "little") % r
+            for i in range(count)]
+
+
+def phase_ipa_routes(curve, n: int, launches: Launches) -> None:
+    """One n-term IPA through `InnerProductProof.create` on the on-device
+    Fiat-Shamir route and on the per-round route, each run twice (the
+    second counted as the path), byte-equal proofs and transcripts; the
+    device-to-host syncs of one more run of each. G and H repeat 8192
+    chain points (any bases serve; the routes must agree)."""
+    import torch
+
+    from ark_bulletproofs_tpu_torch import (InnerProductProof, PedersenGens,
+                                            Transcript, engine, ipp)
+    from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
+    from ark_bulletproofs_tpu_torch.ops import ipa
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    spec = spec_for(curve)
+    t0 = time.perf_counter()
+    m = min(n, N_DISTINCT)
+    G = GeneratorsChain(curve, b"chip_smoke ipa G").take(m) * (n // m)
+    H = GeneratorsChain(curve, b"chip_smoke ipa H").take(m) * (n // m)
+    gf, hf, a, b = (random_scalars(curve, n, 300 + i) for i in range(4))
+    Q = curve.mul(PedersenGens.default(curve).B, 0x5EED)
+    print(f"   inputs: {time.perf_counter() - t0:.1f} s", flush=True)
+    kernels = {"fs": MSM_KERNELS[model(spec)] + FS_KERNELS[model(spec)],
+               "per-round": MSM_KERNELS[model(spec)] + ("mont_mul",)}
+    saved = ipp.IPA_FS
+    out = {}
+    try:
+        for route in ("fs", "per-round"):
+            on_card = (engine.torch_device().type,)
+            ipp.IPA_FS = on_card if route == "fs" else ()
+
+            def create():
+                t = Transcript(b"chip_smoke ipa")
+                proof = InnerProductProof.create(t, curve, Q, gf, hf, G, H,
+                                                 a, b)
+                torch.cuda.synchronize()
+                return proof.to_bytes(curve), t.challenge_bytes(b"end", 32)
+
+            times = []
+            for rep in range(2):
+                t0 = time.perf_counter()
+                out[route] = (create() if rep == 0 else launches.run(
+                    path_name(f"ipa n={n} {route}", curve), create,
+                    kernels[route], spec))
+                times.append(time.perf_counter() - t0)
+            _, syncs = count_syncs(create)
+            print(f"   {curve.name} ipa n={n} {route} route: "
+                  f"{times[0]:.3f} s, then {times[1]:.3f} s", flush=True)
+            print_syncs(f"one {route} proof", syncs)
+        if n > ipa.FS_SEG_MIN and ipa.FS_SEG != 4:
+            # the JAX package's plan: shrink by 2^4, 16-term sets
+            seg = ipa.FS_SEG
+            ipp.IPA_FS, ipa.FS_SEG = (engine.torch_device().type,), 4
+            try:
+                t0 = time.perf_counter()
+                if create() != out["fs"]:
+                    raise AssertionError("FS_SEG = 4 gives other bytes")
+                print(f"   {curve.name} ipa n={n} fs route with the JAX "
+                      f"package's segment plan (FS_SEG = 4): "
+                      f"{time.perf_counter() - t0:.3f} s, byte-equal",
+                      flush=True)
+            finally:
+                ipa.FS_SEG = seg
+    finally:
+        ipp.IPA_FS = saved
+    if out["fs"] != out["per-round"]:
+        raise AssertionError(f"{curve.name} n={n}: the FS route's proof or "
+                             f"transcript differs from the per-round route's")
+    print(f"   {curve.name} ipa n={n}: the two routes' proofs and "
+          f"transcripts are byte-equal", flush=True)
+
+
+BATCH_P, BATCH_N = 128, 64
+
+
+def phase_create_batch(curve, launches: Launches) -> None:
+    """create_batch of BATCH_P proofs at n = BATCH_N with Q_b = w_b B on
+    both routes, each proof byte-equal to a serial `create` on the host
+    route; proofs/s of each route's second run. The transcripts' labels
+    have one length, so that they stay in lockstep (the FS batch route
+    needs one position for all)."""
+    import torch
+
+    from ark_bulletproofs_tpu_torch import (BulletproofGens, InnerProductProof,
+                                            PedersenGens, Transcript, engine,
+                                            ipp)
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    spec = spec_for(curve)
+    P, n = BATCH_P, BATCH_N
+    gens = BulletproofGens(curve, n, 1).share(0)
+    G, H = gens.G(n), gens.H(n)
+    B = PedersenGens.default(curve).B
+    ws = random_scalars(curve, P, 400)
+    gfs, hfs, As, Bs = ([random_scalars(curve, n, 1000 * i + j)
+                         for j in range(P)] for i in range(1, 5))
+    threshold = engine.config.msm_device_threshold
+    engine.config.msm_device_threshold = 1 << 62  # the serial host oracle
+    try:
+        t0 = time.perf_counter()
+        want = [InnerProductProof.create(
+            Transcript(b"chip_smoke batch %03d" % j), curve,
+            curve.mul(B, ws[j]), gfs[j], hfs[j], G, H, As[j],
+            Bs[j]).to_bytes(curve)
+            for j in range(P)]
+        print(f"   {P} serial host-route creates: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        engine.config.msm_device_threshold = 64  # the batch on the card
+        saved = ipp.IPA_FS
+        kernels = {"fs": MSM_KERNELS["sw"] + ("mont_mul", "jac_double_k_add",
+                                              "fs_round"),
+                   "per-round": MSM_KERNELS["sw"] + ("mont_mul",)}
+        for route in ("fs", "per-round"):
+            on_card = (engine.torch_device().type,)
+            ipp.IPA_FS = on_card if route == "fs" else ()
+
+            def batch():
+                ts = [Transcript(b"chip_smoke batch %03d" % j)
+                      for j in range(P)]
+                proofs = InnerProductProof.create_batch(
+                    ts, curve, B, ws, gfs, hfs, G, H, As, Bs)
+                torch.cuda.synchronize()
+                return [p.to_bytes(curve) for p in proofs]
+
+            times = []
+            for rep in range(2):
+                t0 = time.perf_counter()
+                got = (batch() if rep == 0 else launches.run(
+                    f"create_batch {route}", batch, kernels[route], spec))
+                times.append(time.perf_counter() - t0)
+                if got != want:
+                    bad = [j for j in range(P) if got[j] != want[j]]
+                    raise AssertionError(f"create_batch {route}: proofs {bad}"
+                                         f" differ from serial create")
+            print(f"   create_batch n={n} P={P} {route} route: "
+                  f"{times[0]:.3f} s, then {times[1]:.3f} s "
+                  f"({P / times[1]:.1f} proofs/s); all {P} equal serial "
+                  f"create", flush=True)
+    finally:
+        engine.config.msm_device_threshold = threshold
+        ipp.IPA_FS = saved
+
+
+PROVE_BATCH_K = 32
+PROVE_BATCH_SAMPLE = 16
+
+
+def phase_prove_batch(curve, launches: Launches) -> None:
+    """prove_batch of BATCH_P k = 32 shuffles (2k - 2 = 62 multipliers,
+    padded n = 64), every phase MSM on the card (threshold 0, as the JAX
+    package's batch bench runs all of them on its device: below the
+    threshold the 3P one-base phase-1 MSMs of a shuffle would be host
+    scalar multiplications) and the IPA through create_batch's FS route;
+    a sample of the proofs byte-equal to ShuffleProof.prove on the host
+    route under the same seeded RNG; all accepted by batch_verify; one
+    tampered proof rejected."""
+    import torch
+
+    from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
+                                            Prover, ShuffleProof, Transcript,
+                                            batch_verify, engine, prove_batch,
+                                            seeded_rng)
+    from ark_bulletproofs_tpu_torch.gadgets import shuffle_gadget
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+    from ark_bulletproofs_tpu_torch.utils import profiling
+
+    spec = spec_for(curve)
+    P, k = BATCH_P, PROVE_BATCH_K
+    pc = PedersenGens.default(curve)
+    bp = BulletproofGens(curve, 2 * k, 1)
+    label = b"chip_smoke prove_batch"
+
+    def witness(j: int):
+        r = random.Random(5000 + j)
+        vals = [r.getrandbits(64) for _ in range(k)]
+        perm = vals[:]
+        r.shuffle(perm)
+        return vals, perm
+
+    def shuffle_prover(j: int):
+        """ShuffleProof.prove's steps up to Prover.prove."""
+        vals, perm = witness(j)
+        prng = seeded_rng(5000 + j)
+        t = Transcript(label)
+        t.append_message(b"dom-sep", b"ShuffleProof")
+        t.append_u64(b"k", k)
+        prover = Prover(pc, t)
+        ins = prover.commit_many(vals, curve.fr.rand_many(prng, k))
+        outs = prover.commit_many(perm, curve.fr.rand_many(prng, k))
+        shuffle_gadget(prover, curve, [v for _, v in ins],
+                       [v for _, v in outs])
+        return prover, prng, [c for c, _ in ins], [c for c, _ in outs]
+
+    threshold = engine.config.msm_device_threshold
+    try:
+        t0 = time.perf_counter()
+        built = [shuffle_prover(j) for j in range(P)]
+        print(f"   {P} constraint systems built: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        engine.config.msm_device_threshold = 0
+        profiling.reset()
+        t0 = time.perf_counter()
+        proofs = launches.run("prove_batch", lambda: prove_batch(
+            [b[0] for b in built], [b[1] for b in built], bp),
+            MSM_KERNELS["sw"] + ("mont_mul", "jac_double_k_add", "fs_round"),
+            spec)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"   prove_batch P={P} k={k}: {dt:.3f} s, {P / dt:.1f} "
+              f"proofs/s; its phases:", flush=True)
+        print_phases()
+        engine.config.msm_device_threshold = 1 << 62  # the host oracle
+        for j in range(0, P, P // PROVE_BATCH_SAMPLE):
+            sp, _, _ = ShuffleProof.prove(seeded_rng(5000 + j), pc, bp,
+                                          Transcript(label), *witness(j))
+            if sp.proof.to_bytes(curve) != proofs[j].to_bytes(curve):
+                raise AssertionError(f"prove_batch proof {j} differs from "
+                                     f"ShuffleProof.prove")
+        print(f"   a sample of {PROVE_BATCH_SAMPLE} (every "
+              f"{P // PROVE_BATCH_SAMPLE}th) equals ShuffleProof.prove on "
+              f"the host route", flush=True)
+        engine.config.msm_device_threshold = threshold
+
+        def instances(items):
+            return [(ShuffleProof(p).build_verifier(pc, Transcript(label),
+                                                    ic, oc), p)
+                    for p, ic, oc in items]
+
+        items = [(p, b[2], b[3]) for p, b in zip(proofs, built)]
+        t0 = time.perf_counter()
+        batch_verify(seeded_rng(6000), instances(items), pc, bp)
+        print(f"   batch_verify of the {P} proofs: accepted, "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        bad = min(5, P - 1)
+        items[bad] = (tamper_t_x(curve, items[bad][0]), *items[bad][1:])
+        must_raise("prove_batch batch with one tampered proof",
+                   lambda: batch_verify(seeded_rng(6001), instances(items),
+                                        pc, bp))
+    finally:
+        engine.config.msm_device_threshold = threshold
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per kernel instantiation of nvcc's `-Xptxas -v` report:
     kernel, point model, registers, spill stores and loads (bytes)."""
     import re
 
     models = {"TeModel": "te", "RcbModelILb1E": "rcb a=0",
-              "RcbModelILb0E": "rcb a"}
+              "RcbModelILb0E": "rcb a", "JacModelILb1E": "jac a=0",
+              "JacModelILb0E": "jac a"}
     out, name, spills = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -782,6 +1260,7 @@ def main() -> int:
     from ark_bulletproofs_tpu_torch import curves, engine, native
     from ark_bulletproofs_tpu_torch.ops import _build
     from ark_bulletproofs_tpu_torch.ops import field as df
+    from ark_bulletproofs_tpu_torch.ops import fs
     from ark_bulletproofs_tpu_torch.ops import kernels as kk
     from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 
@@ -795,6 +1274,9 @@ def main() -> int:
         "mont_mul": df.mont_mul,
         "te_double_k_add": kk.te_double_k_add,
         "te_double": kk.te_double,
+        "jac_double_k_add": kk.jac_double_k_add,
+        "jac_double": kk.jac_double,
+        "fs_round": fs.fs_round,
     }
 
     with phase("1 build"):
@@ -821,6 +1303,11 @@ def main() -> int:
         check.run_curve(curves.curve25519, seed=5, timed=True)
         check.run_mont_mul(curves.secq256k1, seed=3, timed=True)
         check.run_mont_mul(curves.zorro, seed=4, timed=False)
+        check.run_jac(curves.secq256k1, seed=6, timed=True)
+        check.run_jac(curves.zorro, seed=7, timed=False)
+        check.run_fs_round(curves.secq256k1, seed=8, timed=True)
+        check.run_fs_round(curves.zorro, seed=9, timed=False)
+        check.run_fs_round(curves.curve25519, seed=10, timed=False)
         check.report()
     torch.cuda.empty_cache()
 
@@ -835,9 +1322,17 @@ def main() -> int:
         phase_msm(curves.curve25519, launches)
     with phase(f"7 shuffle k={SHUFFLE_K} curve25519"):
         prove_te, _ = phase_shuffle(curves.curve25519, launches)
-    with phase("8 launches"):
+    with phase("8 ipa n=2^16 secq256k1"):
+        phase_ipa_routes(curves.secq256k1, 1 << 16, launches)
+    with phase("9 ipa zorro n=1024"):
+        phase_ipa_routes(curves.zorro, 1024, launches)
+    with phase(f"10 create_batch n={BATCH_N} P={BATCH_P} secq256k1"):
+        phase_create_batch(curves.secq256k1, launches)
+    with phase(f"11 prove_batch P={BATCH_P} k={PROVE_BATCH_K} secq256k1"):
+        phase_prove_batch(curves.secq256k1, launches)
+    with phase("12 launches"):
         launches.check()
-    with phase("9 traces"):
+    with phase("13 traces"):
         traced(f"secq256k1 card prove k={SHUFFLE_K}", prove)
         traced(f"secq256k1 verify k={SHUFFLE_K}", verify)
         traced(f"curve25519 card prove k={SHUFFLE_K}", prove_te)

@@ -20,12 +20,13 @@ import random
 import pytest
 import torch
 
-from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
-                                        R1CSError, R1CSProof, ShuffleProof,
-                                        Transcript, batch_verify, curves,
-                                        engine, ipp, msm, msm_many,
-                                        seeded_rng)
+from ark_bulletproofs_tpu_torch import (BulletproofGens, InnerProductProof,
+                                        PedersenGens, R1CSError, R1CSProof,
+                                        ShuffleProof, Transcript,
+                                        batch_verify, curves, engine, ipp,
+                                        msm, msm_many, seeded_rng)
 from ark_bulletproofs_tpu_torch.ops import field as df
+from ark_bulletproofs_tpu_torch.ops import fs
 from ark_bulletproofs_tpu_torch.ops import ipa
 from ark_bulletproofs_tpu_torch.ops import kernels as kk
 from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
@@ -192,9 +193,13 @@ def test_mont_mul_matches_plain(curve, cuda_dev):
 @pytest.mark.parametrize("shrink", [128, 4], ids=["plain", "shrink"])
 def test_prove_on_card_matches_host_route(shrink, cuda_dev, monkeypatch):
     """k = 64 shuffle with every device branch on the card (thresholds
-    lowered) equals the host route's proof byte for byte. With a shrink
-    threshold of 4 the IPA table (N = 128) shrinks at cur = 32."""
+    lowered) equals the host route's proof byte for byte: "plain" with the
+    IPA on the route `ipp.IPA_FS` picks on the card, "shrink" on the
+    per-round route with a shrink threshold of 4, so that the IPA table
+    (N = 128) shrinks at cur = 32."""
     monkeypatch.setattr(ipa, "SHRINK_T", shrink)
+    if shrink == 4:
+        monkeypatch.setattr(ipp, "IPA_FS", ())
     monkeypatch.setattr(engine.config, "device", "cuda")
     curve, k, label = curves.secq256k1, 64, b"card prove"
     pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 2 * k, 1)
@@ -287,3 +292,119 @@ def test_te_batch_verify_on_card(cuda_dev, monkeypatch):
     bad[5] = (R1CSProof.from_bytes(curve, bytes(blob)), *items[5][1:])
     with pytest.raises(R1CSError):
         batch_verify(seeded_rng(8), instances(bad), pc, bp)
+
+
+def _model_points(curve, spec, R, dev, seed):
+    """(NC, R, 16, L) points from _affine_rows in the model coordinates
+    of the on-device Fiat-Shamir IPA, each with a random Z: Jacobian (x
+    Z^2, y Z^3, Z) with the identity rows as (0, 0, 0), or TE extended
+    (x Z, y Z, x y Z, Z) with the y = 0 rows made (0, 1)."""
+    fq = spec.fq
+    xy = _affine_rows(curve, spec, R, dev, seed)
+    ident = df.is_zero(xy[1]).unsqueeze(-2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randint(0, 1 << 16, (R, 16, L), generator=g, device=dev,
+                      dtype=torch.int32)
+    z[:, 15] = 0
+    z[:, 0] |= 1
+
+    def mm(a, b):
+        return df.mont_mul(fq, a, b).to(torch.int32)
+
+    if is_te(spec):
+        one = df.const(fq.r_limbs, dev).to(torch.int32)
+        x = torch.where(ident, 0, xy[0])
+        y = torch.where(ident, one, xy[1])
+        return torch.stack([mm(x, z), mm(y, z), mm(mm(x, y), z), z])
+    z2 = mm(z, z)
+    P = torch.stack([mm(xy[0], z2), mm(xy[1], mm(z2, z)), z])
+    return torch.where(ident, 0, P)
+
+
+@pytest.mark.parametrize("curve", CURVES[:2], ids=lambda c: c.name)
+def test_jac_kernels_match_plain_versions(curve, cuda_dev):
+    """jac_double_k_add (k = 0, 1, 4) and jac_double: doubling lanes (one
+    point under two Z), P + (-P), O + Q, P + O and O + O."""
+    spec = spec_for(curve)
+    T = _model_points(curve, spec, 2, cuda_dev, seed=11)
+    P, Q = T[:, 0].contiguous(), T[:, 1].contiguous()
+    before = (kk.jac_double_k_add.launches, kk.jac_double.launches)
+    for k in (0, 1, 4):
+        assert torch.equal(kk.jac_double_k_add(spec, P, Q, k),
+                           kk.jac_double_k_add_plain(spec, P, Q, k)), k
+    assert torch.equal(kk.jac_double(spec, P), kk.jac_double_plain(spec, P))
+    P1 = P[..., :1].contiguous()
+    assert torch.equal(kk.jac_double(spec, P1),
+                       kk.jac_double_plain(spec, P1))
+    after = (kk.jac_double_k_add.launches, kk.jac_double.launches)
+    assert [b - a for a, b in zip(before, after)] == [3, 2]
+
+
+@pytest.mark.parametrize("P", [1, 5])
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_fs_round_matches_plain_version(curve, P, cuda_dev):
+    """fs_round over P transcripts at two positions, one crossing the
+    STROBE rate: affine L and R, u and u^-1, the state, the flags and
+    the positions equal fs_round_plain's."""
+    spec = spec_for(curve)
+    fr = df.spec_for(curve.fr)
+    S = _model_points(curve, spec, 1, cuda_dev, seed=P)[:, 0, :, :2 * P]
+    S = S.contiguous()
+    g = torch.Generator(device=cuda_dev).manual_seed(P)
+    st = torch.randint(0, 256, (P, 200), generator=g, device=cuda_dev,
+                       dtype=torch.int32)
+    before = fs.fs_round.launches
+    for pos, pb in ((3, 1), (160, 150)):
+        got = fs.fs_round(spec, fr, S, st, pos, pb)
+        want = fs.fs_round_plain(spec, fr, S, st, pos, pb)
+        assert all(torch.equal(a, b) for a, b in zip(got[:4], want[:4]))
+        assert got[4:] == want[4:]
+    assert fs.fs_round.launches == before + 2
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_fs_ipa_on_card_matches_per_round_route(curve, cuda_dev,
+                                                monkeypatch):
+    """An n = 256 IPA on the on-device Fiat-Shamir route equals the
+    per-round route's proof, and leaves the transcript where it does."""
+    _all_on_card(monkeypatch)
+    n = 256
+    gens = BulletproofGens(curve, n, 1).share(0)
+    rng = random.Random(n)
+    gf, hf, a, b = ([rng.randrange(curve.fr.p) for _ in range(n)]
+                    for _ in range(4))
+    Q = curve.mul(PedersenGens.default(curve).B, 99)
+    out = []
+    for route in (("cuda",), ()):
+        monkeypatch.setattr(ipp, "IPA_FS", route)
+        before = fs.fs_round.launches
+        t = Transcript(b"card fs ipa")
+        proof = InnerProductProof.create(t, curve, Q, gf, hf, gens.G(n),
+                                         gens.H(n), a, b)
+        assert (fs.fs_round.launches - before) == (8 if route else 0)
+        out.append((proof.to_bytes(curve), t.challenge_bytes(b"end", 8)))
+    assert out[0] == out[1]
+
+
+def test_create_batch_on_card_matches_serial(cuda_dev, monkeypatch):
+    """create_batch of 3 proofs at n = 64 on both card routes equals
+    serial host-route `create` proof for proof."""
+    curve, n, P = curves.secq256k1, 64, 3
+    gens = BulletproofGens(curve, n, 1).share(0)
+    B = PedersenGens.default(curve).B
+    rng = random.Random(3)
+    ws = [rng.randrange(curve.fr.p) for _ in range(P)]
+    vecs = [[[rng.randrange(curve.fr.p) for _ in range(n)]
+             for _ in range(P)] for _ in range(4)]
+    want = [InnerProductProof.create(
+        Transcript(b"cb %d" % j), curve, curve.mul(B, ws[j]),
+        *(v[j] for v in vecs[:2]), gens.G(n), gens.H(n),
+        *(v[j] for v in vecs[2:])).to_bytes(curve) for j in range(P)]
+    _all_on_card(monkeypatch)
+    for route in (("cuda",), ()):
+        monkeypatch.setattr(ipp, "IPA_FS", route)
+        ts = [Transcript(b"cb %d" % j) for j in range(P)]
+        got = InnerProductProof.create_batch(ts, curve, B, ws, *vecs[:2],
+                                             gens.G(n), gens.H(n),
+                                             *vecs[2:])
+        assert [p.to_bytes(curve) for p in got] == want

@@ -65,6 +65,33 @@ def test_no_port_module_imports_jax():
     assert _forbidden("ark_bulletproofs_tpu.fields")
 
 
+def test_port_sources_are_seen_and_include_only_their_own():
+    """The guard above reads every module of the port, the modules of the
+    on-device Fiat-Shamir IPA among them; the CUDA and host C++ sources
+    include only system headers and the port's own csrc files."""
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    for mod in ("ops/fs.py", "ops/ipa.py", "ops/kernels.py", "ipp.py",
+                "r1cs/prover.py"):
+        assert mod in files, mod
+    csrc = os.path.join(PKG, "csrc")
+    sources = {}
+    for d, _, names in os.walk(csrc):
+        for n in names:
+            if n.endswith((".cu", ".cuh", ".cpp", ".h")):
+                sources[os.path.relpath(os.path.join(d, n), csrc)] = \
+                    open(os.path.join(d, n)).read()
+    for name in ("jac.cuh", "fs.cuh", "fs_kernels.cu", "msm_kernels.cu"):
+        assert name in sources, name
+    own = {os.path.basename(n) for n in sources}
+    for name, text in sources.items():
+        for line in text.splitlines():
+            if line.startswith("#include"):
+                inc = line.split(None, 1)[1].strip()
+                if inc.startswith('"'):
+                    assert inc.strip('"') in own, (name, inc)
+                assert "jax" not in inc and "ark_bulletproofs_tpu" not in inc
+
+
 _NO_JAX = r"""
 import importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
