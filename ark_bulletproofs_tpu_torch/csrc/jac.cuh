@@ -1,14 +1,14 @@
 // Complete short-Weierstrass group law in Jacobian coordinates (X, Y, Z) =
 // (x Z^2, y Z^3), identity Z = 0 (stored as (0, 0, 0)).
 //
-// Replaces the TPU kernel bodies _k_sw_double and _k_sw_add
+// Replaces the TPU kernel bodies _k_sw_double, _k_sw_add and _k_sw_madd
 // (ark_bulletproofs_tpu/ops/kernels.py), followed operation for
-// operation, and through them the elementwise kernels sw_double_tiled and
-// sw_add_tiled (and sw_double_k_add_tiled's steps): dbl-2007-bl and
-// add-2007-bl (EFD). AZ selects a = 0 (secq256k1) at compile time; for
+// operation, and through them the elementwise kernels sw_double_tiled,
+// sw_add_tiled, sw_double_k_add_tiled and sw_madd_tiled: dbl-2007-bl,
+// add-2007-bl and madd-2007-bl (EFD). AZ selects a = 0 (secq256k1) at compile time; for
 // a != 0 (zorro) the doubling adds a ZZ^2 with a as a full product of
 // CurveConst::a_mont, as _k_sw_double does. The plain PyTorch versions are
-// ops/curve.py::_sw_double and ::_sw_add.
+// ops/curve.py::_sw_double, ::_sw_add and ::_sw_add_mixed.
 //
 // The add is complete by selects, in _k_sw_add's order: P == Q takes the
 // doubling of P, P == -Q (both finite) sets Z = 0, P = O gives Q, Q = O
@@ -16,10 +16,16 @@
 // only on the lanes that keep it (equal, finite operands), which changes
 // no output: every other lane's doubling is overwritten by a later select.
 //
-// Cost: 8 field products a doubling (10 for a != 0), 16 an add (24 or 26
-// on a doubling lane), against RCB's 8 and 12; the IPA's Q-term tree
-// (ops/ipa.py::_mul_point_dev) is the only caller, so no scan is built
-// on this model.
+// The mixed add (affine Q, Z2 = 1) is complete the same way, in
+// _k_sw_madd's order: doubling, cancel, P = O gives (qx, qy, 1) (or Z = 0
+// when Q = O too), Q = O gives P.
+//
+// Cost: 8 field products a doubling (10 for a != 0), 16 an add and 12 a
+// mixed add (8 or 10 more on a doubling lane), against RCB's 8, 12 and
+// 11. Callers: the IPA's Q-term tree (ops/ipa.py::_mul_point_dev) and the
+// v1 Pippenger (ops/msm.py::msm_impl: the mixed add in its row scan, the
+// add in its carries and trees, the double-k-add in its Horner steps);
+// no scan kernel is built on this model.
 #pragma once
 #include "rcb.cuh"
 
@@ -90,6 +96,45 @@ __device__ __forceinline__ Pt jac_add(const Pt& P, const Pt& Q,
   if (x_eq && y_eq && finite) R = jac_double<AZ>(P, cc);
   if (x_eq && !y_eq && finite) R.Z = fe_zero();
   if (p_inf) R = Q;
+  if (q_inf) R = P;
+  return R;
+}
+
+// P + affine (qx, qy), madd-2007-bl (_k_sw_madd): 12 products.
+template <bool AZ>
+__device__ __forceinline__ Pt jac_madd(const Pt& P, const Fe& qx,
+                                       const Fe& qy, bool q_inf,
+                                       const CurveConst& cc) {
+  bool p_inf = fe_is_zero(P.Z);
+  Fe Z1Z1 = fe_mul(P.Z, P.Z, cc);
+  Fe U2 = fe_mul(qx, Z1Z1, cc);
+  Fe S2 = fe_mul(fe_mul(qy, P.Z, cc), Z1Z1, cc);
+  Fe H = fe_sub(U2, P.X, cc);
+  Fe rr0 = fe_sub(S2, P.Y, cc);
+  bool x_eq = fe_is_zero(H);
+  bool y_eq = fe_is_zero(rr0);
+  Fe rr = fe_add(rr0, rr0, cc);
+  Fe twoH = fe_add(H, H, cc);
+  Fe HH = fe_mul(H, H, cc);
+  Fe I = fe_mul(twoH, twoH, cc);
+  Fe J = fe_mul(H, I, cc);
+  Fe V = fe_mul(P.X, I, cc);
+  Fe rr2 = fe_mul(rr, rr, cc);
+  Pt R;
+  R.X = fe_sub(rr2, fe_add(J, fe_add(V, V, cc), cc), cc);
+  Fe S1J = fe_mul(P.Y, J, cc);
+  R.Y = fe_sub(fe_mul(rr, fe_sub(V, R.X, cc), cc), fe_add(S1J, S1J, cc),
+               cc);
+  Fe zph = fe_add(P.Z, H, cc);
+  R.Z = fe_sub(fe_mul(zph, zph, cc), fe_add(Z1Z1, HH, cc), cc);
+  bool finite = !p_inf && !q_inf;
+  if (x_eq && y_eq && finite) R = jac_double<AZ>(P, cc);
+  if (x_eq && !y_eq && finite) R.Z = fe_zero();
+  if (p_inf) {
+    R.X = qx;
+    R.Y = qy;
+    R.Z = q_inf ? fe_zero() : fe_from(cc.one);
+  }
   if (q_inf) R = P;
   return R;
 }

@@ -14,12 +14,17 @@
 //   jac_double_k_add  <- ark_bulletproofs_tpu/ops/kernels.py::sw_add_tiled
 //                        (k = 0) and ::sw_double_k_add_tiled (k > 0)
 //   jac_double        <- ark_bulletproofs_tpu/ops/kernels.py::sw_double_tiled
+//   jac_madd          <- ark_bulletproofs_tpu/ops/kernels.py::sw_madd_tiled
+//   te_madd           <- ark_bulletproofs_tpu/ops/kernels.py::te_madd_tiled
+//                        (its elementwise launcher; the body also runs in
+//                        the TE suffix_madd_scan)
 //
 // Each kernel is a template over a point model: RcbModel<true> (RCB, a = 0:
 // secq256k1), RcbModel<false> (RCB, general a: zorro) and TeModel (HWCD
 // extended: curve25519); JacModel<AZ> (Jacobian, jac.cuh) instantiates
-// only the elementwise double-k-add and doubling, for the Q terms of the
-// on-device Fiat-Shamir IPA (no scan runs on Jacobian points). A model supplies the point type, its identity,
+// only the elementwise double-k-add, doubling and mixed add, for the Q
+// terms of the on-device Fiat-Shamir IPA and the v1 Pippenger (no scan
+// runs on Jacobian points). A model supplies the point type, its identity,
 // add, mixed add, doubling, load and store; the launchers pick it from the
 // constants (te, a_zero), so each kernel is compiled once per model and
 // carries no dead registers of another. A 3-coordinate model reads and
@@ -121,7 +126,7 @@ struct TeModel {
 };
 
 // Jacobian short-Weierstrass points (X, Y, Z) = (x Z^2, y Z^3), identity
-// (0, 0, 0), not RCB's (0, R, 0); no mixed add (no scan uses it).
+// (0, 0, 0), not RCB's (0, R, 0).
 template <bool AZ>
 struct JacModel {
   using P = Pt;
@@ -131,6 +136,11 @@ struct JacModel {
   static __device__ __forceinline__ P add(const P& a, const P& b,
                                           const CurveConst& cc) {
     return jac_add<AZ>(a, b, cc);
+  }
+  static __device__ __forceinline__ P madd(const P& a, const Fe& qx,
+                                           const Fe& qy, bool q_inf,
+                                           const CurveConst& cc) {
+    return jac_madd<AZ>(a, qx, qy, q_inf, cc);
   }
   static __device__ __forceinline__ P dbl(const P& a, const CurveConst& cc) {
     return jac_double<AZ>(a, cc);
@@ -216,6 +226,23 @@ __global__ void __launch_bounds__(THREADS)
   typename M::P acc = M::load(P, 1, 0, m, lane);
   for (int32_t i = 0; i < k; ++i) acc = M::dbl(acc, cc);
   acc = M::add(acc, M::load(Q, 1, 0, m, lane), cc);
+  M::store(out, 1, 0, m, lane, acc);
+}
+
+// out = P + affine (qx, qy) elementwise; a lane with q_inf[lane] != 0
+// adds the identity. P, out: (NC, 1, 16, m); qx, qy: (16, m); q_inf: (m,)
+// bytes (a torch bool tensor).
+template <class M>
+__global__ void __launch_bounds__(THREADS)
+    madd_kernel(const int32_t* __restrict__ P, const int32_t* __restrict__ qx,
+                const int32_t* __restrict__ qy,
+                const uint8_t* __restrict__ q_inf, int32_t* __restrict__ out,
+                int64_t m, CurveConst cc) {
+  size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (size_t)m) return;
+  typename M::P acc = M::load(P, 1, 0, m, lane);
+  acc = M::madd(acc, fe_load(qx, 0, m, lane), fe_load(qy, 0, m, lane),
+                q_inf[lane] != 0, cc);
   M::store(out, 1, 0, m, lane, acc);
 }
 
@@ -339,5 +366,36 @@ extern "C" int abtpu_jac_double(const void* P, void* out, int64_t m,
   else
     double_kernel<JacModel<false>><<<blocks_for(m), THREADS, 0, s>>>(
         (const int32_t*)P, (int32_t*)out, m, cc);
+  return (int)cudaGetLastError();
+}
+
+// P + affine Q on Jacobian points (sw_madd_tiled).
+extern "C" int abtpu_jac_madd(const void* P, const void* qx, const void* qy,
+                              const void* q_inf, void* out, int64_t m,
+                              const void* words, void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cc.te) return (int)cudaErrorInvalidValue;
+  if (cc.a_zero)
+    madd_kernel<JacModel<true>><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (const int32_t*)qx, (const int32_t*)qy,
+        (const uint8_t*)q_inf, (int32_t*)out, m, cc);
+  else
+    madd_kernel<JacModel<false>><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (const int32_t*)qx, (const int32_t*)qy,
+        (const uint8_t*)q_inf, (int32_t*)out, m, cc);
+  return (int)cudaGetLastError();
+}
+
+// P + affine Q on twisted-Edwards extended points (te_madd_tiled).
+extern "C" int abtpu_te_madd(const void* P, const void* qx, const void* qy,
+                             const void* q_inf, void* out, int64_t m,
+                             const void* words, void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!cc.te) return (int)cudaErrorInvalidValue;
+  madd_kernel<TeModel><<<blocks_for(m), THREADS, 0, s>>>(
+      (const int32_t*)P, (const int32_t*)qx, (const int32_t*)qy,
+      (const uint8_t*)q_inf, (int32_t*)out, m, cc);
   return (int)cudaGetLastError();
 }

@@ -28,9 +28,11 @@ proof); otherwise, and after the ~2^-128 case in which the card's
 `Fp::rand` finds no candidate, the per-round route (IpaDeviceProver: one
 round trip and a host Fiat-Shamir step per round). `create_batch` proves
 P transcripts in lockstep (ipa_prove_fs_batch or IpaBatchProver). Every
-route gives the same bytes. Verification runs on the host; the JAX
-package's device `ipa_gh_msm` verify comes with the rest of its
-ops/verify.py in a later slice.
+route gives the same bytes. `verify` takes the device route from n >=
+VERIFY_DEVICE_MIN_N on a short-Weierstrass curve when the engine puts
+the 2n-term MSM on the device: the g/h scalars and their MSM over [G | H]
+on the card (ops/verify.py::ipa_gh_msm), the [Q | L | R] tail on the
+host; below that the host assembles the whole MSM.
 """
 
 from __future__ import annotations
@@ -51,6 +53,9 @@ DEVICE_MIN_N = 64
 IPA_FS = ("cuda",)
 # Largest n of the on-device Fiat-Shamir IPA (ABTPU_IPA_FS_MAX_N).
 FS_MAX_N = 65536
+# Smallest n whose verification takes the device route (the JAX
+# package's gate).
+VERIFY_DEVICE_MIN_N = 1024
 
 
 @dataclass
@@ -347,10 +352,33 @@ class InnerProductProof:
         H_vec: list,
     ) -> None:
         """Standalone verification via one (2n + 2 lg n + 1)-term MSM
-        (reference src/inner_product_proof.rs:321-382), on the device
-        above the engine threshold. Raises on failure."""
+        (reference src/inner_product_proof.rs:321-382). Raises on failure.
+
+        Device route (short-Weierstrass curves, n >= VERIFY_DEVICE_MIN_N,
+        the 2n-term MSM above the engine threshold): the s-vector and the
+        g/h scalars are made on the device from the lg n challenges and
+        summed there over the cached [G | H] table
+        (ops/verify.py::ipa_gh_msm); only the [Q | L | R] tail runs
+        through the host Pippenger. Otherwise the host assembles every
+        scalar and the engine runs the MSM."""
         f = curve.fr
         p = f.p
+
+        if (n >= VERIFY_DEVICE_MIN_N and hasattr(curve, "b")
+                and engine.use_device(2 * n)):
+            from .ops.verify import ipa_gh_msm
+
+            u_sq, u_inv_sq, allinv = self.verification_challenges(
+                n, transcript, curve)
+            big = ipa_gh_msm(curve, n, self.a, self.b, u_sq, allinv,
+                             G_factors, H_factors, G_vec, H_vec)
+            tail = curve.msm(
+                [Q] + list(self.L_vec) + list(self.R_vec),
+                [self.a * self.b % p] + [p - x if x else 0 for x in u_sq]
+                + [p - x if x else 0 for x in u_inv_sq])
+            if not curve.eq(curve.add(big, tail), P):
+                raise VerificationError("inner product proof failed")
+            return
 
         u_sq, u_inv_sq, s = self.verification_scalars(n, transcript, curve)
 

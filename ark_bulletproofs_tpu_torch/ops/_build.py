@@ -48,6 +48,8 @@ _SIGNATURES = {
     "abtpu_te_double": [_P, _P, _I64, _P, _P],
     "abtpu_jac_double_k_add": [_P, _P, _P, _I64, _I32, _P, _P],
     "abtpu_jac_double": [_P, _P, _I64, _P, _P],
+    "abtpu_jac_madd": [_P, _P, _P, _P, _P, _I64, _P, _P],
+    "abtpu_te_madd": [_P, _P, _P, _P, _P, _I64, _P, _P],
     "abtpu_fs_round": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P],
     "abtpu_mont_mul": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P],
 }

@@ -16,13 +16,15 @@ stored as X = Y = 0.
 The on-device Fiat-Shamir IPA (ops/ipa.py) adds its Q terms in the JAX
 package's model coordinates instead: Jacobian (X, Y, Z) = (x Z^2, y Z^3)
 on a short-Weierstrass curve, identity Z = 0 (`point_zero` is
-(0, 0, 0)), and TE extended as above. `_sw_double` and `_sw_add` are the
-Jacobian law in plain PyTorch, the plain versions of csrc/jac.cuh: they
-follow the kernel bodies `_k_sw_double` / `_k_sw_add` of
-ark_bulletproofs_tpu/ops/kernels.py operation for operation (dbl-2007-bl;
-add-2007-bl with the unconditional doubling and the selects doubling,
-cancel, P = O, Q = O in that order), stacking independent products into
-one call, which changes no value. They return int64.
+(0, 0, 0)), and TE extended as above; so does the v1 Pippenger
+(ops/msm.py::msm_impl). `_sw_double`, `_sw_add` and `_sw_add_mixed` are
+the Jacobian law in plain PyTorch, the plain versions of csrc/jac.cuh:
+they follow the kernel bodies `_k_sw_double` / `_k_sw_add` / `_k_sw_madd`
+of ark_bulletproofs_tpu/ops/kernels.py operation for operation
+(dbl-2007-bl; add-2007-bl and madd-2007-bl with the unconditional
+doubling and the selects doubling, cancel, P = O, Q = O in that order),
+stacking independent products into one call, which changes no value.
+They return int64.
 """
 
 from __future__ import annotations
@@ -206,6 +208,47 @@ def _sw_add(spec: CurveSpec, P: torch.Tensor,
         R = df.select(both, _sw_double(spec, P), R)
     cancel = x_eq & ~y_eq & finite
     R[2] = df.select(cancel, torch.zeros_like(R[2]), R[2])
+    R = df.select(p_inf, Q, R)
+    return df.select(q_inf, P, R)
+
+
+def _sw_add_mixed(spec: CurveSpec, P: torch.Tensor, Qx: torch.Tensor,
+                  Qy: torch.Tensor, q_inf: torch.Tensor) -> torch.Tensor:
+    """Complete Jacobian P + affine (Qx, Qy), `_k_sw_madd`
+    (madd-2007-bl): 12 products and the doubling of P, then the selects;
+    P = O gives (Qx, Qy, R), or Z = 0 where q_inf too; q_inf lanes give
+    P."""
+    fs = spec.fq
+    P = P.long()
+    Qx, Qy = Qx.long(), Qy.long()
+    X1, Y1, Z1 = P
+    p_inf = df.is_zero(Z1)
+    (Z1Z1,) = _mm(fs, (Z1, Z1))
+    U2, B = _mm(fs, (Qx, Z1Z1), (Qy, Z1))
+    (S2,) = _mm(fs, (B, Z1Z1))
+    H = df.sub(fs, U2, X1)
+    rr0 = df.sub(fs, S2, Y1)
+    x_eq = df.is_zero(H)
+    y_eq = df.is_zero(rr0)
+    rr = df.add(fs, rr0, rr0)
+    twoH = df.add(fs, H, H)
+    zph = df.add(fs, Z1, H)
+    I, rr2, zph2, HH = _mm(fs, (twoH, twoH), (rr, rr), (zph, zph), (H, H))
+    J, V = _mm(fs, (H, I), (X1, I))
+    X3 = df.sub(fs, rr2, df.add(fs, J, df.add(fs, V, V)))
+    t1, S1J = _mm(fs, (rr, df.sub(fs, V, X3)), (Y1, J))
+    Y3 = df.sub(fs, t1, df.add(fs, S1J, S1J))
+    Z3 = df.sub(fs, zph2, df.add(fs, Z1Z1, HH))
+    R = torch.stack([X3, Y3, Z3])
+    finite = ~p_inf & ~q_inf
+    both = x_eq & y_eq
+    # The doubling only where a lane keeps it, as in `_sw_add`.
+    if bool((both & finite).any()):
+        R = df.select(both, _sw_double(spec, P), R)
+    cancel = x_eq & ~y_eq & finite
+    R[2] = df.select(cancel, torch.zeros_like(R[2]), R[2])
+    one = df.const(fs.r_limbs, P.device).expand_as(Qx)
+    Q = torch.stack([Qx, Qy, df.select(q_inf, torch.zeros_like(one), one)])
     R = df.select(p_inf, Q, R)
     return df.select(q_inf, P, R)
 

@@ -59,7 +59,7 @@ from . import proj
 from .curve import (affine_to_device, is_te, n_coords, point_batch_to_host,
                     point_zero, spec_for)
 from .limbs import N_LIMBS, ints_to_limbs, limbs_to_ints
-from ..parallel.msm import msm_device_mapped
+from ..parallel.msm import msm_device_mapped, msm_v1, msm_v2
 
 # The table shrinks once N / cur >= SHRINK_T segments share a live slot
 # (0 never shrinks); the shrink's MSM runs SHRINK_SETS scalar sets at a
@@ -70,13 +70,20 @@ SHRINK_SETS = 1024
 # The FS route's segment plan (the JAX package's ABTPU_IPA_FS_SEG and
 # ABTPU_IPA_FS_SEG_MIN): FS_SEG rounds at full width, then the table
 # shrinks on the card by 2^FS_SEG, while the width is above FS_SEG_MIN.
-# The JAX package shrinks by 2^4, each set then a 16-term MSM on its v1
-# Pippenger; the port has only the v2 MSM, which pads a set to 256
-# terms, so it shrinks by 2^7 = SHRINK_T as the per-round route does
-# (at n = 2^16 on the H100 the 2^4 plan took 1.13 s against the
-# per-round route's 0.57 s, chip_smoke.py).
+# The JAX package shrinks by 2^4, each shrink set then a 16-term MSM on
+# its v2 MSM (its `_shrink_fs_chunk` runs msm2 at window_bits(16)); the
+# port's v2 MSM pads a set to 256 terms, so it shrinks by 2^7 = SHRINK_T
+# as the per-round route does (at n = 2^16 on the H100 the 2^4 plan took
+# 1.13 s against the per-round route's 0.57 s, chip_smoke.py).
 FS_SEG = 7
 FS_SEG_MIN = 8192
+# The FS routes' engine gates (the JAX package's `use_v2` and `v2_w`):
+# a round's compact MSM runs on the v2 MSM from a table width of
+# FS_V2_MIN (one proof) or FS_BATCH_V2_MIN (a lockstep batch), on the v1
+# Pippenger below. The JAX package applies them on the TPU only; the port
+# applies them on every device, so a CPU run takes the card's engines.
+FS_V2_MIN = 128
+FS_BATCH_V2_MIN = 16
 
 
 def _masks(N: int, m: int, cur: int, device):
@@ -178,10 +185,12 @@ def _mont_rows(curve, rows, device) -> torch.Tensor:
     return flat.reshape(N_LIMBS, P, n).permute(1, 0, 2).contiguous()
 
 
-def _shrink_msm(spec, fr, X, Y, inf, gm, hm, cur: int) -> torch.Tensor:
+def _shrink_msm(spec, fr, X, Y, inf, gm, hm, cur: int,
+                msm=msm_device_mapped) -> torch.Tensor:
     """The folded table at width cur: G'_j = sum_t gm[j + t cur] G[j + t
     cur] (and H'), as base_map MSMs of 2 cur sets of T = N / cur terms,
-    SHRINK_SETS sets at a time. (NC, 16, 2 cur) model-native points."""
+    SHRINK_SETS sets at a time, through `msm` (the router, or `msm_v2`).
+    (NC, 16, 2 cur) points in the device coordinates."""
     N = gm.shape[-1]
     T = N // cur
     # set j's scalars are gm[j], gm[j + cur], ..., gm[j + (T-1) cur]
@@ -193,9 +202,8 @@ def _shrink_msm(spec, fr, X, Y, inf, gm, hm, cur: int) -> torch.Tensor:
           + torch.arange(T, device=dev)[None, :] * cur)
     bm = torch.cat([bm, bm + N])  # (2 cur, T)
     return torch.cat([
-        msm_device_mapped(spec, X, Y, inf,
-                          scal[s:s + SHRINK_SETS].to(torch.int32)
-                          .contiguous(), bm[s:s + SHRINK_SETS])
+        msm(spec, X, Y, inf, scal[s:s + SHRINK_SETS].to(torch.int32)
+            .contiguous(), bm[s:s + SHRINK_SETS])
         for s in range(0, 2 * cur, SHRINK_SETS)
     ], dim=-1)
 
@@ -332,14 +340,6 @@ class IpaBatchProver:
 # --- on-device Fiat-Shamir ------------------------------------------------
 
 
-def _model_add(spec, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
-    """Complete P + Q in the model coordinates: Jacobian (SW) or
-    extended (TE)."""
-    if is_te(spec):
-        return kk.te_double_k_add(spec, P, Q, 0)
-    return kk.jac_double_k_add(spec, P, Q, 0)
-
-
 def _q_doubles(curve, Q, device) -> torch.Tensor:
     """(NC, 16, 256) int32 model coordinates of 2^i Q, i < 256: 255
     doubling launches (`jac_double`, or `te_double` on a twisted-Edwards
@@ -374,17 +374,18 @@ def _mul_point_dev(spec, p2: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         h //= 2
         lo = acc[:, :, :h].reshape(nc, N_LIMBS, h * B).contiguous()
         hi = acc[:, :, h:].reshape(nc, N_LIMBS, h * B).contiguous()
-        acc = _model_add(spec, lo, hi).reshape(nc, N_LIMBS, h, B)
+        acc = kk.model_double_k_add(spec, lo, hi, 0).reshape(
+            nc, N_LIMBS, h, B)
     return acc[:, :, 0]
 
 
 def _shrink_fs_dev(spec, fr, X, Y, inf, gm, hm, cur: int):
-    """The segmented shrink on the card: `_shrink_msm`, then the affine
-    table (X / Z, Y / Z in Montgomery form; an RCB identity, Z = 0, as X =
-    Y = 0 marked in inf) by one batch inversion, with no host round
-    trip."""
+    """The segmented shrink on the card: `_shrink_msm` on the v2 MSM (as
+    the JAX package's `_shrink_fs_chunk`), then the affine table (X / Z,
+    Y / Z in Montgomery form; an RCB identity, Z = 0, as X = Y = 0 marked
+    in inf) by one batch inversion, with no host round trip."""
     fq = spec.fq
-    pts = _shrink_msm(spec, fr, X, Y, inf, gm, hm, cur)
+    pts = _shrink_msm(spec, fr, X, Y, inf, gm, hm, cur, msm_v2)
     z = pts[-1]
     zi = fs.mont_inv_batch(fq, z)
     xa, ya = df.mont_mul(fq, pts[:2], zi)
@@ -394,12 +395,22 @@ def _shrink_fs_dev(spec, fr, X, Y, inf, gm, hm, cur: int):
             df.select(inf2, zero, ya).to(torch.int32), inf2)
 
 
+def _round_msm(spec, X, Y, inf, scal, bm, v2: bool) -> torch.Tensor:
+    """A round's compact MSM in Jacobian (or TE extended) coordinates, on
+    the v2 MSM or on the v1 Pippenger, as the FS route's gate says."""
+    scal = scal.to(torch.int32).contiguous()
+    if v2:
+        return proj.to_jacobian(spec, msm_v2(spec, X, Y, inf, scal, bm))
+    return msm_v1(spec, X, Y, inf, scal, bm)
+
+
 def _fs_rounds(spec, fr, rounds: int, X, Y, inf, a, b, gm, hm, qw, p2, st,
-               pos: int, pb: int, outs: list):
+               pos: int, pb: int, outs: list, v2: bool):
     """`rounds` IPA rounds with the Fiat-Shamir step on the card, from the
     width of a (P = 1: (16, N) vectors, qw (16, 1); P lockstep proofs: (P,
-    16, N) and (P, 16, 1)). Appends each round's (xy, u, flags) of
-    `fs.fs_round` to outs; returns (a, b, gm, hm, st, pos, pb)."""
+    16, N) and (P, 16, 1)), the compact MSMs on the v2 MSM or not (`v2`).
+    Appends each round's (xy, u, flags) of `fs.fs_round` to outs; returns
+    (a, b, gm, hm, st, pos, pb)."""
     N = a.shape[-1]
     batch = a.dim() == 3
     for r in range(rounds):
@@ -411,10 +422,9 @@ def _fs_rounds(spec, fr, rounds: int, X, Y, inf, a, b, gm, hm, qw, p2, st,
         else:
             scal, bm, cq = _round_scalars_compact(fr, a, b, gm, hm, qw, m,
                                                   cur)
-        pts = proj.to_jacobian(spec, msm_device_mapped(
-            spec, X, Y, inf, scal.to(torch.int32).contiguous(), bm))
-        S = _model_add(spec, pts.to(torch.int32).contiguous(),
-                       _mul_point_dev(spec, p2, cq))
+        pts = _round_msm(spec, X, Y, inf, scal, bm, v2)
+        S = kk.model_double_k_add(spec, pts.to(torch.int32).contiguous(),
+                                  _mul_point_dev(spec, p2, cq), 0)
         xy, u, st, flags, pos, pb = fs.fs_round(spec, fr, S, st, pos, pb)
         if batch:
             U, Ui = (u[i].T.unsqueeze(-1) for i in range(2))
@@ -517,7 +527,7 @@ def ipa_prove_fs(transcript, curve, Q, G_factors, H_factors, G_vec, H_vec,
         rounds = FS_SEG if shrink else lg_n - done
         a, b, gm, hm, st, pos, pb = _fs_rounds(
             spec, fr, rounds, X, Y, inf, a, b, gm, hm, one_q, p2, st, pos,
-            pb, outs)
+            pb, outs, width >= FS_V2_MIN)
         done += rounds
         if shrink:
             width >>= FS_SEG
@@ -551,6 +561,7 @@ def ipa_prove_fs_batch(transcripts, curve, base_B, ws, G_factors_list,
     outs = []
     A, Bv, GM, HM, st, pos, pb = _fs_rounds(
         spec, fr, len(G_vec).bit_length() - 1, X, Y, inf, A, Bv, GM, HM, QW,
-        p2, st, strobes[0].pos, strobes[0].pos_begin, outs)
+        p2, st, strobes[0].pos, strobes[0].pos_begin, outs,
+        len(G_vec) >= FS_BATCH_V2_MIN)
     return _finish(curve, transcripts, outs, A[:, :, 0].T, Bv[:, :, 0].T, st,
                    pos, pb)

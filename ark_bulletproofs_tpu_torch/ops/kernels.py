@@ -12,7 +12,17 @@
   jac_double_k_add <- ::sw_add_tiled (k = 0) and ::sw_double_k_add_tiled:
       Jacobian points (csrc/jac.cuh), the on-device Fiat-Shamir IPA's
       c * Q tree and S = MSM + c * Q on short-Weierstrass curves;
-  jac_double       <- ::sw_double_tiled: that IPA's 2^i Q table.
+  jac_double       <- ::sw_double_tiled: that IPA's 2^i Q table;
+  jac_madd         <- ::sw_madd_tiled: Jacobian P + affine Q, the row scan
+      of the v1 Pippenger (ops/msm.py) on short-Weierstrass curves;
+  te_madd          <- ::te_madd_tiled's elementwise launcher: the same on
+      a twisted-Edwards curve.
+
+The v1 Pippenger and the on-device Fiat-Shamir IPA keep their points in
+the model coordinates of the JAX package's group law (Jacobian on a
+short-Weierstrass curve, extended on a twisted-Edwards one):
+`add_mixed` and `model_double_k_add` pick the Jacobian or TE kernel by
+the spec's type.
 
 `k` is a runtime argument, so one kernel serves both the Horner step and
 the add. `double_k_add` and `add` pick the RCB or TE wrapper by the
@@ -30,7 +40,7 @@ import torch
 
 from . import _build
 from . import proj
-from .curve import _sw_add, _sw_double, is_te, n_coords
+from .curve import _sw_add, _sw_add_mixed, _sw_double, is_te, n_coords
 from .limbs import N_LIMBS
 
 
@@ -118,7 +128,8 @@ def _check_model(name: str, spec, te: bool) -> None:
 
 def _double_k_add(wrapper, plain, spec, P, Q, k: int):
     """Checks, then the plain version (CPU) or the wrapper's kernel
-    (CUDA), counted on the wrapper."""
+    (CUDA), counted on the wrapper: `launches`, and `doubling_launches`
+    for the launches with k > 0."""
     name = wrapper.__name__
     m = P.shape[-1]
     nc = n_coords(spec)
@@ -134,6 +145,7 @@ def _double_k_add(wrapper, plain, spec, P, Q, k: int):
     out = torch.empty_like(P)
     launch(name, spec, dev, P.data_ptr(), Q.data_ptr(), out.data_ptr(), m, k)
     wrapper.launches += 1
+    wrapper.doubling_launches += k > 0
     return out
 
 
@@ -197,11 +209,66 @@ def jac_double(spec, P: torch.Tensor) -> torch.Tensor:
     return _double(jac_double, jac_double_plain, spec, P)
 
 
-rcb_double_k_add.launches = 0
-te_double_k_add.launches = 0
+def jac_madd_plain(spec, P: torch.Tensor, Qx: torch.Tensor,
+                   Qy: torch.Tensor, q_inf: torch.Tensor) -> torch.Tensor:
+    """The plain version of `jac_madd` (ops/curve.py::_sw_add_mixed)."""
+    return _by_lanes(lambda p, x, y, i: _sw_add_mixed(spec, p, x, y, i),
+                     P, Qx, Qy, q_inf)
+
+
+def te_madd_plain(spec, P: torch.Tensor, Qx: torch.Tensor,
+                  Qy: torch.Tensor, q_inf: torch.Tensor) -> torch.Tensor:
+    """The plain version of `te_madd` (ops/proj.py::_te_add_mixed)."""
+    return _by_lanes(lambda p, x, y, i: proj._te_add_mixed(spec, p, x, y, i),
+                     P, Qx, Qy, q_inf)
+
+
+def _madd(wrapper, plain, spec, P, Qx, Qy, q_inf):
+    name = wrapper.__name__
+    m = P.shape[-1]
+    check_tensor(P, (n_coords(spec), N_LIMBS, m), f"{name} P")
+    check_tensor(Qx, (N_LIMBS, m), f"{name} Qx")
+    check_tensor(Qy, (N_LIMBS, m), f"{name} Qy")
+    if q_inf.dtype != torch.bool or tuple(q_inf.shape) != (m,):
+        raise ValueError(f"{name} q_inf: expected a bool ({m},) tensor")
+    if not q_inf.is_contiguous():
+        raise ValueError(f"{name} q_inf: tensor must be contiguous")
+    dev = same_device(P, Qx, Qy, q_inf)
+    if dev.type == "cpu":
+        return plain(spec, P, Qx, Qy, q_inf)
+    if m == 0:
+        raise ValueError(f"{name}: empty input")
+    out = torch.empty_like(P)
+    launch(name, spec, dev, P.data_ptr(), Qx.data_ptr(), Qy.data_ptr(),
+           q_inf.data_ptr(), out.data_ptr(), m)
+    wrapper.launches += 1
+    return out
+
+
+def jac_madd(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
+             q_inf: torch.Tensor) -> torch.Tensor:
+    """Complete P + affine (Qx, Qy) lane-wise on Jacobian short-Weierstrass
+    points; P: (3, 16, m) int32, Qx, Qy: (16, m) int32 Montgomery, q_inf:
+    (m,) bool (those lanes add the identity)."""
+    _check_model("jac_madd", spec, te=False)
+    return _madd(jac_madd, jac_madd_plain, spec, P, Qx, Qy, q_inf)
+
+
+def te_madd(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
+            q_inf: torch.Tensor) -> torch.Tensor:
+    """Complete P + affine (Qx, Qy) lane-wise on twisted-Edwards extended
+    points; P: (4, 16, m) int32; q_inf lanes pass P through."""
+    _check_model("te_madd", spec, te=True)
+    return _madd(te_madd, te_madd_plain, spec, P, Qx, Qy, q_inf)
+
+
+rcb_double_k_add.launches = rcb_double_k_add.doubling_launches = 0
+te_double_k_add.launches = te_double_k_add.doubling_launches = 0
 te_double.launches = 0
-jac_double_k_add.launches = 0
+jac_double_k_add.launches = jac_double_k_add.doubling_launches = 0
 jac_double.launches = 0
+jac_madd.launches = 0
+te_madd.launches = 0
 
 
 def double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
@@ -215,3 +282,21 @@ def double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
 def add(spec, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     """Complete P + Q: the k = 0 case of `double_k_add`."""
     return double_k_add(spec, P, Q, 0)
+
+
+def model_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """2^k * P + Q in the model coordinates: `jac_double_k_add`, or
+    `te_double_k_add` on a twisted-Edwards curve."""
+    if is_te(spec):
+        return te_double_k_add(spec, P, Q, k)
+    return jac_double_k_add(spec, P, Q, k)
+
+
+def add_mixed(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
+              q_inf: torch.Tensor) -> torch.Tensor:
+    """P + affine Q in the model coordinates: `jac_madd`, or `te_madd` on a
+    twisted-Edwards curve."""
+    if is_te(spec):
+        return te_madd(spec, P, Qx, Qy, q_inf)
+    return jac_madd(spec, P, Qx, Qy, q_inf)

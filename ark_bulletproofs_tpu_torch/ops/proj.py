@@ -254,3 +254,20 @@ def to_jacobian(spec, P: torch.Tensor) -> torch.Tensor:
     XZ, YZ2 = df.mont_mul(fs, torch.stack([X, Y]),
                           torch.stack([Z.to(Z2.dtype), Z2]))
     return torch.stack([XZ, YZ2, Z.to(XZ.dtype)])
+
+
+def from_jacobian(spec, P: torch.Tensor) -> torch.Tensor:
+    """Jacobian (X, Y, Z) -> the same point in RCB projective coordinates
+    (XZ : Y : Z^3), three products through `df.mont_mul` (the kernel on
+    the card); an identity (Z = 0) becomes (0 : R : 0). TE extended points
+    pass through. The inverse of `to_jacobian` up to the choice of Z."""
+    if is_te(spec):
+        return P
+    fs = spec.fq
+    X, Y, Z = P
+    Z2 = df.mont_mul(fs, Z, Z)
+    XZ, Z3 = df.mont_mul(fs, torch.stack([X, Z2.to(X.dtype)]),
+                         torch.stack([Z, Z]))
+    one = df.const(fs.r_limbs, P.device).to(Y.dtype)
+    Y = torch.where(df.is_zero(Z).unsqueeze(-2), one, Y)
+    return torch.stack([XZ, Y.to(XZ.dtype), Z3])

@@ -13,9 +13,15 @@ vectors, sharing the B/B_blinding/G/H columns so the generator work is paid
 once for the whole batch (reference verifier.rs:604-691).
 
 The mega-MSM runs on the port's device path above the engine threshold,
-with the generator columns from the device cache (ops/cache.py). The JAX
-package's device scalar pipeline (its ops/verify.py) is not ported yet:
-the g/h scalar vectors are assembled on the host.
+with the generator columns from the device cache (ops/cache.py). From
+padded_n >= DEVICE_SCALARS_MIN_N (with the 2 padded_n-term MSM on the
+device), the O(n) g/h scalar vectors are made on the device as well
+(ops/verify.py: `gh_scalars` for one proof, `_gh_scalars_batch_accum`
+for each size group of a batch, alpha-scaled and summed there) and feed
+the mega-MSM with no host round trip, as the JAX package's
+`_verify_device` and `_batch_verify_device` do. Below that gate the host
+assembles them (`_assemble_host_scalars`), which is also the oracle of
+the tests; both routes accept and reject the same proofs.
 """
 
 from __future__ import annotations
@@ -30,7 +36,10 @@ from ..errors import (
 )
 from ..generators import BulletproofGens, PedersenGens
 from ..ops import cache as dcache
+from ..ops import field as dfield
+from ..ops import verify as dverify
 from ..ops.curve import affine_to_device, point_to_host, spec_for
+from ..ops.limbs import ints_to_limbs
 from ..ops.msm import scalars_to_device
 from ..parallel.msm import msm_device_ragged
 from ..transcript import protocol
@@ -43,6 +52,11 @@ from .constraint_system import (
 )
 from .linear_combination import LinearCombination, Variable
 from .proof import R1CSProof
+
+
+# Smallest padded_n whose g/h scalars are made on the device (the JAX
+# package's gate of `_verify_device` and `_batch_verify_device`).
+DEVICE_SCALARS_MIN_N = 256
 
 
 def _mega_msm(curve, pc_gens, bp_gens, n_gens: int, extras: list,
@@ -58,15 +72,33 @@ def _mega_msm(curve, pc_gens, bp_gens, n_gens: int, extras: list,
                  + gens.H(n_gens) + extras)
         return curve.msm(bases, scalars)
     dev = engine.torch_device()
+    return _device_mega_msm(curve, pc_gens, bp_gens, n_gens, extras,
+                            scalars_to_device(curve, [scalars], dev)[0])
+
+
+def _device_mega_msm(curve, pc_gens, bp_gens, n_gens: int, extras: list,
+                     scal: torch.Tensor):
+    """The mega-MSM on the device over (16, 2 + 2 n_gens + len(extras))
+    canonical scalar limbs on it (one scalar set through the ragged
+    driver); affine out."""
+    dev = scal.device
     Xp, Yp, Ip = dcache.pc_pair(pc_gens, curve, dev)
     Xt, Yt, It = dcache.bp_table(bp_gens, curve, n_gens, dev)
     Xe, Ye, Ie = affine_to_device(curve, extras, dev)
     X = torch.cat([Xp, Xt, Xe], dim=1)
     Y = torch.cat([Yp, Yt, Ye], dim=1)
     inf = torch.cat([Ip, It, Ie])
-    scal = scalars_to_device(curve, [scalars], dev)
     return point_to_host(curve, msm_device_ragged(spec_for(curve), X, Y,
                                                   inf, scal))
+
+
+def _scalar_limbs(head: list[int], g: torch.Tensor, h: torch.Tensor,
+                  tail: list[int]) -> torch.Tensor:
+    """[head | g | h | tail] as (16, total) canonical limbs on g's
+    device: the mega-MSM's scalar order."""
+    dev = g.device
+    return torch.cat([ints_to_limbs(head, dev), g.to(torch.int32),
+                      h.to(torch.int32), ints_to_limbs(tail, dev)], dim=1)
 
 
 class Verifier(RandomizableConstraintSystem):
@@ -363,6 +395,10 @@ class Verifier(RandomizableConstraintSystem):
         # replay, so padded_n is only known after ingredients are built.
         with phase("verify:replay"):
             ing = self._verification_ingredients(proof, bp_gens)
+        padded_n = ing["padded_n"]
+        if (padded_n >= DEVICE_SCALARS_MIN_N
+                and engine.use_device(2 * padded_n)):
+            return self._verify_device(ing, proof, pc_gens, bp_gens)
         with phase("verify:scalars"):
             scalars = self._assemble_host_scalars(ing, proof)
         with phase("verify:msm"):
@@ -370,6 +406,29 @@ class Verifier(RandomizableConstraintSystem):
                               ing["padded_n"], self._extra_bases(proof),
                               scalars)
         if not self.curve.is_zero(check):
+            raise R1CSVerificationError("mega-MSM check failed")
+        return self._transcript
+
+    def _verify_device(self, ing, proof, pc_gens, bp_gens) -> Transcript:
+        """The g/h scalar vectors made on the device (ops/verify.py) and
+        fed to the device mega-MSM with no host round trip; delta comes
+        from host ints (a device fetch would synchronise)."""
+        curve = self.curve
+        fr = curve.fr
+        p = fr.p
+        padded_n = ing["padded_n"]
+        with phase("verify:scalars"):
+            g, h, delta = dverify.gh_scalars(
+                curve, padded_n, ing["wL"], ing["wR"], ing["wO"],
+                fr.inv(ing["y"]), ing["u"], ing["x"], ing["a"], ing["b"],
+                ing["u_sq"], ing["allinv"], ing["n1"], delta_host=True,
+                device=engine.torch_device())
+            head, tail = self._head_tail_scalars(ing, proof, p, delta)
+            scal = _scalar_limbs(head, g, h, tail)
+        with phase("verify:msm"):
+            check = _device_mega_msm(curve, pc_gens, bp_gens, padded_n,
+                                     self._extra_bases(proof), scal)
+        if not curve.is_zero(check):
             raise R1CSVerificationError("mega-MSM check failed")
         return self._transcript
 
@@ -431,24 +490,91 @@ def batch_verify(
     p = fr.p
     ings = [v._verification_ingredients(proof, bp_gens)
             for v, proof in instances]
-    vecs = [v._assemble_host_scalars(ing, proof)
-            for (v, proof), ing in zip(instances, ings)]
-    max_n = max(ing["padded_n"] for ing in ings)
-    all_scalars = [0] * (2 * max_n + 2)
-    extras: list = []
-    for (verifier, proof), scalars in zip(instances, vecs):
-        alpha = fr.rand(prng)
-        scaled = [alpha * s % p for s in scalars]
-        padded_n = next_power_of_two(verifier.num_vars)
-        all_scalars[0] = (all_scalars[0] + scaled[0]) % p
-        all_scalars[1] = (all_scalars[1] + scaled[1]) % p
-        for i, s in enumerate(scaled[2: 2 + padded_n]):
-            all_scalars[i + 2] = (all_scalars[i + 2] + s) % p
-        for i, s in enumerate(scaled[2 + padded_n: 2 + 2 * padded_n]):
-            j = 2 + max_n + i
-            all_scalars[j] = (all_scalars[j] + s) % p
-        all_scalars.extend(scaled[2 + 2 * padded_n:])
-        extras.extend(verifier._extra_bases(proof))
-    check = _mega_msm(curve, pc_gens, bp_gens, max_n, extras, all_scalars)
+    max_padded = max(ing["padded_n"] for ing in ings)
+    if (max_padded >= DEVICE_SCALARS_MIN_N
+            and engine.use_device(2 * max_padded)):
+        return _batch_verify_device(prng, instances, ings, pc_gens, bp_gens,
+                                    max_padded)
+    max_n = max_padded
+    with phase("verify:scalars"):
+        vecs = [v._assemble_host_scalars(ing, proof)
+                for (v, proof), ing in zip(instances, ings)]
+        all_scalars = [0] * (2 * max_n + 2)
+        extras: list = []
+        for (verifier, proof), scalars in zip(instances, vecs):
+            alpha = fr.rand(prng)
+            scaled = [alpha * s % p for s in scalars]
+            padded_n = next_power_of_two(verifier.num_vars)
+            all_scalars[0] = (all_scalars[0] + scaled[0]) % p
+            all_scalars[1] = (all_scalars[1] + scaled[1]) % p
+            for i, s in enumerate(scaled[2: 2 + padded_n]):
+                all_scalars[i + 2] = (all_scalars[i + 2] + s) % p
+            for i, s in enumerate(scaled[2 + padded_n: 2 + 2 * padded_n]):
+                j = 2 + max_n + i
+                all_scalars[j] = (all_scalars[j] + s) % p
+            all_scalars.extend(scaled[2 + 2 * padded_n:])
+            extras.extend(verifier._extra_bases(proof))
+    with phase("verify:msm"):
+        check = _mega_msm(curve, pc_gens, bp_gens, max_n, extras,
+                          all_scalars)
+    if not curve.is_zero(check):
+        raise R1CSVerificationError("batch verification failed")
+
+
+def _batch_verify_device(prng, instances, ings, pc_gens, bp_gens,
+                         max_padded: int) -> None:
+    """Batch verification with the g/h vectors on the device: each size
+    group of proofs (by padded_n) builds, alpha-scales and sums its
+    vectors in one batched pass (`_gh_scalars_batch_accum`); the groups
+    are added into the shared G/H columns there, and one device mega-MSM
+    closes the batch. The host draws the alphas in instance order, as the
+    host route does, and computes each delta and the head/tail scalars."""
+    curve = pc_gens.curve
+    fr = curve.fr
+    p = fr.p
+    frs = dfield.spec_for(fr)
+    dev = engine.torch_device()
+    with phase("verify:scalars"):
+        head_acc = [0, 0]
+        tails: list[int] = []
+        extras: list = []
+        alphas: list[int] = []
+        for (verifier, proof), ing in zip(instances, ings):
+            delta = dverify.compute_delta_host(p, ing["wL"], ing["wR"],
+                                               fr.inv(ing["y"]))
+            head, tail = verifier._head_tail_scalars(ing, proof, p, delta)
+            alpha = fr.rand(prng)
+            alphas.append(alpha)
+            head_acc = [(acc + alpha * v) % p for acc, v in zip(head_acc,
+                                                               head)]
+            tails.extend(v * alpha % p for v in tail)
+            extras.extend(verifier._extra_bases(proof))
+        groups: dict[int, list[int]] = {}
+        for i, ing in enumerate(ings):
+            groups.setdefault(ing["padded_n"], []).append(i)
+        acc = None
+        for padded_n, idxs in groups.items():
+            lg_n = padded_n.bit_length() - 1
+            sub = [ings[i] for i in idxs]
+            cols = dverify._rows(
+                [[fr.inv(g["y"]), g["u"], g["x"], g["a"], g["b"],
+                  g["allinv"]] for g in sub], 6, dev)  # (B, 16, 6)
+            g_sum, h_sum = dverify._gh_scalars_batch_accum(
+                frs, padded_n, lg_n,
+                *(dverify._rows([g[k] for g in sub], padded_n, dev)
+                  for k in ("wL", "wR", "wO")),
+                *(cols[..., j:j + 1] for j in range(5)),
+                dverify._rows([g["u_sq"] for g in sub], lg_n, dev),
+                cols[..., 5:6], [g["n1"] for g in sub],
+                dverify._rows([[alphas[i] * fr.R % p] for i in idxs], 1,
+                              dev))
+            gh = torch.nn.functional.pad(torch.stack([g_sum, h_sum]),
+                                         (0, max_padded - padded_n))
+            acc = gh if acc is None else dfield.add(frs, acc, gh)
+        g_can, h_can = dfield.from_mont(frs, acc).unbind(0)
+        scal = _scalar_limbs(head_acc, g_can, h_can, tails)
+    with phase("verify:msm"):
+        check = _device_mega_msm(curve, pc_gens, bp_gens, max_padded, extras,
+                                 scal)
     if not curve.is_zero(check):
         raise R1CSVerificationError("batch verification failed")

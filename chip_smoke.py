@@ -16,26 +16,33 @@ Phases, each printed with its seconds:
      P + (-P) lanes; the Jacobian jac_double_k_add (k = 0, 1, 4) and
      jac_double on secq256k1 and zorro with doubling, P + (-P), O + P and
      P + O lanes at the batch tree's 65,536 lanes and the Q table's one;
-     fs_round at P = 1 and 128 transcripts on the three curves; mont_mul
+     fs_round at P = 1 and 128 transcripts on the three curves; the mixed
+     adds of the v1 Pippenger, jac_madd (secq256k1, zorro) and te_madd
+     (curve25519), at 65,536 and 1 lanes with P = O, Q = O, P = Q and
+     P = -Q lanes (te_double_k_add also at k = 1 and 4); mont_mul
      on two fr fields at 1,000, 6 x 2048 and 9 x 2048 lanes, with a
      (16, 1) operand and with 0, 1 and p - 1 lanes, and at the prover's
      (6, 4, 9) x 16 x 2048 row shapes; then each timed at its main-path
      shape (n = 2^20 MSM on secq256k1 and on curve25519; mont_mul at the
      k = 1024 fold's 6 x 2048 lanes; te_double at the commit table's 2
      lanes; jac_double_k_add at the P = 128 batch tree's first 32,768
-     lanes, jac_double at one lane, fs_round at P = 1 and 128), the
-     kernel alone by replaying a CUDA graph of its launches, beside its
-     plain version and its bound;
+     lanes, jac_double at one lane, fs_round at P = 1 and 128, jac_madd
+     and te_madd at the create_batch row scan's 32,768 lanes), the kernel
+     alone by replaying a CUDA graph of its launches, beside its plain
+     version and its bound;
   3. msm: n = 2^20 secq256k1 through the port's `msm`, equal to the native
      host Pippenger, then timed (median of 5) with its peak memory;
   4. shuffle: a k = 1024 secq256k1 shuffle proved on the card through the
      device branches (tabled phase MSMs, vector phase, the IPA on the
      on-device Fiat-Shamir route), with its protocol phases on the host
      clock, proved again with the IPA on the per-round card route and on
-     the port's host route, the three proofs byte-equal; the card's proof
-     verified on the card three times (first, then twice after a
-     gc.collect()), with the full garbage collections inside each run; a
-     flipped byte and swapped commitments rejected;
+     the port's host route, the three proofs byte-equal (the per-round
+     route's last rounds run on the v1 Pippenger); the card's proof
+     verified on the card with its g/h scalars made on the card, three
+     times (first, then twice after a gc.collect()), with the full garbage
+     collections inside each run and the device-to-host syncs of one more,
+     then with the g/h scalars assembled on the host; a flipped byte and
+     swapped commitments rejected;
   5. batch_verify: the 1024 cached k = 8 proofs accepted, a batch with one
      tampered proof rejected;
   6. msm curve25519: as phase 3, the oracle the pure-Python host
@@ -45,8 +52,12 @@ Phases, each printed with its seconds:
      host's double-and-add);
   8. ipa n=2^16 secq256k1: one IPA on the on-device Fiat-Shamir route
      and on the per-round route, byte-equal, each run twice, with the
-     device-to-host syncs of one run of each;
-  9. ipa zorro n=1024: the same on zorro (a != 0 in jac_double);
+     device-to-host syncs of one run of each; then verified with its g/h
+     scalars and their MSM on the card (`ipa_gh_msm`) and with the host
+     assembly, a changed proof rejected;
+  9. ipa zorro n=1024: the same on zorro (a != 0 in jac_double), without
+     the verify; and a zorro n = 64 IPA on the per-round route, every
+     round on the v1 Pippenger, byte-equal to the host route;
  10. create_batch n=64 P=128 secq256k1: the lockstep batch IPA on the FS
      route (ipa_prove_fs_batch) and on the per-round route
      (IpaBatchProver), each proof byte-equal to a serial host `create`,
@@ -54,10 +65,18 @@ Phases, each printed with its seconds:
  11. prove_batch P=128 k=32 shuffles secq256k1: byte-equal to a serial
      host-route prove on a sample of 16, all accepted by batch_verify, a
      tampered one rejected, proofs/s;
- 12. launches: each path of phases 3-11 runs with every launch count set
+ 12. v1 MSMs: n = 512 secq256k1 through `msm` (one scalar set: the v1
+     Pippenger) equal to the native host Pippenger; then v1 against v2 at
+     the shapes the router gives v1 (one set n = 256 and 512; base_map
+     B = 2 at n = 16, 32, 64; B = 256 at n = 64), equal sums, both timed;
+ 13. batch_verify 64 x k=128: 64 shuffles proved with prove_batch, the
+     batch verified with the g/h scalars made and summed on the card
+     (padded_n = 256) and with the host assembly, a tampered proof
+     rejected;
+ 14. launches: each path of phases 3-13 runs with every launch count set
      to 0 just before it and read just after; each of its kernels
-     launched;
- 13. traces: the card prove (secq256k1 and curve25519) and the verify
+     launched, and the v1 paths' double-k-add kernel at k > 0;
+ 15. traces: the card prove (secq256k1 and curve25519) and the verify
      once more each under torch.profiler, which splits card time from
      host time and names the largest kernels (last, so that no timing
      above runs after a profiler session).
@@ -122,9 +141,14 @@ ENTRIES = [
     ("te_double", "te_double", "te", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:794"),
     ("jac_double_k_add", "jac_double_k_add", "sw", MSM_CU,
-     "ark_bulletproofs_tpu/ops/kernels.py:359"),
+     "ark_bulletproofs_tpu/ops/kernels.py:359, "
+     "ark_bulletproofs_tpu/ops/kernels.py:385"),
     ("jac_double", "jac_double", "sw", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:413"),
+    ("jac_madd", "jac_madd", "sw", MSM_CU,
+     "ark_bulletproofs_tpu/ops/kernels.py:327"),
+    ("te_madd", "te_madd", "te", MSM_CU,
+     "ark_bulletproofs_tpu/ops/kernels.py:822"),
     # port-only: the JAX package runs this round body as XLA ops
     ("fs_round", "fs_round", None, FS_CU,
      "ark_bulletproofs_tpu/ops/ipa.py:550"),
@@ -138,12 +162,13 @@ SCANS = ("suffix_madd_scan", "suffix_jac_scan", "rowsum")
 # double-and-add) csrc/rcb.cuh spends 12 products on an add, 11 on a
 # mixed add and 8 on a doubling; on curve25519 csrc/te.cuh spends 11 on
 # each (a and d as full products). csrc/jac.cuh spends 16 on a Jacobian
-# add, and 8 more (10 for a != 0) on each lane that doubles.
+# add and 12 on a mixed add, and 8 more (10 for a != 0) on each lane that
+# doubles.
 HBM_BYTES_PER_S = 3.35e12
 MULS_PER_FE_MUL = 264
 FE_MULS = {"sw": {"add": 12, "madd": 11, "double": 8},
            "te": {"add": 11, "madd": 11, "double": 11},
-           "jac": {"add": 16, "double": 8, "double_a": 10}}
+           "jac": {"add": 16, "madd": 12, "double": 8, "double_a": 10}}
 MSM_KERNELS = {"sw": SCANS + ("rcb_double_k_add",),
                "te": SCANS + ("te_double_k_add",)}
 # The on-device Fiat-Shamir IPA's kernels beyond the MSM's: the c * Q
@@ -151,6 +176,11 @@ MSM_KERNELS = {"sw": SCANS + ("rcb_double_k_add",),
 FS_KERNELS = {"sw": ("mont_mul", "jac_double_k_add", "jac_double",
                      "fs_round"),
               "te": ("mont_mul", "te_double", "fs_round")}
+# The v1 Pippenger's kernels: its row scan's mixed add, and its adds and
+# Horner steps (k = 1 and k = c) on the double-k-add kernel of the model.
+V1_KERNELS = {"sw": ("jac_madd", "jac_double_k_add"),
+              "te": ("te_madd", "te_double_k_add")}
+V1_DOUBLING = {"sw": ("jac_double_k_add",), "te": ("te_double_k_add",)}
 
 
 @contextlib.contextmanager
@@ -197,20 +227,28 @@ class Launches:
         self.wrappers = wrappers
         self.paths = {}
 
-    def run(self, path: str, fn, kernels, spec):
-        """Run path `path` on `spec`'s curve; `kernels` must launch."""
+    def run(self, path: str, fn, kernels, spec, doubling=()):
+        """Run path `path` on `spec`'s curve; `kernels` must launch, and
+        the double-k-add wrappers in `doubling` must launch with k > 0."""
         for w in self.wrappers.values():
             w.launches = 0
+            if hasattr(w, "doubling_launches"):
+                w.doubling_launches = 0
         out = fn()
-        self.paths[path] = ({n: w.launches for n, w in
-                             self.wrappers.items()}, kernels, model(spec))
+        self.paths[path] = (
+            {n: w.launches for n, w in self.wrappers.items()}, kernels,
+            model(spec),
+            {n: self.wrappers[n].doubling_launches for n in doubling})
         return out
 
     def check(self) -> None:
-        for path, (counts, _, _) in self.paths.items():
-            print(f"   {path}: {counts}", flush=True)
-        idle = [(path, n) for path, (counts, kernels, _) in
+        for path, (counts, _, _, dbl) in self.paths.items():
+            at_k = f"; at k > 0: {dbl}" if dbl else ""
+            print(f"   {path}: {counts}{at_k}", flush=True)
+        idle = [(path, n) for path, (counts, kernels, _, _) in
                 self.paths.items() for n in kernels if counts[n] == 0]
+        idle += [(path, f"{n} at k > 0") for path, (_, _, _, dbl) in
+                 self.paths.items() for n, c in dbl.items() if c == 0]
         if idle:
             raise AssertionError(f"kernels never launched on their path: "
                                  f"{idle}")
@@ -218,7 +256,7 @@ class Launches:
     def total(self, wrapper: str, on_model) -> int:
         """Launches of `wrapper` over the paths of model `on_model` (all
         paths for None)."""
-        return sum(counts[wrapper] for counts, _, m in self.paths.values()
+        return sum(counts[wrapper] for counts, _, m, _ in self.paths.values()
                    if on_model in (None, m))
 
 
@@ -412,7 +450,7 @@ class KernelCheck:
             Q[..., :L_MAIN // 8] = P[..., :L_MAIN // 8]  # P + P
             Q[..., L_MAIN // 8:L_MAIN // 4] = neg(
                 spec, P[..., L_MAIN // 8:L_MAIN // 4])  # P + (-P)
-            for k in (0, 1, 12):
+            for k in (0, 1, 4, 12):
                 self.compare(dka.__name__, dka(spec, P, Q, k),
                              kk.double_k_add_plain(spec, P, Q, k))
             if te:
@@ -540,6 +578,54 @@ class KernelCheck:
             graph_ms(lambda: kk.jac_double(spec, P1), 100),
             host_ms(lambda: kk.jac_double_plain(spec, P1)),
             *self.bound(2 * 3 * 16 * 4, dbl * MULS_PER_FE_MUL))
+
+    def run_madd(self, curve, seed: int, timed: bool) -> None:
+        """The v1 Pippenger's mixed add (jac_madd, or te_madd on a
+        twisted-Edwards curve) bit-equal to its plain version at 65,536 and
+        1 lanes: P = row 0 of model_points, Q the affine row 1 of
+        affine_rows, so the lanes hold P = Q (doubling), P = -Q, P = O and
+        Q = O (y = 0 rows); timed at the create_batch row scan's 32,768
+        lanes (n = 64: 256 sets x 64 windows x 2 columns)."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
+        te = model(spec) == "te"
+        name = "te_madd" if te else "jac_madd"
+        plain = kk.te_madd_plain if te else kk.jac_madd_plain
+        t0 = time.perf_counter()
+
+        def operands(L: int, seed: int):
+            T, ident = self.model_points(curve, spec, 2, L, seed)
+            xy = self.affine_rows(curve, spec, 2, L, seed)
+            return (T[:, 0].contiguous(), xy[0, 1].contiguous(),
+                    xy[1, 1].contiguous(), ident[1].contiguous(), xy, ident)
+
+        for L in (2 * 128 * 256, 1):
+            P, qx, qy, q_inf, _, _ = operands(L, seed + L)
+            self.compare(name, kk.add_mixed(spec, P, qx, qy, q_inf),
+                         plain(spec, P, qx, qy, q_inf))
+        torch.cuda.synchronize()
+        print(f"   {curve.name} {name} at 65536 and 1 lanes: bit-equal "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not timed:
+            return
+        m = TREE_LANES
+        P, qx, qy, q_inf, xy, ident = operands(m, seed)
+        fe = FE_MULS["te" if te else "jac"]
+        doubling = 0
+        if not te:  # the lanes that take jac_double (P = Q, both finite)
+            doubling = int(((xy[:, 0] == xy[:, 1]).all(dim=1).all(dim=0)
+                            & ~ident[0] & ~ident[1]).sum())
+            doubling *= fe["double"] if spec.is_a_zero else fe["double_a"]
+        nc = 4 if te else 3
+        self.times[name] = (
+            graph_ms(lambda: kk.add_mixed(spec, P, qx, qy, q_inf), 20),
+            host_ms(lambda: plain(spec, P, qx, qy, q_inf)),
+            *self.bound((2 * nc * 16 * 4 + 2 * 16 * 4 + 1) * m,
+                        (m * fe["madd"] + doubling) * MULS_PER_FE_MUL))
 
     @staticmethod
     def fs_round_muls(curve, spec, P: int) -> int:
@@ -728,11 +814,12 @@ def tamper_t_x(curve, proof):
 
 
 def must_raise(what: str, fn) -> None:
-    from ark_bulletproofs_tpu_torch.errors import R1CSError
+    from ark_bulletproofs_tpu_torch.errors import (R1CSError,
+                                                   VerificationError)
 
     try:
         fn()
-    except R1CSError:
+    except (R1CSError, VerificationError):
         print(f"   {what}: rejected", flush=True)
         return
     raise AssertionError(f"{what}: accepted")
@@ -792,11 +879,14 @@ def phase_shuffle(curve, launches: Launches) -> tuple:
                                             ShuffleProof, Transcript,
                                             engine, ipp, seeded_rng)
     from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+    from ark_bulletproofs_tpu_torch.r1cs import verifier
     from ark_bulletproofs_tpu_torch.utils import profiling
 
     spec = spec_for(curve)
     msm_kernels = MSM_KERNELS[model(spec)]
-    round_kernels = msm_kernels + ("mont_mul",)
+    # the per-round route shrinks the IPA table to 16 columns at cur = 16:
+    # its last four rounds' MSMs (2 sets of 16 terms) run on v1
+    round_kernels = msm_kernels + ("mont_mul",) + V1_KERNELS[model(spec)]
     # the FS route's Q table; on curve25519 also the witness commits' 2^i
     # B table (te_double), built by the first prove and kept after it
     prove_kernels = msm_kernels + FS_KERNELS[model(spec)]
@@ -834,7 +924,8 @@ def phase_shuffle(curve, launches: Launches) -> tuple:
     try:
         t0 = time.perf_counter()
         sp_rounds, _, _ = launches.run(path_name("prove per-round", curve),
-                                       prove, round_kernels, spec)
+                                       prove, round_kernels, spec,
+                                       V1_DOUBLING[model(spec)])
         torch.cuda.synchronize()
         rounds_s = time.perf_counter() - t0
     finally:
@@ -879,20 +970,41 @@ def phase_shuffle(curve, launches: Launches) -> tuple:
 
     # The first verify inherits the collector's state from the phases
     # before it, the next two start from a gc.collect(): a full collection
-    # that falls inside a run costs it a pass over every live object.
+    # that falls inside a run costs it a pass over every live object. The
+    # g/h scalars are made on the card (padded_n = 2048 >= the gate).
     for run in ("first", "after gc.collect()", "after gc.collect(), again"):
         if run != "first":
             gc.collect()
         profiling.reset()
         full = full_collections()
         t0 = time.perf_counter()
-        launches.run(path_name("verify", curve), verify, msm_kernels, spec)
+        launches.run(path_name("verify", curve), verify,
+                     msm_kernels + ("mont_mul",), spec)
         torch.cuda.synchronize()
-        print(f"   {curve.name} verify k={SHUFFLE_K} on the card, {run}: "
-              f"accepted, {time.perf_counter() - t0:.3f} s, "
+        print(f"   {curve.name} verify k={SHUFFLE_K} on the card, g/h "
+              f"scalars on the card, {run}: accepted, "
+              f"{time.perf_counter() - t0:.3f} s, "
               f"{full_collections() - full} full collections; its phases:",
               flush=True)
         print_phases()
+    _, syncs = count_syncs(verify)
+    print_syncs(f"{curve.name} one verify with the g/h scalars on the card",
+                syncs)
+    gate = verifier.DEVICE_SCALARS_MIN_N
+    verifier.DEVICE_SCALARS_MIN_N = 1 << 62  # the host assembles g/h
+    try:
+        gc.collect()
+        profiling.reset()
+        t0 = time.perf_counter()
+        verify()
+        torch.cuda.synchronize()
+        print(f"   {curve.name} verify k={SHUFFLE_K} on the card, g/h "
+              f"scalars assembled on the host, after gc.collect(): "
+              f"accepted, {time.perf_counter() - t0:.3f} s; its phases:",
+              flush=True)
+        print_phases()
+    finally:
+        verifier.DEVICE_SCALARS_MIN_N = gate
     must_raise("flipped t_x byte", lambda: ShuffleProof(
         tamper_t_x(curve, sp.proof)).verify(pc, bp, Transcript(label), ic,
                                             oc))
@@ -980,12 +1092,15 @@ def random_scalars(curve, count: int, seed: int) -> list[int]:
             for i in range(count)]
 
 
-def phase_ipa_routes(curve, n: int, launches: Launches) -> None:
+def phase_ipa_routes(curve, n: int, launches: Launches,
+                     verify: bool = False) -> None:
     """One n-term IPA through `InnerProductProof.create` on the on-device
     Fiat-Shamir route and on the per-round route, each run twice (the
     second counted as the path), byte-equal proofs and transcripts; the
     device-to-host syncs of one more run of each. G and H repeat 8192
-    chain points (any bases serve; the routes must agree)."""
+    chain points (any bases serve; the routes must agree). With `verify`,
+    the proof is then verified on the device route (`ipa_gh_msm`) and on
+    the host-scalar route, and a proof with a changed a is rejected."""
     import torch
 
     from ark_bulletproofs_tpu_torch import (InnerProductProof, PedersenGens,
@@ -1050,6 +1165,101 @@ def phase_ipa_routes(curve, n: int, launches: Launches) -> None:
                              f"transcript differs from the per-round route's")
     print(f"   {curve.name} ipa n={n}: the two routes' proofs and "
           f"transcripts are byte-equal", flush=True)
+    if verify:
+        verify_ipa(curve, n, launches, out["fs"][0], (gf, hf, a, b, G, H, Q))
+
+
+def verify_ipa(curve, n: int, launches: Launches, blob: bytes, inputs):
+    """Verify the IPA proof `blob` against P = <a Gf, G> + <b Hf, H> +
+    <a, b> Q (an MSM on the card): the device route (the g/h scalars and
+    their 2n-term MSM on the card, `ops/verify.py::ipa_gh_msm`), timed
+    twice (the first uploads the table), and the host-scalar route; a
+    proof with a changed a rejected."""
+    import torch
+
+    import ark_bulletproofs_tpu_torch as port
+    from ark_bulletproofs_tpu_torch import InnerProductProof, Transcript, ipp
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    gf, hf, a, b, G, H, Q = inputs
+    p = curve.fr.p
+    t0 = time.perf_counter()
+    P = port.msm(curve, G + H + [Q], [x * f % p for x, f in zip(a, gf)]
+                 + [x * f % p for x, f in zip(b, hf)]
+                 + [sum(x * y for x, y in zip(a, b)) % p])
+    print(f"   P for the verify (a {2 * n + 1}-term MSM on the card with "
+          f"its marshal): {time.perf_counter() - t0:.3f} s", flush=True)
+    proof = InnerProductProof.from_bytes(curve, blob)[0]
+    spec = spec_for(curve)
+
+    def check(pr):
+        pr.verify(n, Transcript(b"chip_smoke ipa"), curve, gf, hf, P, Q, G,
+                  H)
+        torch.cuda.synchronize()
+
+    times = []
+    for rep in range(2):
+        t0 = time.perf_counter()
+        launches.run(path_name(f"ipa n={n} verify", curve),
+                     lambda: check(proof),
+                     MSM_KERNELS[model(spec)] + ("mont_mul",), spec)
+        times.append(time.perf_counter() - t0)
+    gate = ipp.VERIFY_DEVICE_MIN_N
+    ipp.VERIFY_DEVICE_MIN_N = 1 << 62  # the host assembles every scalar
+    try:
+        t0 = time.perf_counter()
+        check(proof)
+        host_s = time.perf_counter() - t0
+    finally:
+        ipp.VERIFY_DEVICE_MIN_N = gate
+    print(f"   {curve.name} ipa n={n} verify: accepted; g/h scalars and "
+          f"their MSM on the card {times[0]:.3f} s, then {times[1]:.3f} s; "
+          f"host-scalar route {host_s:.3f} s", flush=True)
+    bad = InnerProductProof(proof.L_vec, proof.R_vec, (proof.a + 1) % p,
+                            proof.b)
+    must_raise(f"ipa n={n} proof with a changed a", lambda: check(bad))
+
+
+def phase_ipa_v1(curve, n: int, launches: Launches) -> None:
+    """An n-term IPA on the per-round card route with every MSM on the
+    card (threshold 0): below 128 terms each round's two-set MSM is the v1
+    Pippenger's. Byte-equal to the host route's proof."""
+    import torch
+
+    from ark_bulletproofs_tpu_torch import (InnerProductProof, PedersenGens,
+                                            Transcript, engine, ipp)
+    from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    spec = spec_for(curve)
+    G = GeneratorsChain(curve, b"chip_smoke ipa G").take(n)
+    H = GeneratorsChain(curve, b"chip_smoke ipa H").take(n)
+    gf, hf, a, b = (random_scalars(curve, n, 500 + i) for i in range(4))
+    Q = curve.mul(PedersenGens.default(curve).B, 0x5EED)
+
+    def create():
+        t = Transcript(b"chip_smoke ipa v1")
+        proof = InnerProductProof.create(t, curve, Q, gf, hf, G, H, a, b)
+        torch.cuda.synchronize()
+        return proof.to_bytes(curve), t.challenge_bytes(b"end", 32)
+
+    saved = (ipp.IPA_FS, engine.config.msm_device_threshold)
+    try:
+        engine.config.msm_device_threshold = 1 << 62
+        want = create()
+        ipp.IPA_FS, engine.config.msm_device_threshold = (), 0
+        t0 = time.perf_counter()
+        got = launches.run(path_name(f"ipa n={n} per-round", curve), create,
+                           V1_KERNELS[model(spec)] + ("mont_mul",), spec,
+                           V1_DOUBLING[model(spec)])
+        dt = time.perf_counter() - t0
+    finally:
+        ipp.IPA_FS, engine.config.msm_device_threshold = saved
+    if got != want:
+        raise AssertionError(f"{curve.name} ipa n={n}: the per-round card "
+                             f"route differs from the host route")
+    print(f"   {curve.name} ipa n={n} per-round route, rounds on v1: "
+          f"{dt:.3f} s, byte-equal to the host route", flush=True)
 
 
 BATCH_P, BATCH_N = 128, 64
@@ -1089,9 +1299,13 @@ def phase_create_batch(curve, launches: Launches) -> None:
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         engine.config.msm_device_threshold = 64  # the batch on the card
         saved = ipp.IPA_FS
+        # per-round: each round is one 2P = 256-set MSM of 64 terms (a
+        # base_map batch below 128 terms: the v1 Pippenger); the FS batch
+        # route keeps the JAX package's v2 from 16 terms
         kernels = {"fs": MSM_KERNELS["sw"] + ("mont_mul", "jac_double_k_add",
                                               "fs_round"),
-                   "per-round": MSM_KERNELS["sw"] + ("mont_mul",)}
+                   "per-round": ("mont_mul",) + V1_KERNELS["sw"]}
+        doubling = {"fs": (), "per-round": V1_DOUBLING["sw"]}
         for route in ("fs", "per-round"):
             on_card = (engine.torch_device().type,)
             ipp.IPA_FS = on_card if route == "fs" else ()
@@ -1108,7 +1322,8 @@ def phase_create_batch(curve, launches: Launches) -> None:
             for rep in range(2):
                 t0 = time.perf_counter()
                 got = (batch() if rep == 0 else launches.run(
-                    f"create_batch {route}", batch, kernels[route], spec))
+                    f"create_batch {route}", batch, kernels[route], spec,
+                    doubling[route]))
                 times.append(time.perf_counter() - t0)
                 if got != want:
                     bad = [j for j in range(P) if got[j] != want[j]]
@@ -1182,10 +1397,11 @@ def phase_prove_batch(curve, launches: Launches) -> None:
         engine.config.msm_device_threshold = 0
         profiling.reset()
         t0 = time.perf_counter()
+        # the phase MSMs (3P sets of 1 and of 125 terms) run on v1
         proofs = launches.run("prove_batch", lambda: prove_batch(
             [b[0] for b in built], [b[1] for b in built], bp),
-            MSM_KERNELS["sw"] + ("mont_mul", "jac_double_k_add", "fs_round"),
-            spec)
+            MSM_KERNELS["sw"] + ("mont_mul", "jac_double_k_add", "fs_round",
+                                 "jac_madd"), spec, V1_DOUBLING["sw"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         print(f"   prove_batch P={P} k={k}: {dt:.3f} s, {P / dt:.1f} "
@@ -1220,6 +1436,161 @@ def phase_prove_batch(curve, launches: Launches) -> None:
                                         pc, bp))
     finally:
         engine.config.msm_device_threshold = threshold
+
+
+V1_SHAPES = [("one set", 1, 256, False), ("one set", 1, 512, False),
+             ("base_map", 2, 16, True), ("base_map", 2, 32, True),
+             ("base_map", 2, 64, True), ("base_map", 256, 64, True)]
+
+
+def phase_v1(curve, launches: Launches) -> None:
+    """n = 512 through `msm` (one scalar set: the router's v1) equal to the
+    native host Pippenger; then the v1 Pippenger against the v2 MSM (padded
+    to its 256-term minimum where narrower) at the shapes the router gives
+    v1, on random scalars over 2n chain points (base_map rows drawn from
+    them): equal sums, each engine's median of 3 timed runs after one
+    warm-up (host clock around synchronised runs)."""
+    import torch
+
+    import ark_bulletproofs_tpu_torch as port
+    from ark_bulletproofs_tpu_torch import engine, native
+    from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
+    from ark_bulletproofs_tpu_torch.ops import proj
+    from ark_bulletproofs_tpu_torch.ops.curve import (affine_to_device,
+                                                      point_batch_to_host,
+                                                      spec_for)
+    from ark_bulletproofs_tpu_torch.ops.msm import scalars_to_device
+    from ark_bulletproofs_tpu_torch.parallel import msm as pm
+
+    spec = spec_for(curve)
+    pts = GeneratorsChain(curve, b"chip_smoke v1").take(1024)
+    ks = random_scalars(curve, 512, 700)
+    want = curve.to_affine(native.cpu_pippenger_native(pts[:512], ks,
+                                                       curve=curve))
+    got = launches.run("msm n=512", lambda: port.msm(curve, pts[:512], ks),
+                       V1_KERNELS["sw"], spec, V1_DOUBLING["sw"])
+    if got != want:
+        raise AssertionError("n=512 msm differs from the native Pippenger")
+    print("   msm n=512 (v1) == native host Pippenger", flush=True)
+    dev = engine.torch_device()
+    X, Y, inf = affine_to_device(curve, pts, dev)
+    for kind, B, n, mapped in V1_SHAPES:
+        scal = scalars_to_device(curve, [random_scalars(curve, n, 710 + b)
+                                         for b in range(B)], dev)
+        g = torch.Generator(device=dev).manual_seed(n + B)
+        bm = (torch.randint(0, 1024, (B, n), generator=g, device=dev)
+              if mapped else None)
+        Xs, Ys, Is = (X, Y, inf) if mapped else (X[:, :n], Y[:, :n],
+                                                 inf[:n])
+        runs = {
+            "v1": lambda: proj.from_jacobian(
+                spec, pm.msm_v1(spec, Xs, Ys, Is, scal, bm)).to(torch.int32),
+            "v2": lambda: pm.msm_v2(spec, Xs, Ys, Is, scal, bm),
+        }
+        out, ms = {}, {}
+        for eng in ("v1", "v2", "v2", "v1"):
+            out[eng] = runs[eng]()
+            ms.setdefault(eng, []).extend(
+                host_ms(runs[eng]) for _ in range(3))
+        if (point_batch_to_host(curve, out["v1"])
+                != point_batch_to_host(curve, out["v2"])):
+            raise AssertionError(f"v1 and v2 differ: {kind} B={B} n={n}")
+        print(f"   {kind} B={B} n={n}: v1 {statistics.median(ms['v1']):.3f}"
+              f" ms, v2 {statistics.median(ms['v2']):.3f} ms (medians of "
+              f"6), equal sums; router: "
+              f"{'v2' if pm.uses_v2(n, B > 1 or mapped, mapped) else 'v1'}",
+              flush=True)
+
+
+BV_P, BV_K = 64, 128
+
+
+def phase_batch_verify_dev(curve, launches: Launches) -> None:
+    """BV_P k = BV_K shuffles (padded_n = 256) proved with prove_batch on
+    the card, then batch_verify with the g/h scalars made, alpha-scaled
+    and summed on the card (one batched pass for the size group), timed,
+    and with the host assembly; one tampered proof rejected."""
+    import torch
+
+    from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
+                                            Prover, ShuffleProof, Transcript,
+                                            batch_verify, prove_batch,
+                                            seeded_rng)
+    from ark_bulletproofs_tpu_torch.gadgets import shuffle_gadget
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+    from ark_bulletproofs_tpu_torch.r1cs import verifier
+    from ark_bulletproofs_tpu_torch.utils import profiling
+
+    spec = spec_for(curve)
+    P, k = BV_P, BV_K
+    pc = PedersenGens.default(curve)
+    bp = BulletproofGens(curve, 2 * k, 1)
+    label = b"chip_smoke batch_verify"
+    t0 = time.perf_counter()
+    built = []
+    for j in range(P):
+        r = random.Random(8000 + j)
+        vals = [r.getrandbits(64) for _ in range(k)]
+        perm = vals[:]
+        r.shuffle(perm)
+        prng = seeded_rng(8000 + j)
+        t = Transcript(label)
+        t.append_message(b"dom-sep", b"ShuffleProof")
+        t.append_u64(b"k", k)
+        prover = Prover(pc, t)
+        ins = prover.commit_many(vals, curve.fr.rand_many(prng, k))
+        outs = prover.commit_many(perm, curve.fr.rand_many(prng, k))
+        shuffle_gadget(prover, curve, [v for _, v in ins],
+                       [v for _, v in outs])
+        built.append((prover, prng, [c for c, _ in ins],
+                      [c for c, _ in outs]))
+    proofs = prove_batch([b[0] for b in built], [b[1] for b in built], bp)
+    torch.cuda.synchronize()
+    print(f"   {P} k={k} shuffles proved with prove_batch: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    def instances(items):
+        return [(ShuffleProof(p).build_verifier(pc, Transcript(label), ic,
+                                                oc), p)
+                for p, ic, oc in items]
+
+    items = [(p, b[2], b[3]) for p, b in zip(proofs, built)]
+    times = []
+    for rep in range(2):
+        inst = instances(items)
+        gc.collect()
+        profiling.reset()
+        t0 = time.perf_counter()
+        launches.run(f"batch_verify k={k}", lambda: batch_verify(
+            seeded_rng(9000), inst, pc, bp), MSM_KERNELS["sw"] +
+            ("mont_mul",), spec)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"   batch_verify of {P} k={k} proofs, g/h scalars on the card: "
+          f"accepted, {times[0]:.3f} s, then {times[1]:.3f} s "
+          f"({P / times[1]:.1f} proofs/s); its phases:", flush=True)
+    print_phases()
+    gate = verifier.DEVICE_SCALARS_MIN_N
+    verifier.DEVICE_SCALARS_MIN_N = 1 << 62  # the host assembles g/h
+    try:
+        inst = instances(items)
+        gc.collect()
+        profiling.reset()
+        t0 = time.perf_counter()
+        batch_verify(seeded_rng(9000), inst, pc, bp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        verifier.DEVICE_SCALARS_MIN_N = gate
+    print(f"   batch_verify of the same {P}, g/h scalars assembled on the "
+          f"host: accepted, {dt:.3f} s ({P / dt:.1f} proofs/s); its phases:",
+          flush=True)
+    print_phases()
+    bad = list(items)
+    bad[P // 2] = (tamper_t_x(curve, bad[P // 2][0]), *bad[P // 2][1:])
+    must_raise(f"batch_verify k={k} with one tampered proof",
+               lambda: batch_verify(seeded_rng(9001), instances(bad), pc,
+                                    bp))
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -1276,6 +1647,8 @@ def main() -> int:
         "te_double": kk.te_double,
         "jac_double_k_add": kk.jac_double_k_add,
         "jac_double": kk.jac_double,
+        "jac_madd": kk.jac_madd,
+        "te_madd": kk.te_madd,
         "fs_round": fs.fs_round,
     }
 
@@ -1305,6 +1678,9 @@ def main() -> int:
         check.run_mont_mul(curves.zorro, seed=4, timed=False)
         check.run_jac(curves.secq256k1, seed=6, timed=True)
         check.run_jac(curves.zorro, seed=7, timed=False)
+        check.run_madd(curves.secq256k1, seed=11, timed=True)
+        check.run_madd(curves.zorro, seed=12, timed=False)
+        check.run_madd(curves.curve25519, seed=13, timed=True)
         check.run_fs_round(curves.secq256k1, seed=8, timed=True)
         check.run_fs_round(curves.zorro, seed=9, timed=False)
         check.run_fs_round(curves.curve25519, seed=10, timed=False)
@@ -1323,16 +1699,21 @@ def main() -> int:
     with phase(f"7 shuffle k={SHUFFLE_K} curve25519"):
         prove_te, _ = phase_shuffle(curves.curve25519, launches)
     with phase("8 ipa n=2^16 secq256k1"):
-        phase_ipa_routes(curves.secq256k1, 1 << 16, launches)
+        phase_ipa_routes(curves.secq256k1, 1 << 16, launches, verify=True)
     with phase("9 ipa zorro n=1024"):
         phase_ipa_routes(curves.zorro, 1024, launches)
+        phase_ipa_v1(curves.zorro, 64, launches)
     with phase(f"10 create_batch n={BATCH_N} P={BATCH_P} secq256k1"):
         phase_create_batch(curves.secq256k1, launches)
     with phase(f"11 prove_batch P={BATCH_P} k={PROVE_BATCH_K} secq256k1"):
         phase_prove_batch(curves.secq256k1, launches)
-    with phase("12 launches"):
+    with phase("12 v1 MSMs secq256k1"):
+        phase_v1(curves.secq256k1, launches)
+    with phase(f"13 batch_verify {BV_P} x k={BV_K} secq256k1"):
+        phase_batch_verify_dev(curves.secq256k1, launches)
+    with phase("14 launches"):
         launches.check()
-    with phase("13 traces"):
+    with phase("15 traces"):
         traced(f"secq256k1 card prove k={SHUFFLE_K}", prove)
         traced(f"secq256k1 verify k={SHUFFLE_K}", verify)
         traced(f"curve25519 card prove k={SHUFFLE_K}", prove_te)

@@ -30,8 +30,12 @@ from ark_bulletproofs_tpu_torch.ops import fs
 from ark_bulletproofs_tpu_torch.ops import ipa
 from ark_bulletproofs_tpu_torch.ops import kernels as kk
 from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+from ark_bulletproofs_tpu_torch.ops import msm as v1
+from ark_bulletproofs_tpu_torch.ops import proj
 from ark_bulletproofs_tpu_torch.ops.curve import (affine_to_device, is_te,
+                                                  point_batch_to_host,
                                                   spec_for)
+from ark_bulletproofs_tpu_torch.ops.msm import scalars_to_device
 from ark_bulletproofs_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from ark_bulletproofs_tpu_torch.r1cs import prover
 
@@ -408,3 +412,46 @@ def test_create_batch_on_card_matches_serial(cuda_dev, monkeypatch):
                                              gens.G(n), gens.H(n),
                                              *vecs[2:])
         assert [p.to_bytes(curve) for p in got] == want
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_madd_kernels_match_plain_versions(curve, cuda_dev):
+    """jac_madd (Jacobian) or te_madd (extended) bit-equal to its plain
+    version: P from row 0 of the model points, Q the affine row 1, so the
+    lanes hold P = Q (doubling), P = -Q, P = O and Q = O (y = 0 rows)."""
+    spec = spec_for(curve)
+    T = _model_points(curve, spec, 2, cuda_dev, seed=13)
+    xy = _affine_rows(curve, spec, 2, cuda_dev, seed=13)
+    P = T[:, 0].contiguous()
+    qx, qy = xy[0, 1].contiguous(), xy[1, 1].contiguous()
+    q_inf = df.is_zero(qy)
+    wrapper = kk.te_madd if is_te(spec) else kk.jac_madd
+    plain = kk.te_madd_plain if is_te(spec) else kk.jac_madd_plain
+    before = wrapper.launches
+    got = kk.add_mixed(spec, P, qx, qy, q_inf)
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got, plain(spec, P, qx, qy, q_inf))
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("curve,n,sets", [(curves.secq256k1, 64, 2),
+                                          (curves.zorro, 512, 1),
+                                          (curves.curve25519, 64, 2),
+                                          (curves.secq256k1, 512, 1)],
+                         ids=["secq256k1-64x2", "zorro-512",
+                              "curve25519-64x2", "secq256k1-512"])
+def test_v1_msm_on_card(curve, n, sets, cuda_dev):
+    """The v1 Pippenger on the card: equal in affine to the host
+    Pippenger, and its coordinates bit-equal to the same run on the CPU
+    (the plain versions)."""
+    spec = spec_for(curve)
+    bases, ks = _msm_case(curve, n, n + 1, sets)
+    X, Y, inf = affine_to_device(curve, bases, cuda_dev)
+    scal = scalars_to_device(curve, ks, cuda_dev)
+    before = (kk.te_madd if is_te(spec) else kk.jac_madd).launches
+    got = v1.msm_impl(spec, 4, X, Y, inf, scal)
+    assert (kk.te_madd if is_te(spec) else kk.jac_madd).launches > before
+    aff = point_batch_to_host(curve, proj.from_jacobian(spec, got).int())
+    assert aff == [curve.msm(bases, k) for k in ks]
+    cpu = v1.msm_impl(spec, 4, X.cpu(), Y.cpu(), inf.cpu(), scal.cpu())
+    assert torch.equal(got.cpu(), cpu)
