@@ -186,9 +186,12 @@ static void strobe_begin_op(uint8_t* st, int* pos, int* pos_begin,
 // the accepted raw sample == the Montgomery representation). meta is
 // {pos, pos_begin, cur_flags} of the Python Strobe128, updated in place.
 // p_limbs is the modulus (LE limbs); last_mask shaves the top limb.
-void abtpu_strobe_rand_fp(uint8_t* st, int32_t* meta,
-                          const uint64_t* p_limbs, uint64_t last_mask,
-                          int n_limbs, int count, uint64_t* out) {
+// Returns 0, or -1 without touching anything when n_limbs is outside
+// [1, 8] (a sample is held in 8 limbs).
+int abtpu_strobe_rand_fp(uint8_t* st, int32_t* meta,
+                         const uint64_t* p_limbs, uint64_t last_mask,
+                         int n_limbs, int count, uint64_t* out) {
+  if (n_limbs < 1 || n_limbs > 8) return -1;
   int pos = meta[0], pos_begin = meta[1];
   uint8_t cf = (uint8_t)meta[2];
   const uint8_t len8_le[4] = {8, 0, 0, 0};
@@ -224,6 +227,7 @@ void abtpu_strobe_rand_fp(uint8_t* st, int32_t* meta,
   meta[0] = pos;
   meta[1] = pos_begin;
   meta[2] = cf;
+  return 0;
 }
 
 

@@ -18,6 +18,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <exception>
 #include <thread>
 #include <vector>
 
@@ -472,13 +473,23 @@ extern "C" void abtpu_cpu_commit_many(const uint8_t* xs, const uint8_t* ys,
   if (nthreads <= 1) {
     worker(0, n);
   } else {
+    // A thread that cannot be started (std::system_error, or bad_alloc
+    // for the vector) leaves its range and the later ones to the calling
+    // thread; the threads already started are joined either way.
     std::vector<std::thread> threads;
     uint64_t chunk = (n + nthreads - 1) / nthreads;
-    for (uint64_t t = 0; t < nthreads; ++t) {
-      uint64_t lo = t * chunk, hi = lo + chunk < n ? lo + chunk : n;
-      if (lo >= hi) break;
-      threads.emplace_back(worker, lo, hi);
+    uint64_t started = 0;  // [0, started) is handed to threads
+    try {
+      threads.reserve(nthreads);
+      for (uint64_t t = 0; t < nthreads; ++t) {
+        uint64_t lo = t * chunk, hi = lo + chunk < n ? lo + chunk : n;
+        if (lo >= hi) break;
+        threads.emplace_back(worker, lo, hi);
+        started = hi;
+      }
+    } catch (const std::exception&) {
     }
+    if (started < n) worker(started, n);
     for (auto& th : threads) th.join();
   }
 }

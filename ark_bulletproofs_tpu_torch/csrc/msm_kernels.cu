@@ -14,17 +14,21 @@
 //   jac_double_k_add  <- ark_bulletproofs_tpu/ops/kernels.py::sw_add_tiled
 //                        (k = 0) and ::sw_double_k_add_tiled (k > 0)
 //   jac_double        <- ark_bulletproofs_tpu/ops/kernels.py::sw_double_tiled
+//   rcb_double        <- ark_bulletproofs_tpu/ops/kernels.py::rcb_double_tiled
 //   jac_madd          <- ark_bulletproofs_tpu/ops/kernels.py::sw_madd_tiled
 //   te_madd           <- ark_bulletproofs_tpu/ops/kernels.py::te_madd_tiled
 //                        (its elementwise launcher; the body also runs in
 //                        the TE suffix_madd_scan)
+//   horner            <- ark_bulletproofs_tpu/ops/kernels2.py::horner_windows
+//                        (RCB, and here also TE extended points)
+//   jac_horner        <- the same Horner on Jacobian points
 //
 // Each kernel is a template over a point model: RcbModel<true> (RCB, a = 0:
 // secq256k1), RcbModel<false> (RCB, general a: zorro) and TeModel (HWCD
 // extended: curve25519); JacModel<AZ> (Jacobian, jac.cuh) instantiates
-// only the elementwise double-k-add, doubling and mixed add, for the Q
-// terms of the on-device Fiat-Shamir IPA and the v1 Pippenger (no scan
-// runs on Jacobian points). A model supplies the point type, its identity,
+// only the elementwise double-k-add, doubling and mixed add and the
+// window Horner, for the Q terms of the on-device Fiat-Shamir IPA and the
+// v1 Pippenger (no scan runs on Jacobian points). A model supplies the point type, its identity,
 // add, mixed add, doubling, load and store; the launchers pick it from the
 // constants (te, a_zero), so each kernel is compiled once per model and
 // carries no dead registers of another. A 3-coordinate model reads and
@@ -256,6 +260,33 @@ __global__ void __launch_bounds__(THREADS)
   M::store(out, 1, 0, m, lane, M::dbl(M::load(P, 1, 0, m, lane), cc));
 }
 
+// The window Horner of both MSM engines: acc = acc0, then for w = W - 1
+// down to 0, c doublings and acc += part[w]; out = acc. parts: (NC, 16,
+// B, Ws) with the windows innermost, the layout the engines hold their
+// window sums in, of which windows [0, W) are read (Ws >= W: v2 passes
+// its top window as acc0 and the other W - 1 as parts, without a copy);
+// acc0, out: (NC, 16, B). One thread per scalar set, the accumulator in
+// registers throughout: W (c + 1) dependent group operations a lane, so
+// at B = 1 (one set, v2's stage G) the chain runs on one thread and its
+// latency is the whole cost; what it saves is the W - 1 launches and
+// per-window copies of a double-k-add loop. The strided window reads
+// (stride Ws between lanes) are a few KB a lane and do not matter.
+template <class M>
+__global__ void __launch_bounds__(THREADS)
+    horner_kernel(const int32_t* __restrict__ parts,
+                  const int32_t* __restrict__ acc0,
+                  int32_t* __restrict__ out, int64_t B, int64_t W,
+                  int64_t Ws, int32_t c, CurveConst cc) {
+  size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= (size_t)B) return;
+  typename M::P acc = M::load(acc0, 1, 0, B, lane);
+  for (int64_t w = W - 1; w >= 0; --w) {
+    for (int32_t i = 0; i < c; ++i) acc = M::dbl(acc, cc);
+    acc = M::add(acc, M::load(parts, 1, 0, B * Ws, lane * Ws + w), cc);
+  }
+  M::store(out, 1, 0, B, lane, acc);
+}
+
 static inline CurveConst load_cc(const void* words) {
   CurveConst cc;
   memcpy(&cc, words, sizeof cc);
@@ -397,5 +428,54 @@ extern "C" int abtpu_te_madd(const void* P, const void* qx, const void* qy,
   madd_kernel<TeModel><<<blocks_for(m), THREADS, 0, s>>>(
       (const int32_t*)P, (const int32_t*)qx, (const int32_t*)qy,
       (const uint8_t*)q_inf, (int32_t*)out, m, cc);
+  return (int)cudaGetLastError();
+}
+
+// Complete RCB doubling on projective points (rcb_double_tiled: Alg 9 for
+// a = 0, Alg 3 otherwise); a twisted-Edwards curve is refused, as
+// abtpu_te_double refuses the others.
+extern "C" int abtpu_rcb_double(const void* P, void* out, int64_t m,
+                                const void* words, void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cc.te) return (int)cudaErrorInvalidValue;
+  if (cc.a_zero)
+    double_kernel<RcbA0><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (int32_t*)out, m, cc);
+  else
+    double_kernel<RcbA><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (int32_t*)out, m, cc);
+  return (int)cudaGetLastError();
+}
+
+// The window Horner over B sets of W windows (window stride Ws) on RCB
+// projective or twisted-Edwards extended points, the model picked from
+// the constants.
+extern "C" int abtpu_horner(const void* parts, const void* acc0, void* out,
+                            int64_t B, int64_t W, int64_t Ws, int32_t c,
+                            const void* words, void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  LAUNCH_BY_MODEL(horner_kernel, B, (const int32_t*)parts,
+                  (const int32_t*)acc0, (int32_t*)out, B, W, Ws, c, cc);
+  return (int)cudaGetLastError();
+}
+
+// The same Horner on Jacobian points (the v1 Pippenger's window sums on a
+// short-Weierstrass curve).
+extern "C" int abtpu_jac_horner(const void* parts, const void* acc0,
+                                void* out, int64_t B, int64_t W, int64_t Ws,
+                                int32_t c, const void* words, void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cc.te) return (int)cudaErrorInvalidValue;
+  if (cc.a_zero)
+    horner_kernel<JacModel<true>><<<blocks_for(B), THREADS, 0, s>>>(
+        (const int32_t*)parts, (const int32_t*)acc0, (int32_t*)out, B, W,
+        Ws, c, cc);
+  else
+    horner_kernel<JacModel<false>><<<blocks_for(B), THREADS, 0, s>>>(
+        (const int32_t*)parts, (const int32_t*)acc0, (int32_t*)out, B, W,
+        Ws, c, cc);
   return (int)cudaGetLastError();
 }

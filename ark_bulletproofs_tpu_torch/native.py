@@ -134,6 +134,7 @@ def lib():
                 ctypes.c_int,
                 ctypes.POINTER(ctypes.c_uint64),
             ]
+            L.abtpu_strobe_rand_fp.restype = ctypes.c_int
             _lib = L
         except Exception:
             _lib = None
@@ -218,7 +219,8 @@ def strobe_rand_fp_native(strobe, p: int, num_bits: int, n_limbs: int,
     strobe's state/pos/pos_begin/cur_flags in place. Returns the raw
     accepted samples (Montgomery representation, as ints) or None when
     the native library is absent. Bit-exact with the per-call path
-    (tests/test_byte_layer.py).
+    (tests/test_byte_layer.py). Raises ValueError, with the strobe
+    untouched, for n_limbs outside [1, 8], which the native loop refuses.
     """
     L = lib()
     if L is None:
@@ -233,7 +235,9 @@ def strobe_rand_fp_native(strobe, p: int, num_bits: int, n_limbs: int,
     )
     st = (ctypes.c_uint8 * 200).from_buffer(strobe.state)
     out = (ctypes.c_uint64 * (n_limbs * count))()
-    L.abtpu_strobe_rand_fp(st, meta, plimbs, mask, n_limbs, count, out)
+    if L.abtpu_strobe_rand_fp(st, meta, plimbs, mask, n_limbs, count, out):
+        raise ValueError(f"strobe_rand_fp_native: n_limbs={n_limbs} is "
+                         f"outside [1, 8]")
     strobe.pos = int(meta[0])
     strobe.pos_begin = int(meta[1])
     strobe.cur_flags = int(meta[2])

@@ -4,10 +4,11 @@ Generator tables are deterministic and reused across proofs, so their
 points are converted to Montgomery limbs and moved to the device once
 per (table, curve, size, device), keyed weakly on the table object; so is
 the 2^i B | 2^i B_blinding table of a twisted-Edwards PedersenGens. The
-device IPA's [G | H] tables and the batch IPA's 2^i B table are kept by
-value for the life of the process (`keyed`: the generator vectors
-themselves, or the point), as the JAX package keeps them in its verify
-cache.
+device IPA's [G | H] tables (for its prover and the device IPA verifier)
+and the batch IPA's 2^i B table are kept by value (`keyed`: the
+generator vectors themselves, or the point) in a small LRU of
+KEYED_SIZE entries. Every key holds the content that the entry was made
+from, never an object's id, which Python reuses.
 `from_numpy` takes tables in the JAX package's numpy layout
 (ark_bulletproofs_tpu/ops/curve.py::affine_to_device: (m, 16) uint32
 Montgomery limbs and an (m,) identity mask) to the port's layout.
@@ -15,6 +16,7 @@ Montgomery limbs and an (m,) identity mask) to the port's layout.
 
 from __future__ import annotations
 
+import collections
 import weakref
 
 import numpy as np
@@ -25,7 +27,8 @@ from .curve import affine_to_device, spec_for
 from .limbs import N_LIMBS, ints_to_limbs, limbs_from_numpy
 
 _CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-_BY_KEY: dict = {}
+_BY_KEY: "collections.OrderedDict" = collections.OrderedDict()
+KEYED_SIZE = 16
 
 
 def from_numpy(X: np.ndarray, Y: np.ndarray, inf: np.ndarray, device):
@@ -48,10 +51,15 @@ def _cached(owner, key, make):
 
 
 def keyed(key, make):
-    """make(), kept under a hashable key."""
+    """make(), kept under a hashable key; the least recently used entry
+    goes past KEYED_SIZE."""
     hit = _BY_KEY.get(key)
     if hit is None:
         hit = _BY_KEY[key] = make()
+        while len(_BY_KEY) > KEYED_SIZE:
+            _BY_KEY.popitem(last=False)
+    else:
+        _BY_KEY.move_to_end(key)
     return hit
 
 
@@ -94,8 +102,8 @@ def full_table(bp_gens, pc_gens, curve, device):
         pts = gens.G(cap) + gens.H(cap) + [pc_gens.B, pc_gens.B_blinding]
         return (*affine_to_device(curve, pts, device), cap)
 
-    return _cached(bp_gens, (curve.name, "full", cap, id(pc_gens),
-                             str(device)), make)
+    return _cached(bp_gens, (curve.name, "full", cap, pc_gens.B,
+                             pc_gens.B_blinding, str(device)), make)
 
 
 def commit_table(pc_gens, device):

@@ -1,14 +1,18 @@
 """Elementwise group-law kernels (CUDA, csrc/msm_kernels.cu).
 
   rcb_double_k_add <- ark_bulletproofs_tpu/ops/kernels.py::
-      rcb_double_k_add_tiled (the v2 MSM's stage-G Horner step) and, with
-      k = 0, ::rcb_add_tiled (the complete adds of the MSM glue and of the
-      ragged driver's chunk sum), short-Weierstrass curves;
+      rcb_double_k_add_tiled (the JAX v2 MSM's stage-G Horner step; the
+      port's runs as one `horner_windows` launch, ops/kernels2.py) and,
+      with k = 0, ::rcb_add_tiled (the complete adds of the MSM glue and
+      of the ragged MSM's chunk sum), short-Weierstrass curves;
   te_double_k_add  <- ::te_double_k_add_tiled and, with k = 0,
       ::te_add_tiled: the same steps on a twisted-Edwards curve, and the
       device Pedersen batch's halving tree (ops/prove.py);
   te_double        <- ::te_double_tiled: the 2^i B tables of that batch
       and of the on-device Fiat-Shamir IPA's Q terms (ops/ipa.py);
+  rcb_double       <- ::rcb_double_tiled: complete RCB doubling (Alg 9
+      for a = 0, Alg 3 otherwise); as in the JAX package, only `double`
+      reaches it and no path of the port calls that;
   jac_double_k_add <- ::sw_add_tiled (k = 0) and ::sw_double_k_add_tiled:
       Jacobian points (csrc/jac.cuh), the on-device Fiat-Shamir IPA's
       c * Q tree and S = MSM + c * Q on short-Weierstrass curves;
@@ -69,13 +73,15 @@ def same_device(*ts: torch.Tensor) -> torch.device:
 def launch(name: str, spec, dev: torch.device, *args) -> None:
     """Launch kernel `name` (abtpu_<name> of csrc/*.cu) on `dev`'s current
     stream with the constants of `spec` (a CurveSpec, or a FieldSpec for
-    the field kernels); raise on a CUDA error."""
+    the field kernels; None for a kernel that takes none); raise on a CUDA
+    error."""
     fn = getattr(_build.lib(), f"abtpu_{name}")
-    words = _build.curve_words(spec)
+    if spec is not None:
+        words = _build.curve_words(spec)
+        args = (*args, words.ctypes.data_as(ctypes.c_void_p))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, words.ctypes.data_as(ctypes.c_void_p),
-                 ctypes.c_void_p(stream))
+        err = fn(*args, ctypes.c_void_p(stream))
     _build.check(err, name)
 
 
@@ -178,6 +184,11 @@ def te_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
     return _by_lanes(lambda p: proj.double(spec, p), P)
 
 
+def rcb_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
+    """The plain version of `rcb_double` (ops/proj.py::_rcb_double)."""
+    return _by_lanes(lambda p: proj._rcb_double(spec, p), P)
+
+
 def jac_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
     return _by_lanes(lambda p: _sw_double(spec, p), P)
 
@@ -207,6 +218,13 @@ def jac_double(spec, P: torch.Tensor) -> torch.Tensor:
     int32."""
     _check_model("jac_double", spec, te=False)
     return _double(jac_double, jac_double_plain, spec, P)
+
+
+def rcb_double(spec, P: torch.Tensor) -> torch.Tensor:
+    """Complete 2P lane-wise on RCB projective short-Weierstrass points
+    (Alg 9 for a = 0, Alg 3 otherwise); P: (3, 16, m) int32."""
+    _check_model("rcb_double", spec, te=False)
+    return _double(rcb_double, rcb_double_plain, spec, P)
 
 
 def jac_madd_plain(spec, P: torch.Tensor, Qx: torch.Tensor,
@@ -265,6 +283,7 @@ def te_madd(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
 rcb_double_k_add.launches = rcb_double_k_add.doubling_launches = 0
 te_double_k_add.launches = te_double_k_add.doubling_launches = 0
 te_double.launches = 0
+rcb_double.launches = 0
 jac_double_k_add.launches = jac_double_k_add.doubling_launches = 0
 jac_double.launches = 0
 jac_madd.launches = 0
@@ -282,6 +301,16 @@ def double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
 def add(spec, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     """Complete P + Q: the k = 0 case of `double_k_add`."""
     return double_k_add(spec, P, Q, 0)
+
+
+def double(spec, P: torch.Tensor) -> torch.Tensor:
+    """Complete 2P through the kernel of the spec's model: `rcb_double`, or
+    `te_double` on a twisted-Edwards curve (the kernel branch of the JAX
+    package's ops/proj.py::double). No path of the port calls it: its
+    double-k-add kernels double in registers."""
+    if is_te(spec):
+        return te_double(spec, P)
+    return rcb_double(spec, P)
 
 
 def model_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,

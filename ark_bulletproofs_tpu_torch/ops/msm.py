@@ -21,17 +21,19 @@ the v2 MSM's widths. Its contract, per window of c bits:
      each bit's leaves (log2 S adds), and a Horner over the bits (c steps
      of `double_k_add` at k = 1) gives the window sum;
 
-then a Horner over the W windows, top window first (W steps at k = c).
-Points stay in the model coordinates of the JAX package's group law:
-Jacobian (identity Z = 0) on a short-Weierstrass curve, extended on a
-twisted-Edwards one; every add and double-k-add is one launch of
+then a Horner over the W windows, top window first, from the identity:
+one launch of `jac_horner_windows` / `horner_windows` (ops/kernels2.py),
+which the JAX version ran as W double-k-add steps at k = c. Points stay
+in the model coordinates of the JAX package's group law: Jacobian
+(identity Z = 0) on a short-Weierstrass curve, extended on a
+twisted-Edwards one; every other add and double-k-add is one launch of
 `jac_double_k_add` / `te_double_k_add` (`kernels.model_double_k_add`).
 
 What the JAX version did only for the TPU is dropped: it scanned over
 groups of G = min(B W, 8) windows to bound VMEM and compile size. Here
 all B W windows run in one pass (B W C lanes in the row scan), split only
 when G n would pass V1_MAX_WINDOW_TERMS, so an MSM is about R + log2 C +
-1 + log2 S + c + W launches whatever B is. Windows are independent, so
+1 + log2 S + c + 1 launches whatever B is. Windows are independent, so
 every window's coordinates are those of the JAX version.
 
 The host-facing functions take affine int points and int scalars and
@@ -48,8 +50,9 @@ import torch
 from .. import engine
 from ..parallel import msm as router
 from . import kernels as kk
-from .curve import (affine_to_device, n_coords, point_batch_to_host,
-                    point_zero, spec_for)
+from . import kernels2 as k2
+from .curve import (affine_to_device, is_te, n_coords,
+                    point_batch_to_host, point_zero, spec_for)
 from .limbs import N_LIMBS, ints_to_limbs
 
 SCALAR_BITS = 256
@@ -214,11 +217,8 @@ def msm_impl(spec, c: int, X, Y, inf, scal, base_map=None) -> torch.Tensor:
                      torch.arange(o, min(o + step, B * W), device=dev))
         for o in range(0, B * W, step)
     ], dim=-1)
-    h = wsum.reshape(n_coords(spec), N_LIMBS, B, W)
-    acc = _ident(spec, B, dev)
-    for w in range(W - 1, -1, -1):
-        acc = kk.model_double_k_add(spec, acc, h[..., w].contiguous(), c)
-    return acc
+    horner = k2.horner_windows if is_te(spec) else k2.jac_horner_windows
+    return horner(spec, wsum.reshape(n_coords(spec), N_LIMBS, B, W), c)
 
 
 def scalars_to_device(curve, scalar_sets, device) -> torch.Tensor:

@@ -17,9 +17,10 @@ bases:
      global suffix sum and pos_j = searchsorted(digits, j): a gather and
      one add per bucket;
   F. `rowsum` collapses the S = 2^c bucket terms in two passes;
-  G. Horner over windows, acc = 2^c acc + part_w, one double-k-add
-     launch per window (`rcb_double_k_add`, or `te_double_k_add` on a
-     twisted-Edwards curve, as the JAX package's stage G picks).
+  G. Horner over windows, acc = 2^c acc + part_w, all W windows in one
+     `horner_windows` launch (the JAX package's stage G launched one
+     double-k-add a window; its own all-windows kernel was slower on the
+     TPU and had no caller).
 
 The glue between the kernels is plain torch. What the JAX version did
 only for the TPU is re-decided: the x | y << 16 packed gather rows, the
@@ -188,12 +189,13 @@ def _stage_rowsum(g: _Cfg, spec, U: torch.Tensor) -> torch.Tensor:
 
 
 def _stage_horner(g: _Cfg, spec, wsum: torch.Tensor) -> torch.Tensor:
-    """acc = 2^c acc + part_w over descending windows -> (NC, 16, B)."""
+    """acc = 2^c acc + part_w over descending windows -> (NC, 16, B): one
+    `horner_windows` launch from the top window over the other W - 1, read
+    in place, as the JAX package's stage G starts (an identity start gives
+    the same affine point in other projective coordinates)."""
     h = wsum.reshape(n_coords(spec), NL, g.B, g.W)
-    acc = h[..., g.W - 1].contiguous()
-    for w in range(g.W - 2, -1, -1):
-        acc = kk.double_k_add(spec, acc, h[..., w].contiguous(), g.c)
-    return acc
+    return k2.horner_windows(spec, h[..., :g.W - 1], g.c,
+                             h[..., g.W - 1].contiguous())
 
 
 def msm2_impl(spec, c: int, X, Y, inf, scal,

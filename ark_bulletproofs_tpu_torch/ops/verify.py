@@ -26,12 +26,15 @@ half of the standalone IPA verifier (ipp.py).
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .. import engine
 from ..parallel.msm import msm_v1, msm_v2
+from . import cache as dcache
 from . import field as df
-from .curve import affine_to_device, point_to_host, spec_for
+from .curve import point_to_host, spec_for
 from .limbs import ints_to_limbs, limbs_to_ints
 from .proj import from_jacobian
 
@@ -215,41 +218,42 @@ def _scale_accumulate(fr, acc_g, acc_h, g, h, alpha):
 # lg n challenges, and only the [Q | L | R] tail (2 lg n + 1 points) runs
 # on the host's Pippenger.
 
-_IPA_VERIFY_CACHE: dict = {}
+# The Montgomery factor vectors, least recently used first, keyed by
+# their whole content; the oldest is dropped past IPA_VERIFY_CACHE_SIZE.
+_IPA_VERIFY_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+IPA_VERIFY_CACHE_SIZE = 8
 
 
-def _cached_mont_vector(fr, key, xs, p: int, R: int, device):
-    """Montgomery limbs of xs on device, kept under key and the device."""
-    key = key + (str(device),)
+def _cached_mont_vector(fr, xs, p: int, R: int, device):
+    """Montgomery limbs of the ints xs on device, kept by the content of
+    xs (a tuple key: a dict lookup compares every element, so two vectors
+    that differ anywhere never share an entry)."""
+    key = (fr.p, tuple(xs), str(device))
     hit = _IPA_VERIFY_CACHE.get(key)
     if hit is None:
         hit = ints_to_limbs([x % p * R % p for x in xs], device)
         _IPA_VERIFY_CACHE[key] = hit
+        while len(_IPA_VERIFY_CACHE) > IPA_VERIFY_CACHE_SIZE:
+            _IPA_VERIFY_CACHE.popitem(last=False)
+    else:
+        _IPA_VERIFY_CACHE.move_to_end(key)
     return hit
 
 
 def ipa_gh_msm(curve, n: int, a: int, b: int, u_sq, allinv, G_factors,
                H_factors, G_vec, H_vec, device=None):
     """<a s Gf, G> + <b rev(s) Hf, H> on the device -> host affine point.
-    The [G | H] table and the Montgomery factor vectors are cached, keyed
-    on (curve, n, endpoint values, device): generator tables and factor
-    vectors are deterministic, so their endpoints pin them in practice
-    while fresh lists still hit the cache."""
+    The [G | H] table (ops/cache.py::ipa_table, shared with the device
+    IPA prover) and the Montgomery factor vectors are cached by content
+    and device, so fresh lists of the same values hit and any other
+    values miss."""
     dev = engine.torch_device() if device is None else torch.device(device)
     fr = df.spec_for(curve.fr)
     p, R = curve.fr.p, curve.fr.R
     lg_n = n.bit_length() - 1
-    tkey = ("table", curve.name, n, G_vec[0], G_vec[-1], H_vec[0],
-            H_vec[-1], str(dev))
-    table = _IPA_VERIFY_CACHE.get(tkey)
-    if table is None:
-        table = affine_to_device(curve, list(G_vec) + list(H_vec), dev)
-        _IPA_VERIFY_CACHE[tkey] = table
-    X, Y, inf = table
-    gf = _cached_mont_vector(fr, ("gf", curve.name, n, G_factors[0],
-                                  G_factors[-1]), G_factors, p, R, dev)
-    hf = _cached_mont_vector(fr, ("hf", curve.name, n, H_factors[0],
-                                  H_factors[-1]), H_factors, p, R, dev)
+    X, Y, inf = dcache.ipa_table(curve, G_vec, H_vec, dev)
+    gf = _cached_mont_vector(fr, G_factors, p, R, dev)
+    hf = _cached_mont_vector(fr, H_factors, p, R, dev)
     u_sq_m = ints_to_limbs([v * R % p for v in u_sq], dev)
     allinv_m, a_m, b_m = _col([allinv * R % p, a % p * R % p,
                                b % p * R % p], dev).unbind(0)

@@ -22,14 +22,25 @@ Phases, each printed with its seconds:
      P = -Q lanes (te_double_k_add also at k = 1 and 4); mont_mul
      on two fr fields at 1,000, 6 x 2048 and 9 x 2048 lanes, with a
      (16, 1) operand and with 0, 1 and p - 1 lanes, and at the prover's
-     (6, 4, 9) x 16 x 2048 row shapes; then each timed at its main-path
-     shape (n = 2^20 MSM on secq256k1 and on curve25519; mont_mul at the
-     k = 1024 fold's 6 x 2048 lanes; te_double at the commit table's 2
-     lanes; jac_double_k_add at the P = 128 batch tree's first 32,768
-     lanes, jac_double at one lane, fs_round at P = 1 and 128, jac_madd
-     and te_madd at the create_batch row scan's 32,768 lanes), the kernel
-     alone by replaying a CUDA graph of its launches, beside its plain
-     version and its bound;
+     (6, 4, 9) x 16 x 2048 row shapes; the window Horner, horner_windows
+     (RCB on secq256k1 and zorro, extended on curve25519) and
+     jac_horner_windows (secq256k1, zorro), at v2's stage-G shape (one
+     set, W = 22, c = 12) and the create_batch v1 shape (256 sets,
+     W = 64, c = 4) with identity parts, from the identity and from the
+     top window, also equal to the W-step double-k-add loop on the card;
+     rcb_double on secq256k1 and zorro at 65,536 and 1 lanes with
+     identity lanes; row_gather against index_select at the DMA probe's
+     shape (2^22 rows of a 2^20-row table) and stage B's row count
+     (22 x 2^20 rows); then each timed at its main-path shape (n = 2^20
+     MSM on secq256k1 and on curve25519; mont_mul at the k = 1024 fold's
+     6 x 2048 lanes; te_double at the commit table's 2 lanes;
+     jac_double_k_add at the P = 128 batch tree's first 32,768 lanes,
+     jac_double at one lane, fs_round at P = 1 and 128, jac_madd and
+     te_madd at the create_batch row scan's 32,768 lanes, horner_windows
+     at the stage-G shape and against its loop, jac_horner_windows at the
+     v1 shape, rcb_double at 65,536 lanes, row_gather at both shapes
+     beside index_select), the kernel alone by replaying a CUDA graph of
+     its launches, beside its plain version and its bound;
   3. msm: n = 2^20 secq256k1 through the port's `msm`, equal to the native
      host Pippenger, then timed (median of 5) with its peak memory;
   4. shuffle: a k = 1024 secq256k1 shuffle proved on the card through the
@@ -54,7 +65,8 @@ Phases, each printed with its seconds:
      and on the per-round route, byte-equal, each run twice, with the
      device-to-host syncs of one run of each; then verified with its g/h
      scalars and their MSM on the card (`ipa_gh_msm`) and with the host
-     assembly, a changed proof rejected;
+     assembly, a changed proof rejected, and the host time of the
+     content-keyed cache hits of one such verify;
   9. ipa zorro n=1024: the same on zorro (a != 0 in jac_double), without
      the verify; and a zorro n = 64 IPA on the per-round route, every
      round on the v1 Pippenger, byte-equal to the host route;
@@ -68,14 +80,16 @@ Phases, each printed with its seconds:
  12. v1 MSMs: n = 512 secq256k1 through `msm` (one scalar set: the v1
      Pippenger) equal to the native host Pippenger; then v1 against v2 at
      the shapes the router gives v1 (one set n = 256 and 512; base_map
-     B = 2 at n = 16, 32, 64; B = 256 at n = 64), equal sums, both timed;
+     B = 2 at n = 16, 32, 64; B = 256 at n = 64), equal sums, both timed,
+     with the kernel launches of one call of each;
  13. batch_verify 64 x k=128: 64 shuffles proved with prove_batch, the
      batch verified with the g/h scalars made and summed on the card
      (padded_n = 256) and with the host assembly, a tampered proof
      rejected;
  14. launches: each path of phases 3-13 runs with every launch count set
      to 0 just before it and read just after; each of its kernels
-     launched, and the v1 paths' double-k-add kernel at k > 0;
+     launched (the window Horner on every MSM path), and the v1 paths'
+     double-k-add kernel at k > 0;
  15. traces: the card prove (secq256k1 and curve25519) and the verify
      once more each under torch.profiler, which splits card time from
      host time and names the largest kernels (last, so that no timing
@@ -110,11 +124,12 @@ L_MAIN = 22 * 1024  # scan lanes at n = 2^20: W * C = 22 * 1024
 MM_LANES = 6 * 2048  # the k = 1024 IPA fold's product launch
 MSM_CU = "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu"
 FS_CU = "ark_bulletproofs_tpu_torch/csrc/fs_kernels.cu"
+GATHER_CU = "ark_bulletproofs_tpu_torch/csrc/gather_kernels.cu"
 TREE_LANES = 128 * 256  # the first step of the P = 128 batch's c * Q tree
 # The kernels JSON line, one entry per kernel and point model: (entry
 # name, wrapper, model of the paths it counts, source, TPU kernels it
 # replaces). "[te]" entries are the twisted-Edwards instantiations of the
-# scan launchers; mont_mul counts on every path.
+# scan and Horner launchers; mont_mul and row_gather count on every path.
 ENTRIES = [
     ("suffix_madd_scan", "suffix_madd_scan", "sw", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels2.py:133"),
@@ -149,11 +164,24 @@ ENTRIES = [
      "ark_bulletproofs_tpu/ops/kernels.py:327"),
     ("te_madd", "te_madd", "te", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:822"),
+    ("horner_windows", "horner_windows", "sw", MSM_CU,
+     "ark_bulletproofs_tpu/ops/kernels2.py:347"),
+    ("horner_windows[te]", "horner_windows", "te", MSM_CU,
+     "ark_bulletproofs_tpu/ops/kernels2.py:347"),
+    ("jac_horner_windows", "jac_horner_windows", "sw", MSM_CU,
+     "ark_bulletproofs_tpu/ops/kernels2.py:347"),
+    # no path, as in the JAX package (only its proj.double reaches it)
+    ("rcb_double", "rcb_double", "sw", MSM_CU,
+     "ark_bulletproofs_tpu/ops/kernels.py:730"),
+    # a probe beside stage B, on no path
+    ("row_gather", "row_gather", None, GATHER_CU,
+     "tools/probe_dma_gather.py:67"),
     # port-only: the JAX package runs this round body as XLA ops
     ("fs_round", "fs_round", None, FS_CU,
      "ark_bulletproofs_tpu/ops/ipa.py:550"),
 ]
 SCANS = ("suffix_madd_scan", "suffix_jac_scan", "rowsum")
+PER_MODEL = SCANS + ("horner_windows",)  # entries split by point model
 # The bound: the larger of bytes over the card's memory rate and 32-bit
 # multiply instructions over 132 SMs x 64 per clock at the maximum SM
 # clock. A field product (csrc/field.cuh::fe_mul) is 8 CIOS steps of
@@ -169,17 +197,20 @@ MULS_PER_FE_MUL = 264
 FE_MULS = {"sw": {"add": 12, "madd": 11, "double": 8},
            "te": {"add": 11, "madd": 11, "double": 11},
            "jac": {"add": 16, "madd": 12, "double": 8, "double_a": 10}}
-MSM_KERNELS = {"sw": SCANS + ("rcb_double_k_add",),
-               "te": SCANS + ("te_double_k_add",)}
+# v2's kernels; its double-k-add kernel launches at k = 0 only (stages
+# D and E), its window Horner is one horner_windows launch
+MSM_KERNELS = {"sw": SCANS + ("rcb_double_k_add", "horner_windows"),
+               "te": SCANS + ("te_double_k_add", "horner_windows")}
 # The on-device Fiat-Shamir IPA's kernels beyond the MSM's: the c * Q
 # tree and the 2^i Q table, and the round's transcript step.
 FS_KERNELS = {"sw": ("mont_mul", "jac_double_k_add", "jac_double",
                      "fs_round"),
               "te": ("mont_mul", "te_double", "fs_round")}
-# The v1 Pippenger's kernels: its row scan's mixed add, and its adds and
-# Horner steps (k = 1 and k = c) on the double-k-add kernel of the model.
-V1_KERNELS = {"sw": ("jac_madd", "jac_double_k_add"),
-              "te": ("te_madd", "te_double_k_add")}
+# The v1 Pippenger's kernels: its row scan's mixed add, its adds and bit
+# Horner steps (k = 1) on the double-k-add kernel of the model, and its
+# window Horner.
+V1_KERNELS = {"sw": ("jac_madd", "jac_double_k_add", "jac_horner_windows"),
+              "te": ("te_madd", "te_double_k_add", "horner_windows")}
 V1_DOUBLING = {"sw": ("jac_double_k_add",), "te": ("te_double_k_add",)}
 
 
@@ -336,7 +367,7 @@ def model(spec) -> str:
 
 def entry(name: str, spec) -> str:
     """The kernels JSON entry of wrapper `name` on `spec`'s model."""
-    return f"{name}[te]" if name in SCANS and model(spec) == "te" else name
+    return f"{name}[te]" if name in PER_MODEL and model(spec) == "te" else name
 
 
 class KernelCheck:
@@ -348,6 +379,7 @@ class KernelCheck:
         self.bound = bound
         self.err = {e[0]: 0 for e in ENTRIES}
         self.times = {}
+        self.library_ms = {}
         self.wrapper_ms = None
 
     def compare(self, name: str, got, want) -> None:
@@ -733,6 +765,183 @@ class KernelCheck:
         print(f"   mont_mul {curve.name} fr: bit-equal at 1000, {MM_LANES}"
               f" and {9 * 2048} lanes and at (6, 4, 9) x 16 x 2048",
               flush=True)
+
+    def horner_parts(self, curve, spec, jac: bool, B: int, W: int,
+                     seed: int):
+        """(NC, 16, B, W) window parts, windows innermost as the engines
+        hold them: the W rows of a suffix_madd_scan over affine_rows (RCB
+        or extended points) or of model_points (Jacobian); windows 1 and
+        W / 2 the identity in the first half of the sets (the one set at
+        B = 1), the top window in the first quarter."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+        from ark_bulletproofs_tpu_torch.ops import proj
+        from ark_bulletproofs_tpu_torch.ops.curve import point_zero
+
+        if jac:
+            T, _ = self.model_points(curve, spec, W, B, seed)
+            zero = point_zero(spec, B, self.dev)
+        else:
+            T = k2.suffix_madd_scan(spec, self.affine_rows(curve, spec, W,
+                                                           B, seed))
+            zero = proj.point_zero(spec, B, self.dev)
+        parts = T.permute(0, 2, 3, 1).contiguous()
+        zero = zero.to(torch.int32)
+        for w, sets in ((1, max(B // 2, 1)), (W // 2, max(B // 2, 1)),
+                        (W - 1, B // 4)):
+            parts[..., :sets, w] = zero[..., :sets]
+        return parts, zero
+
+    def run_horner(self, curve, seed: int, timed: bool) -> None:
+        """horner_windows on RCB (or extended) points and
+        jac_horner_windows on Jacobian points, at v2's stage-G shape for
+        n = 2^20 (one set, W = 22, c = 12) and at the create_batch v1
+        shape (256 sets, W = 64, c = 4), from the identity over all W
+        windows and from the top window over the other W - 1 (read in
+        place): bit-equal to the plain version and to the W-step loop of
+        the double-k-add kernel on the card. Timed at both shapes against
+        that loop, each from a CUDA graph."""
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+        from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
+        te = model(spec) == "te"
+        t0 = time.perf_counter()
+        for jac in ((False,) if te else (False, True)):
+            if jac:
+                name = "jac_horner_windows"
+                horner, dka = k2.jac_horner_windows, kk.jac_double_k_add
+                plain = k2.jac_horner_windows_plain
+                fe = FE_MULS["jac"]
+                dbl = fe["double"] if spec.is_a_zero else fe["double_a"]
+            else:
+                name = entry("horner_windows", spec)
+                horner, dka = k2.horner_windows, kk.double_k_add
+                plain = k2.horner_windows_plain
+                fe = FE_MULS[model(spec)]
+                dbl = fe["double"]
+            nc = 3 + te
+            for shape, B, W, c in (("stage G", 1, 22, 12),
+                                   ("v1", 256, 64, 4)):
+                parts, zero = self.horner_parts(curve, spec, jac, B, W,
+                                                seed + B)
+                top = parts[..., W - 1].contiguous()
+                starts = {"identity": (parts, zero),
+                          "top window": (parts[..., :W - 1], top)}
+                loops = {}
+                for start, (pw, acc0) in starts.items():
+                    got = horner(spec, pw, c, acc0)
+                    self.compare(name, got, plain(spec, pw, c, acc0))
+
+                    def loop(pw=pw, acc0=acc0):
+                        acc = acc0
+                        for w in range(pw.shape[-1] - 1, -1, -1):
+                            acc = dka(spec, acc, pw[..., w].contiguous(), c)
+                        return acc
+
+                    self.compare(name, got, loop())
+                    loops[start] = loop
+                if not timed:
+                    continue
+                start = "top window" if shape == "stage G" else "identity"
+                pw, acc0 = starts[start]
+                Wu = pw.shape[-1]
+                ms = graph_ms(lambda: horner(spec, pw, c, acc0), 5)
+                loop_ms = graph_ms(loops[start], 1)
+                bound = self.bound((B * Wu + 2 * B) * nc * 16 * 4,
+                                   B * Wu * (c * dbl + fe["add"])
+                                   * MULS_PER_FE_MUL)
+                print(f"   {curve.name} {name} {shape} (B = {B}, "
+                      f"{Wu} windows, c = {c}, from the {start}): kernel "
+                      f"{ms:.4f} ms, the {Wu}-launch double-k-add loop "
+                      f"{loop_ms:.4f} ms, bound {bound[0]:.5g} ms "
+                      f"({bound[1]})", flush=True)
+                if (shape == "stage G") != jac:  # each one's main path
+                    self.times[name] = (
+                        ms, host_ms(lambda: plain(spec, pw, c, acc0)),
+                        *bound)
+        print(f"   {curve.name} Horner kernels at (B, W, c) = (1, 22, 12) "
+              f"and (256, 64, 4), both starts: bit-equal to the plain "
+              f"versions and the double-k-add loops "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def run_rcb_double(self, curve, seed: int, timed: bool) -> None:
+        """rcb_double (through kernels.double) bit-equal to its plain
+        version on scan output at 65,536 and 1 lanes, the first sixteenth
+        of the lanes the identity; timed at 65,536 lanes. No path calls
+        it, as in the JAX package."""
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+        from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+        from ark_bulletproofs_tpu_torch.ops import proj
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
+        for L in (1 << 16, 1):
+            T = k2.suffix_madd_scan(spec, self.affine_rows(curve, spec, 2, L,
+                                                           seed + L))
+            P = T[:, 0].contiguous()
+            ident = max(L // 16, 1) if L > 1 else 0
+            P[..., :ident] = proj.point_zero(spec, ident, self.dev)
+            self.compare("rcb_double", kk.double(spec, P),
+                         kk.rcb_double_plain(spec, P))
+            if timed and L > 1:
+                self.times["rcb_double"] = (
+                    graph_ms(lambda: kk.rcb_double(spec, P), 20),
+                    host_ms(lambda: kk.rcb_double_plain(spec, P)),
+                    *self.bound(2 * 3 * 16 * L * 4, L * FE_MULS["sw"][
+                        "double"] * MULS_PER_FE_MUL))
+        print(f"   {curve.name} rcb_double at 65536 and 1 lanes: bit-equal",
+              flush=True)
+
+    def run_row_gather(self) -> None:
+        """row_gather bit-equal to index_select at the DMA probe's shape
+        (an n = 2^20-row table of random words, K = 2^22 random int32 rows
+        from numpy seed 11, as tools/probe_dma_gather.py draws them) and
+        at stage B's row count for n = 2^20 (22 windows, each a random
+        permutation of the 2^20 rows, int64: 1.48 GB out); each timed from
+        a CUDA graph against index_select, the library call, in ms and ns
+        a row. The bound counts the distinct rows read, the indices and
+        the rows written."""
+        import numpy as np
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import gather
+
+        n, K = 1 << 20, 1 << 22
+        rng = np.random.default_rng(11)
+        tbl = torch.from_numpy(rng.integers(0, 2**32, size=(n, 16),
+                                            dtype=np.uint64)
+                               .astype(np.uint32).view(np.int32)).to(self.dev)
+        probe = torch.from_numpy(rng.integers(0, n, size=(K,),
+                                              dtype=np.int64)
+                                 .astype(np.int32)).to(self.dev)
+        g = torch.Generator(device=self.dev).manual_seed(12)
+        stage_b = torch.cat([torch.randperm(n, generator=g, device=self.dev)
+                             for _ in range(22)])
+        for what, idx in (("probe", probe), ("stage B", stage_b)):
+            got = gather.row_gather(tbl, idx)
+            self.compare("row_gather", got, tbl.index_select(0, idx))
+            del got
+            rows = idx.shape[0]
+            ms = graph_ms(lambda: gather.row_gather(tbl, idx), 3)
+            lib = graph_ms(lambda: tbl.index_select(0, idx), 3)
+            distinct = int(torch.unique(idx).numel())
+            bound = self.bound(distinct * 64 + rows * idx.element_size()
+                               + rows * 64, 0)
+            print(f"   row_gather {what} ({rows} rows of 64 bytes, "
+                  f"{idx.dtype} indices, {distinct} distinct): kernel "
+                  f"{ms:.4f} ms ({ms * 1e6 / rows:.3f} ns/row), "
+                  f"index_select {lib:.4f} ms ({lib * 1e6 / rows:.3f} "
+                  f"ns/row), bound {bound[0]:.5g} ms ({bound[1]}); "
+                  f"bit-equal", flush=True)
+            if what == "stage B":
+                self.times["row_gather"] = (
+                    ms, host_ms(lambda: gather.row_gather_plain(tbl, idx)),
+                    *bound)
+                self.library_ms["row_gather"] = lib
+            torch.cuda.empty_cache()
 
     def report(self) -> None:
         for name, (ms, pms, bms, by) in self.times.items():
@@ -1178,7 +1387,11 @@ def verify_ipa(curve, n: int, launches: Launches, blob: bytes, inputs):
     import torch
 
     import ark_bulletproofs_tpu_torch as port
-    from ark_bulletproofs_tpu_torch import InnerProductProof, Transcript, ipp
+    from ark_bulletproofs_tpu_torch import (InnerProductProof, Transcript,
+                                            engine, ipp)
+    from ark_bulletproofs_tpu_torch.ops import cache as dcache
+    from ark_bulletproofs_tpu_torch.ops import field as df
+    from ark_bulletproofs_tpu_torch.ops import verify as dverify
     from ark_bulletproofs_tpu_torch.ops.curve import spec_for
 
     gf, hf, a, b, G, H, Q = inputs
@@ -1215,6 +1428,15 @@ def verify_ipa(curve, n: int, launches: Launches, blob: bytes, inputs):
     print(f"   {curve.name} ipa n={n} verify: accepted; g/h scalars and "
           f"their MSM on the card {times[0]:.3f} s, then {times[1]:.3f} s; "
           f"host-scalar route {host_s:.3f} s", flush=True)
+    fr = df.spec_for(curve.fr)
+    dev = engine.torch_device()
+    t0 = time.perf_counter()
+    dcache.ipa_table(curve, G, H, dev)
+    for fv in (gf, hf):
+        dverify._cached_mont_vector(fr, fv, p, curve.fr.R, dev)
+    print(f"   of which the content-keyed cache hits of one verify (the "
+          f"[G | H] table and the two factor vectors, n = {n}): "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
     bad = InnerProductProof(proof.L_vec, proof.R_vec, (proof.a + 1) % p,
                             proof.b)
     must_raise(f"ipa n={n} proof with a changed a", lambda: check(bad))
@@ -1401,7 +1623,8 @@ def phase_prove_batch(curve, launches: Launches) -> None:
         proofs = launches.run("prove_batch", lambda: prove_batch(
             [b[0] for b in built], [b[1] for b in built], bp),
             MSM_KERNELS["sw"] + ("mont_mul", "jac_double_k_add", "fs_round",
-                                 "jac_madd"), spec, V1_DOUBLING["sw"])
+                                 "jac_madd", "jac_horner_windows"), spec,
+            V1_DOUBLING["sw"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         print(f"   prove_batch P={P} k={k}: {dt:.3f} s, {P / dt:.1f} "
@@ -1487,9 +1710,12 @@ def phase_v1(curve, launches: Launches) -> None:
                 spec, pm.msm_v1(spec, Xs, Ys, Is, scal, bm)).to(torch.int32),
             "v2": lambda: pm.msm_v2(spec, Xs, Ys, Is, scal, bm),
         }
-        out, ms = {}, {}
+        out, ms, count = {}, {}, {}
         for eng in ("v1", "v2", "v2", "v1"):
+            before = sum(w.launches for w in launches.wrappers.values())
             out[eng] = runs[eng]()
+            count[eng] = (sum(w.launches for w in launches.wrappers.values())
+                          - before)
             ms.setdefault(eng, []).extend(
                 host_ms(runs[eng]) for _ in range(3))
         if (point_batch_to_host(curve, out["v1"])
@@ -1497,7 +1723,8 @@ def phase_v1(curve, launches: Launches) -> None:
             raise AssertionError(f"v1 and v2 differ: {kind} B={B} n={n}")
         print(f"   {kind} B={B} n={n}: v1 {statistics.median(ms['v1']):.3f}"
               f" ms, v2 {statistics.median(ms['v2']):.3f} ms (medians of "
-              f"6), equal sums; router: "
+              f"6), equal sums; kernel launches a call: v1 {count['v1']}, "
+              f"v2 {count['v2']}; router: "
               f"{'v2' if pm.uses_v2(n, B > 1 or mapped, mapped) else 'v1'}",
               flush=True)
 
@@ -1600,7 +1827,8 @@ def ptxas_report(log: str) -> list[str]:
 
     models = {"TeModel": "te", "RcbModelILb1E": "rcb a=0",
               "RcbModelILb0E": "rcb a", "JacModelILb1E": "jac a=0",
-              "JacModelILb0E": "jac a"}
+              "JacModelILb0E": "jac a", "kernelIlE": "int64 indices",
+              "kernelIiE": "int32 indices"}
     out, name, spills = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1631,7 +1859,7 @@ def main() -> int:
     from ark_bulletproofs_tpu_torch import curves, engine, native
     from ark_bulletproofs_tpu_torch.ops import _build
     from ark_bulletproofs_tpu_torch.ops import field as df
-    from ark_bulletproofs_tpu_torch.ops import fs
+    from ark_bulletproofs_tpu_torch.ops import fs, gather
     from ark_bulletproofs_tpu_torch.ops import kernels as kk
     from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 
@@ -1650,6 +1878,10 @@ def main() -> int:
         "jac_madd": kk.jac_madd,
         "te_madd": kk.te_madd,
         "fs_round": fs.fs_round,
+        "horner_windows": k2.horner_windows,
+        "jac_horner_windows": k2.jac_horner_windows,
+        "rcb_double": kk.rcb_double,
+        "row_gather": gather.row_gather,
     }
 
     with phase("1 build"):
@@ -1684,6 +1916,12 @@ def main() -> int:
         check.run_fs_round(curves.secq256k1, seed=8, timed=True)
         check.run_fs_round(curves.zorro, seed=9, timed=False)
         check.run_fs_round(curves.curve25519, seed=10, timed=False)
+        check.run_horner(curves.secq256k1, seed=14, timed=True)
+        check.run_horner(curves.zorro, seed=15, timed=False)
+        check.run_horner(curves.curve25519, seed=16, timed=True)
+        check.run_rcb_double(curves.secq256k1, seed=17, timed=True)
+        check.run_rcb_double(curves.zorro, seed=18, timed=False)
+        check.run_row_gather()
         check.report()
     torch.cuda.empty_cache()
 
@@ -1730,7 +1968,7 @@ def main() -> int:
             "plain_ms": check.times[name][1],
             "bound_ms": check.times[name][2],
             "bound_by": check.times[name][3],
-            "library_ms": None,
+            "library_ms": check.library_ms.get(name),
         }
         for name, wrapper, on_model, source, replaces in ENTRIES
     ]}))

@@ -27,6 +27,7 @@ from ark_bulletproofs_tpu_torch import (BulletproofGens, InnerProductProof,
                                         msm, msm_many, seeded_rng)
 from ark_bulletproofs_tpu_torch.ops import field as df
 from ark_bulletproofs_tpu_torch.ops import fs
+from ark_bulletproofs_tpu_torch.ops import gather
 from ark_bulletproofs_tpu_torch.ops import ipa
 from ark_bulletproofs_tpu_torch.ops import kernels as kk
 from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
@@ -455,3 +456,79 @@ def test_v1_msm_on_card(curve, n, sets, cuda_dev):
     assert aff == [curve.msm(bases, k) for k in ks]
     cpu = v1.msm_impl(spec, 4, X.cpu(), Y.cpu(), inf.cpu(), scal.cpu())
     assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("curve,jac", [(curves.secq256k1, False),
+                                       (curves.zorro, False),
+                                       (curves.curve25519, False),
+                                       (curves.secq256k1, True),
+                                       (curves.zorro, True)],
+                         ids=["secq256k1", "zorro", "curve25519",
+                              "secq256k1-jac", "zorro-jac"])
+def test_horner_kernels_match_plain_versions(curve, jac, cuda_dev):
+    """horner_windows (RCB or extended points) and jac_horner_windows over
+    8 windows of L sets, some parts the identity: both starts (the
+    identity; the top window over the other seven, read in place) bit-equal
+    to the plain version and to the double-k-add kernel's W-step loop."""
+    spec = spec_for(curve)
+    if jac:
+        T = _model_points(curve, spec, 8, cuda_dev, seed=21)
+        horner, dka = k2.jac_horner_windows, kk.jac_double_k_add
+        plain = k2.jac_horner_windows_plain
+    else:
+        T = k2.suffix_madd_scan(spec, _affine_rows(curve, spec, 8, cuda_dev,
+                                                   seed=21))
+        horner, dka = k2.horner_windows, kk.double_k_add
+        plain = k2.horner_windows_plain
+    nc, W = T.shape[0], T.shape[1]
+    parts = T.permute(0, 2, 3, 1).contiguous()  # (NC, 16, L, W)
+    zero = (torch.zeros(nc, 16, L, dtype=torch.int32, device=cuda_dev) if jac
+            else proj.point_zero(spec, L, cuda_dev).to(torch.int32))
+    parts[..., :16, 2] = zero[..., :16]
+    parts[..., 8:24, W - 1] = zero[..., 8:24]
+    for c in (4, 12):
+        before = horner.launches
+        got = horner(spec, parts, c)
+        assert got.is_cuda and got.shape == (nc, 16, L)
+        assert torch.equal(got, plain(spec, parts, c, zero))
+        acc = zero
+        for w in range(W - 1, -1, -1):
+            acc = dka(spec, acc, parts[..., w].contiguous(), c)
+        assert torch.equal(got, acc), c
+        top = parts[..., W - 1].contiguous()
+        got = horner(spec, parts[..., :W - 1], c, top)
+        assert torch.equal(got, plain(spec, parts[..., :W - 1], c, top))
+        acc = top
+        for w in range(W - 2, -1, -1):
+            acc = dka(spec, acc, parts[..., w].contiguous(), c)
+        assert torch.equal(got, acc), c
+        assert horner.launches == before + 2
+
+
+@pytest.mark.parametrize("curve", CURVES[:2], ids=lambda c: c.name)
+def test_rcb_double_matches_plain_version(curve, cuda_dev):
+    spec = spec_for(curve)
+    T = k2.suffix_madd_scan(spec, _affine_rows(curve, spec, 2, cuda_dev,
+                                               seed=22))
+    P = T[:, 0].contiguous()
+    P[..., :16] = proj.point_zero(spec, 16, cuda_dev).to(torch.int32)
+    before = kk.rcb_double.launches
+    got = kk.double(spec, P)
+    assert got.is_cuda and torch.equal(got, kk.rcb_double_plain(spec, P))
+    P1 = P[..., 20:21].contiguous()
+    assert torch.equal(kk.rcb_double(spec, P1),
+                       kk.rcb_double_plain(spec, P1))
+    assert kk.rcb_double.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_row_gather_matches_index_select(dtype, cuda_dev):
+    g = torch.Generator(device=cuda_dev).manual_seed(23)
+    tbl = torch.randint(-(1 << 31), (1 << 31) - 1, (1000, 16),
+                        generator=g, device=cuda_dev, dtype=torch.int32)
+    idx = torch.randint(0, 1000, (4099,), generator=g, device=cuda_dev,
+                        dtype=dtype)
+    before = gather.row_gather.launches
+    got = gather.row_gather(tbl, idx)
+    assert got.is_cuda and torch.equal(got, tbl.index_select(0, idx))
+    assert gather.row_gather.launches == before + 1

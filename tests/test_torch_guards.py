@@ -12,6 +12,7 @@
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -19,9 +20,12 @@ import pytest
 import torch
 
 from ark_bulletproofs_tpu_torch import curves, engine, msm
+from ark_bulletproofs_tpu_torch.ops import _build
 from ark_bulletproofs_tpu_torch.ops import curve as tc
 from ark_bulletproofs_tpu_torch.ops import field as df
+from ark_bulletproofs_tpu_torch.ops import gather
 from ark_bulletproofs_tpu_torch.ops import kernels as kk
+from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ark_bulletproofs_tpu_torch")
@@ -71,7 +75,7 @@ def test_port_sources_are_seen_and_include_only_their_own():
     include only system headers and the port's own csrc files."""
     files = {os.path.relpath(p, PKG) for p in _port_files()}
     for mod in ("ops/fs.py", "ops/ipa.py", "ops/kernels.py", "ipp.py",
-                "r1cs/prover.py"):
+                "r1cs/prover.py", "ops/kernels2.py", "ops/gather.py"):
         assert mod in files, mod
     csrc = os.path.join(PKG, "csrc")
     sources = {}
@@ -80,7 +84,8 @@ def test_port_sources_are_seen_and_include_only_their_own():
             if n.endswith((".cu", ".cuh", ".cpp", ".h")):
                 sources[os.path.relpath(os.path.join(d, n), csrc)] = \
                     open(os.path.join(d, n)).read()
-    for name in ("jac.cuh", "fs.cuh", "fs_kernels.cu", "msm_kernels.cu"):
+    for name in ("jac.cuh", "fs.cuh", "fs_kernels.cu", "msm_kernels.cu",
+                 "gather_kernels.cu"):
         assert name in sources, name
     own = {os.path.basename(n) for n in sources}
     for name, text in sources.items():
@@ -90,6 +95,26 @@ def test_port_sources_are_seen_and_include_only_their_own():
                 if inc.startswith('"'):
                     assert inc.strip('"') in own, (name, inc)
                 assert "jax" not in inc and "ark_bulletproofs_tpu" not in inc
+
+
+def test_every_bound_launcher_is_defined_and_launched_by_name():
+    """Each entry point that ops/_build.py binds is an extern "C" function
+    of csrc/*.cu, and each kernel name a port module launches is bound."""
+    cu = "".join(open(p).read() for p in _build._sources())
+    defined = set(re.findall(r'extern "C" int (abtpu_\w+)\(', cu))
+    assert set(_build._SIGNATURES) == defined
+    launched = set()
+    for path in _port_files():
+        launched |= set(re.findall(r'launch\(\s*"(\w+)"', open(path).read()))
+        # kernels2's Horner wrappers name their launcher to _horner
+        launched |= set(re.findall(r'_horner\(\w+, \w+,\s*"(\w+)"',
+                                   open(path).read()))
+    for name in ("rcb_double", "te_double", "jac_double", "rcb_double_k_add",
+                 "te_double_k_add", "jac_double_k_add", "jac_madd",
+                 "te_madd"):  # kernels.py launches by the wrapper's name
+        assert callable(getattr(kk, name))
+        launched.add(name)
+    assert {f"abtpu_{n}" for n in launched} == defined
 
 
 _NO_JAX = r"""
@@ -155,6 +180,17 @@ def test_wrappers_take_plain_versions_only_for_cpu_tensors():
     df.mont_mul(fs, torch.ones(16, 2, dtype=torch.int32),
                 torch.ones(16, 1, dtype=torch.int32))
     assert df.mont_mul.launches == before  # the plain version ran
+    with pytest.raises(ValueError, match="device"):
+        kk.rcb_double(spec, P)
+    with pytest.raises(ValueError, match="device"):
+        k2.horner_windows(spec, P.reshape(3, 16, 1, 2), 4)
+    tbl = torch.zeros(8, 16, dtype=torch.int32)
+    idx = torch.tensor([7, 0, 3])
+    with pytest.raises(ValueError, match="device"):
+        gather.row_gather(tbl.to("meta"), idx.to("meta"))
+    before = gather.row_gather.launches
+    assert torch.equal(gather.row_gather(tbl, idx), tbl[idx])
+    assert gather.row_gather.launches == before  # the plain version ran
 
 
 def test_default_device_is_cuda():

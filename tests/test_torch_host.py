@@ -9,7 +9,10 @@ JAX package's copy of the C++ the worker threads start from the secq256k1
 constants, so that copy is not the reference here).
 """
 
+import os
 import random
+import subprocess
+import sys
 from types import SimpleNamespace
 
 import pytest
@@ -71,6 +74,37 @@ def test_commit_many_threaded_matches_sequential():
         blinds = [r.randrange(p) for _ in range(512)]
         got = pc.commit_many(vals, blinds)
         assert got == [pc.commit(v, b) for v, b in zip(vals, blinds)], name
+
+
+_RAND_FP_9 = r"""
+from ark_bulletproofs_tpu_torch import curves, native
+from ark_bulletproofs_tpu_torch.transcript.strobe import Strobe128
+st = Strobe128(b"rand_fp")
+before = (bytes(st.state), st.pos, st.pos_begin, st.cur_flags)
+fr = curves.secq256k1.fr
+assert native.strobe_rand_fp_native(st, fr.p, fr.num_bits, 4, 8)
+before = (bytes(st.state), st.pos, st.pos_begin, st.cur_flags)
+try:
+    native.strobe_rand_fp_native(st, fr.p, fr.num_bits, 9, 8)
+except ValueError:
+    assert (bytes(st.state), st.pos, st.pos_begin, st.cur_flags) == before
+    print("OK")
+"""
+
+
+def test_strobe_rand_fp_refuses_more_than_8_limbs():
+    """The native field sampler holds a sample in 8 limbs: n_limbs = 9 is
+    refused with a ValueError and the strobe untouched, in a process that
+    lives on (run apart, so that a write past the limbs could not take
+    this one down)."""
+    if native.lib() is None:
+        pytest.fail("the port's native host library did not build")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _RAND_FP_9], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "OK"
 
 
 def _shuffle_case(k):

@@ -203,6 +203,35 @@ def test_s_vector_and_ipa_gh_msm():
     assert got == want
 
 
+def test_ipa_gh_msm_cache_keys_by_content():
+    """Two `ipa_gh_msm` calls at n = 16 whose factor vectors (and, in the
+    second pair, G vectors) share their first and last elements but differ
+    inside: each equals the host Pippenger over its own inputs, never a
+    cached vector or table of the other call."""
+    n, lg = 16, 4
+    gens = BulletproofGens(CURVE, 2 * n, 1).share(0)
+    G, H = gens.G(n), gens.H(n)
+    u_sq = _ints(lg, 40)
+    allinv = _ints(1, 41)[0]
+    a, b = _ints(2, 42)
+    R = CURVE.fr.R
+    s = tv._s_vector(df.spec_for(CURVE.fr),
+                     ints_to_limbs([x * R % P_ for x in u_sq]),
+                     ints_to_limbs([allinv * R % P_]), n, lg)
+    sv = [x * CURVE.fr.R_inv % P_ for x in _ints_of(s)]
+    hf1 = [1] + _ints(n - 2, 43) + [1]
+    hf2 = [1] + _ints(n - 2, 44) + [1]
+    G2 = [G[0]] + gens.G(2 * n)[n + 1:2 * n - 1] + [G[-1]]
+    gf = _ints(n, 45)
+    for Gv, hf in ((G, hf1), (G, hf2), (G2, hf2)):
+        got = tv.ipa_gh_msm(CURVE, n, a, b, u_sq, allinv, list(gf),
+                            list(hf), list(Gv), list(H), device="cpu")
+        want = CURVE.msm(Gv + H,
+                         [a * si * gi % P_ for si, gi in zip(sv, gf)]
+                         + [b * si * hi % P_ for si, hi in zip(sv[::-1], hf)])
+        assert got == want
+
+
 def _shuffle(k: int, seed: int, curve=CURVE):
     pc = PedersenGens.default(curve)
     bp = BulletproofGens(curve, 16, 1)
