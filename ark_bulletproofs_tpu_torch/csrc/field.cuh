@@ -4,17 +4,30 @@
 // ark_bulletproofs_tpu/ops/kernels.py: _k_mont_mul, _k_add, _k_sub,
 // _k_cond_sub_p, _k_mul_small and _k_mul_const. The TPU kept 16 x 16-bit
 // limbs so that every partial product fit a u32 vector lane; here a field
-// element lives in registers as 8 x 32-bit words, and the CIOS product uses
-// 32 x 32 -> 64-bit multiplies. The boundary layout stays 16 x 16-bit limbs
-// in int32 (limb-major, (rows, 16, lanes)); load/store repack two limbs into
-// one word. R = 2^256 in both layouts, so the Montgomery values are the same
-// integers and the outputs are bit-equal to the plain PyTorch version
-// (ops/field.py).
+// element lives in registers as 8 x 32-bit words. The boundary layout stays
+// 16 x 16-bit limbs in int32 (limb-major, (rows, 16, lanes)); load/store
+// repack two limbs into one word. R = 2^256 in both layouts, so the
+// Montgomery values are the same integers and the outputs are bit-equal to
+// the plain PyTorch version (ops/field.py).
+//
+// What bounds it: every kernel of the port inlines these functions, and
+// their integer multiply-adds and carries are the kernels' work: a group
+// operation is 8-12 products and 10-25 adds or subtractions. The adds are
+// PTX carry chains on the condition code: fe_add, fe_sub and
+// fe_cond_sub_p each one add.cc / sub.cc sequence over the 8 words inside
+// one asm block (a block takes no carry it did not make and leaves none:
+// the condition code does not survive between asm statements), and
+// fe_sub adds p masked by its borrow word instead of selecting. Against
+// the C adds they cut the n = 2^20 MSM from 44.4 to 41.2 ms and
+// rowsum and suffix_jac_scan by 27-33% (PERF.md, PR 7). p and n0 come
+// from CurveConst, a kernel parameter: ptxas loads them once into uniform
+// registers (ULDC), not into each thread's registers.
 //
 // Every result is canonical in [0, p). For secq256k1 and zorro 2p > 2^256,
 // so an add or the CIOS tail can carry out of the top word: that carry is
 // kept and forces the final subtraction of p, as _k_cond_sub_p(..., extra)
-// does on the TPU.
+// does on the TPU. tests/test_torch_field_chains.py runs these asm blocks
+// through an interpreter on the CPU against the JAX and plain versions.
 #pragma once
 #include <stdint.h>
 
@@ -72,55 +85,111 @@ __device__ __forceinline__ Fe fe_select(bool c, const Fe& a, const Fe& b) {
   return r;
 }
 
+// The carry chains below are inline PTX on the condition code: add.cc /
+// addc.cc, sub.cc / subc.cc, mad.lo.cc / madc.{lo,hi}.cc. The condition
+// code is not preserved across asm statements, so every chain starts and
+// ends inside one asm block: a block consumes no carry it did not make and
+// leaves none behind (its last step is an addc / subc without .cc). The
+// operands are plain "r" registers; p and n0 come from CurveConst, a kernel
+// parameter, so ptxas reads them from the constant bank.
+
+// d = r - p over 8 words; returns 0 or 0xFFFFFFFF (borrow out).
+__device__ __forceinline__ uint32_t fe_sub_p_words(Fe& d, const Fe& r,
+                                                   const CurveConst& cc) {
+  uint32_t br;
+  asm("sub.cc.u32  %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32    %8, 0, 0;"
+      : "=r"(d.v[0]), "=r"(d.v[1]), "=r"(d.v[2]), "=r"(d.v[3]),
+        "=r"(d.v[4]), "=r"(d.v[5]), "=r"(d.v[6]), "=r"(d.v[7]), "=r"(br)
+      : "r"(r.v[0]), "r"(r.v[1]), "r"(r.v[2]), "r"(r.v[3]), "r"(r.v[4]),
+        "r"(r.v[5]), "r"(r.v[6]), "r"(r.v[7]), "r"(cc.p[0]), "r"(cc.p[1]),
+        "r"(cc.p[2]), "r"(cc.p[3]), "r"(cc.p[4]), "r"(cc.p[5]),
+        "r"(cc.p[6]), "r"(cc.p[7]));
+  return br;
+}
+
 // r + extra * 2^256 (< 2p) -> canonical [0, p).
 __device__ __forceinline__ Fe fe_cond_sub_p(const Fe& r, uint32_t extra,
                                             const CurveConst& cc) {
   Fe d;
-  uint32_t br = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t t = (uint64_t)r.v[i] - cc.p[i] - br;
-    d.v[i] = (uint32_t)t;
-    br = (uint32_t)(t >> 63);  // wrapped: borrow
-  }
+  uint32_t br = fe_sub_p_words(d, r, cc);
   return fe_select(extra != 0 || br == 0, d, r);
 }
 
 __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b,
                                      const CurveConst& cc) {
   Fe s;
-  uint32_t c = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t t = (uint64_t)a.v[i] + b.v[i] + c;
-    s.v[i] = (uint32_t)t;
-    c = (uint32_t)(t >> 32);
-  }
+  uint32_t c;
+  asm("add.cc.u32  %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32    %8, 0, 0;"
+      : "=r"(s.v[0]), "=r"(s.v[1]), "=r"(s.v[2]), "=r"(s.v[3]),
+        "=r"(s.v[4]), "=r"(s.v[5]), "=r"(s.v[6]), "=r"(s.v[7]), "=r"(c)
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]),
+        "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(b.v[0]), "r"(b.v[1]),
+        "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]),
+        "r"(b.v[7]));
   return fe_cond_sub_p(s, c, cc);
 }
 
+// a - b, then + p where that borrowed (p masked by the borrow word, so no
+// select).
 __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b,
                                      const CurveConst& cc) {
   Fe d;
-  uint32_t br = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t t = (uint64_t)a.v[i] - b.v[i] - br;
-    d.v[i] = (uint32_t)t;
-    br = (uint32_t)(t >> 63);
-  }
-  Fe e;
-  uint32_t c = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t t = (uint64_t)d.v[i] + cc.p[i] + c;
-    e.v[i] = (uint32_t)t;
-    c = (uint32_t)(t >> 32);
-  }
-  return fe_select(br != 0, e, d);
+  uint32_t br;
+  asm("sub.cc.u32  %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32    %8, 0, 0;"
+      : "=r"(d.v[0]), "=r"(d.v[1]), "=r"(d.v[2]), "=r"(d.v[3]),
+        "=r"(d.v[4]), "=r"(d.v[5]), "=r"(d.v[6]), "=r"(d.v[7]), "=r"(br)
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]),
+        "r"(a.v[5]), "r"(a.v[6]), "r"(a.v[7]), "r"(b.v[0]), "r"(b.v[1]),
+        "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]),
+        "r"(b.v[7]));
+  asm("add.cc.u32  %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32    %7, %7, %15;"
+      : "+r"(d.v[0]), "+r"(d.v[1]), "+r"(d.v[2]), "+r"(d.v[3]),
+        "+r"(d.v[4]), "+r"(d.v[5]), "+r"(d.v[6]), "+r"(d.v[7])
+      : "r"(cc.p[0] & br), "r"(cc.p[1] & br), "r"(cc.p[2] & br),
+        "r"(cc.p[3] & br), "r"(cc.p[4] & br), "r"(cc.p[5] & br),
+        "r"(cc.p[6] & br), "r"(cc.p[7] & br));
+  return d;
 }
 
-// CIOS Montgomery product a * b * 2^-256 mod p for canonical a, b.
+// CIOS Montgomery product a * b * 2^-256 mod p for a < 2^256 and a
+// canonical b; t < 2p before the final subtraction, t[8] its `extra`.
+// Each step is a 64-bit C expression a_j b_i + t_j + carry, which ptxas
+// makes an IMAD.WIDE off the carry path. The product as PTX carry chains
+// (16 mul.lo / mul.hi a step, then two add.cc chains) cut registers but
+// put the multiplies on the carry path and ran the n = 2^20 MSM 3-4%
+// slower and rowsum 1.8 times slower on the H100 (PERF.md, PR 7), so the
+// C form stays.
 __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b,
                                      const CurveConst& cc) {
   uint32_t t[10];

@@ -138,3 +138,80 @@ __device__ __forceinline__ Pt jac_madd(const Pt& P, const Fe& qx,
   if (q_inf) R = P;
   return R;
 }
+
+// jac_double and jac_add dealt out over a thread group (group.cuh), for
+// the window Horner. Doubling levels: X^2, Y^2, Z^2, (Y + Z)^2; then
+// YY^2, (X + YY)^2 and M^2 (a = 0) or ZZ^2, a ZZ^2 (double-and-add when
+// a is small) and M^2; then M (S - X3). Add levels: 5, 4, 3, 2, 2
+// products. The selects of jac_add follow; its doubling lanes take the
+// group doubling (a group's threads hold the same values, so they branch
+// together). The values are those of jac_double / jac_add.
+template <bool AZ, int G>
+__device__ __forceinline__ Pt jac_double_grp(Grp<G>& gr, const Pt& P,
+                                             const CurveConst& cc) {
+  Fe ypz = fe_add(P.Y, P.Z, cc);
+  Fe m[4];  // XX, YY, ZZ, (Y + Z)^2
+  grp_mul<4>(gr, m, {P.X, P.Y, P.Z, ypz}, {P.X, P.Y, P.Z, ypz}, cc);
+  Fe M = fe_add(fe_add(m[0], m[0], cc), m[0], cc);
+  Fe xpyy = fe_add(P.X, m[1], cc);
+  Fe n[3];  // YYYY, (X + YY)^2, and M^2 (a = 0) or ZZ^2
+  Fe M2;
+  if (AZ) {
+    grp_mul<3>(gr, n, {m[1], xpyy, M}, {m[1], xpyy, M}, cc);
+    M2 = n[2];
+  } else {
+    grp_mul<3>(gr, n, {m[1], xpyy, m[2]}, {m[1], xpyy, m[2]}, cc);
+    M = fe_add(M, grp_mul_const(gr, n[2], cc.a_mont, cc.a_small, cc), cc);
+    Fe q[1];
+    grp_mul<1>(gr, q, {M}, {M}, cc);
+    M2 = q[0];
+  }
+  Fe S = fe_sub(n[1], fe_add(m[0], n[0], cc), cc);
+  S = fe_add(S, S, cc);
+  Pt R;
+  R.X = fe_sub(M2, fe_add(S, S, cc), cc);
+  Fe r[1];
+  grp_mul<1>(gr, r, {M}, {fe_sub(S, R.X, cc)}, cc);
+  Fe e8 = fe_add(n[0], n[0], cc);
+  e8 = fe_add(e8, e8, cc);
+  e8 = fe_add(e8, e8, cc);
+  R.Y = fe_sub(r[0], e8, cc);
+  R.Z = fe_sub(m[3], fe_add(m[1], m[2], cc), cc);
+  return R;
+}
+
+template <bool AZ, int G>
+__device__ __forceinline__ Pt jac_add_grp(Grp<G>& gr, const Pt& P,
+                                          const Pt& Q, const CurveConst& cc) {
+  bool p_inf = fe_is_zero(P.Z);
+  bool q_inf = fe_is_zero(Q.Z);
+  Fe zpz = fe_add(P.Z, Q.Z, cc);
+  Fe m[5];  // Z1Z1, Z2Z2, Y1 Z2, Y2 Z1, (Z1 + Z2)^2
+  grp_mul<5>(gr, m, {P.Z, Q.Z, P.Y, Q.Y, zpz}, {P.Z, Q.Z, Q.Z, P.Z, zpz},
+             cc);
+  Fe n[4];  // U1, U2, S1, S2
+  grp_mul<4>(gr, n, {P.X, Q.X, m[2], m[3]}, {m[1], m[0], m[1], m[0]}, cc);
+  Fe H = fe_sub(n[1], n[0], cc);
+  Fe rr0 = fe_sub(n[3], n[2], cc);
+  bool x_eq = fe_is_zero(H);
+  bool y_eq = fe_is_zero(rr0);
+  Fe rr = fe_add(rr0, rr0, cc);
+  Fe twoH = fe_add(H, H, cc);
+  Fe w = fe_sub(m[4], fe_add(m[0], m[1], cc), cc);
+  Fe q[3];  // I, rr^2, Z3
+  grp_mul<3>(gr, q, {twoH, rr, w}, {twoH, rr, H}, cc);
+  Fe s[2];  // J, V
+  grp_mul<2>(gr, s, {H, n[0]}, {q[0], q[0]}, cc);
+  Pt R;
+  R.X = fe_sub(q[1], fe_add(s[0], fe_add(s[1], s[1], cc), cc), cc);
+  Fe u[2];  // S1 J, rr (V - X3)
+  grp_mul<2>(gr, u, {n[2], rr}, {s[0], fe_sub(s[1], R.X, cc)}, cc);
+  R.Y = fe_sub(u[1], fe_add(u[0], u[0], cc), cc);
+  R.Z = q[2];
+  bool finite = !p_inf && !q_inf;
+  if (x_eq && y_eq && finite) R = jac_double_grp<AZ>(gr, P, cc);
+  if (x_eq && !y_eq && finite) R.Z = fe_zero();
+  if (p_inf) R = Q;
+  if (q_inf) R = P;
+  return R;
+}

@@ -40,17 +40,31 @@
 // the thread. Lanes are columns of independent sums, so no block needs
 // another's result.
 //
-// What bounds them: integer multiply throughput. One mixed add is 11
-// Montgomery products of 64 32 x 32-bit multiply-adds each plus the
-// reduction, against 2 x 64 bytes read and 3 x 64 bytes written; at the
-// main path's shape (n = 2^20: R = 1024 rows, L = 22,528 lanes) the scan
-// reads 2.9 GB and writes 4.4 GB, well under a second of HBM time, while the
-// arithmetic is the larger share. The loads and stores are limb-major, so
-// the 32 threads of a warp touch 32 consecutive int32 (one 128-byte line)
-// per limb. __launch_bounds__(128): a madd keeps about a dozen field
-// elements (~100 registers) live. Occupancy is the first thing a later
-// optimisation looks at: 22,528 lanes are ~176 blocks of 128 threads on
-// 132 SMs, about one block per SM.
+// What bounds the scans: integer multiply throughput, once enough chains
+// run at a time to hide each product's latency. One mixed add is 11
+// Montgomery products (csrc/field.cuh) against 2 x 64 bytes read and 3 x 64
+// bytes written; at the n = 2^20 MSM the scan reads 2.9 GB and writes
+// 4.4 GB, about 2.2 ms of HBM time against 4.0 ms of multiplies. The loads
+// and stores are limb-major, so the 32 threads of a warp touch 32
+// consecutive int32 (one 128-byte line) per limb. The scan's parallelism is
+// its lane count, a plan choice (ops/msm2.py::plan_columns): the JAX plan's
+// 22,528 lanes at n = 2^20 were 176 blocks of 128 on 132 SMs, one or two
+// warps a scheduler, which cannot hide the multiply-carry latency. The
+// port's plan doubles the columns while the lanes under-fill the card:
+// 90,112 lanes, 704 blocks against 396 resident at 3 blocks an SM
+// (__launch_bounds__(128, 3): at most 170 registers, no spill; at 4 the
+// RCB a = 0 scan spills).
+//
+// The window Horner (horner_group_kernel) is a latency problem instead: at
+// v2's stage G one chain of W (c + 1) dependent group operations is the
+// whole launch. A group of G threads shares each chain (csrc/group.cuh):
+// the independent products of each level of a law go to different threads
+// and meet again through shared memory, so an operation costs its levels
+// (2 for an RCB a = 0 doubling, 3 for a Jacobian one, 3 for HWCD), not its
+// products (8 to 12). __launch_bounds__(128, 1): a chain needs registers,
+// not occupancy. The group mapping beat one thread a set on the H100 up
+// to 16,384 sets and lost only from 32,768 (PERF.md, PR 7); no caller
+// comes near that (the largest is v1's B = 256), so it is the only one.
 //
 // A TE point is 4 x 8 words against 3 x 8: the TE scans write a third
 // more bytes (5.9 GB at the n = 2^20 shape) for the same 11 products a
@@ -69,6 +83,13 @@
 #include "te.cuh"
 
 #define THREADS 128
+// suffix_madd_scan: SCAN_THREADS a block and at least SCAN_MIN_BLOCKS
+// resident on an SM (see the note above). ops/msm2.py's column plan reads
+// both (tests/test_torch_msm_plan.py ties them).
+#define SCAN_THREADS 128
+#define SCAN_MIN_BLOCKS 3
+// The group Horner's block: 128 threads, 32 / G scalar sets a warp.
+#define HG_THREADS 128
 
 template <bool AZ>
 struct RcbModel {
@@ -87,6 +108,17 @@ struct RcbModel {
   }
   static __device__ __forceinline__ P dbl(const P& a, const CurveConst& cc) {
     return rcb_double<AZ>(a, cc);
+  }
+  static constexpr int GRP = AZ ? 4 : 8;  // the widest level: 4, or 6
+  template <int G>
+  static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
+                                           const P& b, const CurveConst& cc) {
+    return rcb_add_grp<AZ>(gr, a, b, cc);
+  }
+  template <int G>
+  static __device__ __forceinline__ P gdbl(Grp<G>& gr, const P& a,
+                                           const CurveConst& cc) {
+    return rcb_double_grp<AZ>(gr, a, cc);
   }
   static __device__ __forceinline__ P load(const int32_t* base, size_t rows,
                                            size_t row, size_t L,
@@ -116,6 +148,17 @@ struct TeModel {
   }
   static __device__ __forceinline__ P dbl(const P& a, const CurveConst& cc) {
     return te_double(a, cc);
+  }
+  static constexpr int GRP = 8;  // levels of 5, 2 and 4 products
+  template <int G>
+  static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
+                                           const P& b, const CurveConst& cc) {
+    return te_add_grp(gr, a, b, cc);
+  }
+  template <int G>
+  static __device__ __forceinline__ P gdbl(Grp<G>& gr, const P& a,
+                                           const CurveConst& cc) {
+    return te_add_grp(gr, a, a, cc);
   }
   static __device__ __forceinline__ P load(const int32_t* base, size_t rows,
                                            size_t row, size_t L,
@@ -149,6 +192,17 @@ struct JacModel {
   static __device__ __forceinline__ P dbl(const P& a, const CurveConst& cc) {
     return jac_double<AZ>(a, cc);
   }
+  static constexpr int GRP = 4;  // doubling levels of 4, 3, 1 (and 1, 1)
+  template <int G>
+  static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
+                                           const P& b, const CurveConst& cc) {
+    return jac_add_grp<AZ>(gr, a, b, cc);
+  }
+  template <int G>
+  static __device__ __forceinline__ P gdbl(Grp<G>& gr, const P& a,
+                                           const CurveConst& cc) {
+    return jac_double_grp<AZ>(gr, a, cc);
+  }
   static __device__ __forceinline__ P load(const int32_t* base, size_t rows,
                                            size_t row, size_t L,
                                            size_t lane) {
@@ -169,7 +223,7 @@ using RcbA = RcbModel<false>;
 // identity (no point of an odd-order short-Weierstrass curve, and no point
 // of curve25519's prime-order subgroup, has y = 0). out: (NC, R, 16, L).
 template <class M>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SCAN_THREADS, SCAN_MIN_BLOCKS)
     suffix_madd_scan_kernel(const int32_t* __restrict__ xy,
                             int32_t* __restrict__ out, int64_t R, int64_t L,
                             CurveConst cc) {
@@ -260,33 +314,6 @@ __global__ void __launch_bounds__(THREADS)
   M::store(out, 1, 0, m, lane, M::dbl(M::load(P, 1, 0, m, lane), cc));
 }
 
-// The window Horner of both MSM engines: acc = acc0, then for w = W - 1
-// down to 0, c doublings and acc += part[w]; out = acc. parts: (NC, 16,
-// B, Ws) with the windows innermost, the layout the engines hold their
-// window sums in, of which windows [0, W) are read (Ws >= W: v2 passes
-// its top window as acc0 and the other W - 1 as parts, without a copy);
-// acc0, out: (NC, 16, B). One thread per scalar set, the accumulator in
-// registers throughout: W (c + 1) dependent group operations a lane, so
-// at B = 1 (one set, v2's stage G) the chain runs on one thread and its
-// latency is the whole cost; what it saves is the W - 1 launches and
-// per-window copies of a double-k-add loop. The strided window reads
-// (stride Ws between lanes) are a few KB a lane and do not matter.
-template <class M>
-__global__ void __launch_bounds__(THREADS)
-    horner_kernel(const int32_t* __restrict__ parts,
-                  const int32_t* __restrict__ acc0,
-                  int32_t* __restrict__ out, int64_t B, int64_t W,
-                  int64_t Ws, int32_t c, CurveConst cc) {
-  size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (size_t)B) return;
-  typename M::P acc = M::load(acc0, 1, 0, B, lane);
-  for (int64_t w = W - 1; w >= 0; --w) {
-    for (int32_t i = 0; i < c; ++i) acc = M::dbl(acc, cc);
-    acc = M::add(acc, M::load(parts, 1, 0, B * Ws, lane * Ws + w), cc);
-  }
-  M::store(out, 1, 0, B, lane, acc);
-}
-
 static inline CurveConst load_cc(const void* words) {
   CurveConst cc;
   memcpy(&cc, words, sizeof cc);
@@ -295,6 +322,54 @@ static inline CurveConst load_cc(const void* words) {
 
 static inline unsigned blocks_for(int64_t lanes) {
   return (unsigned)((lanes + THREADS - 1) / THREADS);
+}
+
+// The window Horner of both MSM engines: acc = acc0, then for w = W - 1
+// down to 0, c doublings and acc += part[w]; out = acc. parts: (NC, 16,
+// B, Ws) with the windows innermost, the layout the engines hold their
+// window sums in, of which windows [0, W) are read (Ws >= W: v2 passes
+// its top window as acc0 and the other W - 1 as parts, without a copy);
+// acc0, out: (NC, 16, B). A group of G = M::GRP threads shares each scalar
+// set's chain (group.cuh): W (c + 1) dependent group operations, each as
+// long as its product levels (2 for an RCB a = 0 doubling, 3 for a
+// Jacobian one), not its products (8). Every thread of a group holds the
+// accumulator; thread 0 stores. The strided window reads (stride Ws
+// between lanes) are a few KB a set.
+template <class M, int G>
+__global__ void __launch_bounds__(HG_THREADS, 1)
+    horner_group_kernel(const int32_t* __restrict__ parts,
+                        const int32_t* __restrict__ acc0,
+                        int32_t* __restrict__ out, int64_t B, int64_t W,
+                        int64_t Ws, int32_t c, CurveConst cc) {
+  __shared__ uint4 slots[HG_THREADS / G][4 * GRP_SLOTS];
+  const int tid = threadIdx.x;
+  const size_t set = ((size_t)blockIdx.x * HG_THREADS + tid) / G;
+  if (set >= (size_t)B) return;  // whole groups only: HG_THREADS % G == 0
+  Grp<G> gr;
+  gr.buf = slots[tid / G];
+  gr.g = tid % G;
+  gr.mask = ((1u << G) - 1u) << ((tid & 31) / G * G);
+  gr.half = 0;
+  typename M::P acc = M::load(acc0, 1, 0, B, set);
+  for (int64_t w = W - 1; w >= 0; --w) {
+    for (int32_t i = 0; i < c; ++i) acc = M::template gdbl<G>(gr, acc, cc);
+    acc = M::template gadd<G>(
+        gr, acc, M::load(parts, 1, 0, B * Ws, set * Ws + w), cc);
+  }
+  if (gr.g == 0) M::store(out, 1, 0, B, set, acc);
+}
+
+// One Horner launch: a group of M::GRP threads a set.
+template <class M>
+static void launch_horner(const void* parts, const void* acc0, void* out,
+                          int64_t B, int64_t W, int64_t Ws, int32_t c,
+                          const CurveConst& cc, cudaStream_t s) {
+  constexpr int G = M::GRP;
+  static_assert(HG_THREADS % G == 0 && 32 % G == 0, "group size");
+  unsigned blocks = (unsigned)((B * G + HG_THREADS - 1) / HG_THREADS);
+  horner_group_kernel<M, G><<<blocks, HG_THREADS, 0, s>>>(
+      (const int32_t*)parts, (const int32_t*)acc0, (int32_t*)out, B, W, Ws,
+      c, cc);
 }
 
 // Launch KERNEL<model>(args...) over `lanes` threads, the model picked from
@@ -314,8 +389,16 @@ extern "C" int abtpu_suffix_madd_scan(const void* xy, void* out, int64_t R,
                                       void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
-  LAUNCH_BY_MODEL(suffix_madd_scan_kernel, L, (const int32_t*)xy,
-                  (int32_t*)out, R, L, cc);
+  unsigned blocks = (unsigned)((L + SCAN_THREADS - 1) / SCAN_THREADS);
+  if (cc.te)
+    suffix_madd_scan_kernel<TeModel><<<blocks, SCAN_THREADS, 0, s>>>(
+        (const int32_t*)xy, (int32_t*)out, R, L, cc);
+  else if (cc.a_zero)
+    suffix_madd_scan_kernel<RcbA0><<<blocks, SCAN_THREADS, 0, s>>>(
+        (const int32_t*)xy, (int32_t*)out, R, L, cc);
+  else
+    suffix_madd_scan_kernel<RcbA><<<blocks, SCAN_THREADS, 0, s>>>(
+        (const int32_t*)xy, (int32_t*)out, R, L, cc);
   return (int)cudaGetLastError();
 }
 
@@ -456,8 +539,12 @@ extern "C" int abtpu_horner(const void* parts, const void* acc0, void* out,
                             const void* words, void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
-  LAUNCH_BY_MODEL(horner_kernel, B, (const int32_t*)parts,
-                  (const int32_t*)acc0, (int32_t*)out, B, W, Ws, c, cc);
+  if (cc.te)
+    launch_horner<TeModel>(parts, acc0, out, B, W, Ws, c, cc, s);
+  else if (cc.a_zero)
+    launch_horner<RcbA0>(parts, acc0, out, B, W, Ws, c, cc, s);
+  else
+    launch_horner<RcbA>(parts, acc0, out, B, W, Ws, c, cc, s);
   return (int)cudaGetLastError();
 }
 
@@ -465,17 +552,14 @@ extern "C" int abtpu_horner(const void* parts, const void* acc0, void* out,
 // short-Weierstrass curve).
 extern "C" int abtpu_jac_horner(const void* parts, const void* acc0,
                                 void* out, int64_t B, int64_t W, int64_t Ws,
-                                int32_t c, const void* words, void* stream) {
+                                int32_t c, const void* words,
+                                void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
   if (cc.te) return (int)cudaErrorInvalidValue;
   if (cc.a_zero)
-    horner_kernel<JacModel<true>><<<blocks_for(B), THREADS, 0, s>>>(
-        (const int32_t*)parts, (const int32_t*)acc0, (int32_t*)out, B, W,
-        Ws, c, cc);
+    launch_horner<JacModel<true>>(parts, acc0, out, B, W, Ws, c, cc, s);
   else
-    horner_kernel<JacModel<false>><<<blocks_for(B), THREADS, 0, s>>>(
-        (const int32_t*)parts, (const int32_t*)acc0, (int32_t*)out, B, W,
-        Ws, c, cc);
+    launch_horner<JacModel<false>>(parts, acc0, out, B, W, Ws, c, cc, s);
   return (int)cudaGetLastError();
 }

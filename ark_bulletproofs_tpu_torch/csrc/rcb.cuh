@@ -10,6 +10,7 @@
 // PyTorch versions are in ops/proj.py.
 #pragma once
 #include "field.cuh"
+#include "group.cuh"
 
 struct Pt {
   Fe X, Y, Z;
@@ -216,6 +217,114 @@ __device__ __forceinline__ Pt rcb_double(const Pt& P, const CurveConst& cc) {
     R.X = X3;
     R.Y = Y3;
     R.Z = Z3;
+  }
+  return R;
+}
+
+// The same laws dealt out over a thread group (group.cuh), for the window
+// Horner: the products of one level of Alg 9 / 3 / 7 / 1 in one round, the
+// adds on every thread. The values are those of rcb_double / rcb_add
+// above (every field operation is exact and canonical, so their order and
+// whether a small constant goes by double-and-add or by a product do not
+// change a bit). Levels, a = 0: doubling 4 + 4 products, add 6 + 6; a != 0
+// (a applied by double-and-add when small, 3b by products): doubling
+// 6 + 4 + 5, add 6 + 4 + 6.
+
+// The 6 products of Alg 1 / 7's first level, with t3, t4, t5 formed.
+template <int G>
+__device__ __forceinline__ void rcb_add_level1_grp(Grp<G>& gr, const Pt& P,
+                                                   const Pt& Q, Fe (&t)[6],
+                                                   const CurveConst& cc) {
+  grp_mul<6>(gr, t,
+             {P.X, P.Y, P.Z, fe_add(P.X, P.Y, cc), fe_add(P.X, P.Z, cc),
+              fe_add(P.Y, P.Z, cc)},
+             {Q.X, Q.Y, Q.Z, fe_add(Q.X, Q.Y, cc), fe_add(Q.X, Q.Z, cc),
+              fe_add(Q.Y, Q.Z, cc)},
+             cc);
+  t[3] = fe_sub(t[3], fe_add(t[0], t[1], cc), cc);
+  t[4] = fe_sub(t[4], fe_add(t[0], t[2], cc), cc);
+  t[5] = fe_sub(t[5], fe_add(t[1], t[2], cc), cc);
+}
+
+template <bool AZ, int G>
+__device__ __forceinline__ Pt rcb_add_grp(Grp<G>& gr, const Pt& P,
+                                          const Pt& Q, const CurveConst& cc) {
+  Fe t[6];
+  rcb_add_level1_grp(gr, P, Q, t, cc);
+  Fe n[6];
+  Pt R;
+  if (AZ) {
+    Fe X3 = grp_mul_const(gr, t[2], cc.b3_mont, cc.b3_small, cc);
+    Fe Z3 = fe_add(t[1], X3, cc);
+    Fe t1 = fe_sub(t[1], X3, cc);
+    Fe Y3 = grp_mul_const(gr, t[4], cc.b3_mont, cc.b3_small, cc);
+    Fe t03 = times3(t[0], cc);
+    grp_mul<6>(gr, n, {t[5], t[3], Y3, t1, t03, Z3},
+               {Y3, t1, t03, Z3, t[3], t[5]}, cc);
+    R.X = fe_sub(n[1], n[0], cc);
+    R.Y = fe_add(n[3], n[2], cc);
+    R.Z = fe_add(n[5], n[4], cc);
+  } else {
+    Fe k[4];  // a t4, 3b t2, a t2, 3b t4
+    Fe a = fe_from(cc.a_mont), b3 = fe_from(cc.b3_mont);
+    grp_mul<4>(gr, k, {t[4], t[2], t[2], t[4]}, {a, b3, a, b3}, cc);
+    Fe Z3 = fe_add(k[1], k[0], cc);
+    Fe X3 = fe_sub(t[1], Z3, cc);
+    Z3 = fe_add(t[1], Z3, cc);
+    Fe t1 = fe_add(times3(t[0], cc), k[2], cc);
+    Fe t4 = fe_add(k[3], grp_mul_const(gr, fe_sub(t[0], k[2], cc),
+                                       cc.a_mont, cc.a_small, cc),
+                   cc);
+    grp_mul<6>(gr, n, {X3, t1, t[5], t[3], t[3], t[5]},
+               {Z3, t4, t4, X3, t1, Z3}, cc);
+    R.X = fe_sub(n[3], n[2], cc);
+    R.Y = fe_add(n[0], n[1], cc);
+    R.Z = fe_add(n[5], n[4], cc);
+  }
+  return R;
+}
+
+template <bool AZ, int G>
+__device__ __forceinline__ Pt rcb_double_grp(Grp<G>& gr, const Pt& P,
+                                             const CurveConst& cc) {
+  Pt R;
+  if (AZ) {
+    Fe m[4];  // Y^2, Y Z, Z^2, X Y
+    grp_mul<4>(gr, m, {P.Y, P.Y, P.Z, P.X}, {P.Y, P.Z, P.Z, P.Y}, cc);
+    Fe Z3 = fe_add(m[0], m[0], cc);
+    Z3 = fe_add(Z3, Z3, cc);
+    Z3 = fe_add(Z3, Z3, cc);  // 8 Y^2
+    Fe t2 = grp_mul_const(gr, m[2], cc.b3_mont, cc.b3_small, cc);
+    Fe Y3 = fe_add(m[0], t2, cc);
+    Fe t0 = fe_sub(m[0], times3(t2, cc), cc);
+    Fe n[4];
+    grp_mul<4>(gr, n, {t2, m[1], t0, t0}, {Z3, Z3, Y3, m[3]}, cc);
+    R.X = fe_add(n[3], n[3], cc);
+    R.Y = fe_add(n[0], n[2], cc);
+    R.Z = n[1];
+  } else {
+    Fe m[6];  // X^2, Y^2, Z^2, X Y, X Z, Y Z
+    grp_mul<6>(gr, m, {P.X, P.Y, P.Z, P.X, P.X, P.Y},
+               {P.X, P.Y, P.Z, P.Y, P.Z, P.Z}, cc);
+    Fe t3 = fe_add(m[3], m[3], cc);
+    Fe Z3 = fe_add(m[4], m[4], cc);
+    Fe k[4];  // a Z3, 3b Z^2, 3b Z3, a Z^2
+    Fe a = fe_from(cc.a_mont), b3 = fe_from(cc.b3_mont);
+    grp_mul<4>(gr, k, {Z3, m[2], Z3, m[2]}, {a, b3, b3, a}, cc);
+    Fe Y3 = fe_add(k[0], k[1], cc);
+    Fe X3 = fe_sub(m[1], Y3, cc);
+    Y3 = fe_add(m[1], Y3, cc);
+    Fe t3b = fe_add(grp_mul_const(gr, fe_sub(m[0], k[3], cc), cc.a_mont,
+                                  cc.a_small, cc),
+                    k[2], cc);
+    Fe t0 = fe_add(times3(m[0], cc), k[3], cc);
+    Fe yz2 = fe_add(m[5], m[5], cc);
+    Fe n[5];
+    grp_mul<5>(gr, n, {X3, t3, t0, yz2, yz2}, {Y3, X3, t3b, t3b, m[1]}, cc);
+    R.X = fe_sub(n[1], n[3], cc);
+    R.Y = fe_add(n[0], n[2], cc);
+    Fe Z = fe_add(n[4], n[4], cc);
+    R.Z = fe_add(Z, Z, cc);
   }
   return R;
 }

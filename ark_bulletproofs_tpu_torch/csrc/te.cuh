@@ -17,6 +17,7 @@
 // of a scan holds 32 registers.
 #pragma once
 #include "field.cuh"
+#include "group.cuh"
 
 struct Pt4 {
   Fe X, Y, T, Z;
@@ -75,6 +76,33 @@ __device__ __forceinline__ Pt4 te_madd(const Pt4& P, const Fe& qx,
 // 2P as the unified add(P, P) (_k_te_double).
 __device__ __forceinline__ Pt4 te_double(const Pt4& P, const CurveConst& cc) {
   return te_add(P, P, cc);
+}
+
+// te_add dealt out over a thread group (group.cuh), for the window
+// Horner: its products in three levels of 5, 2 and 4 (A, B, T1 T2, Z1 Z2,
+// (X1 + Y1)(X2 + Y2); C = T1 T2 d and a A; the four outputs), the adds on
+// every thread. The values are te_add's; a doubling is this add of P and P.
+template <int G>
+__device__ __forceinline__ Pt4 te_add_grp(Grp<G>& gr, const Pt4& P,
+                                          const Pt4& Q, const CurveConst& cc) {
+  Fe m[5];
+  grp_mul<5>(gr, m, {P.X, P.Y, P.T, P.Z, fe_add(P.X, P.Y, cc)},
+             {Q.X, Q.Y, Q.T, Q.Z, fe_add(Q.X, Q.Y, cc)}, cc);
+  Fe k[2];
+  grp_mul<2>(gr, k, {m[2], m[0]}, {fe_from(cc.d_mont), fe_from(cc.a_mont)},
+             cc);
+  Fe E = fe_sub(m[4], fe_add(m[0], m[1], cc), cc);
+  Fe F = fe_sub(m[3], k[0], cc);
+  Fe Gs = fe_add(m[3], k[0], cc);
+  Fe H = fe_sub(m[1], k[1], cc);
+  Fe n[4];
+  grp_mul<4>(gr, n, {E, Gs, E, F}, {F, H, H, Gs}, cc);
+  Pt4 R;
+  R.X = n[0];
+  R.Y = n[1];
+  R.T = n[2];
+  R.Z = n[3];
+  return R;
 }
 
 // Points in the boundary layout: coordinate c of a (4, rows, 16, L) array

@@ -13,7 +13,8 @@ Replace the TPU mega-kernels of ark_bulletproofs_tpu/ops/kernels2.py:
       window axis in one launch, the window Horner of both MSM engines
       (v2's stage G on RCB or extended points; v1's on extended points),
       and `jac_horner_windows` the same on the Jacobian points of v1 on a
-      short-Weierstrass curve.
+      short-Weierstrass curve; a group of threads shares each scalar
+      set's chain (csrc/group.cuh).
 
 Layout: limb-major int32, (rows, 16, lanes) per coordinate, coordinates
 stacked first: affine input (2, R, 16, L) holds x then y, a row with

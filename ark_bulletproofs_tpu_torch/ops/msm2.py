@@ -9,10 +9,10 @@ bases:
      reaches 32 bits at n = 2^20, c = 12, so 32-bit keys would overflow):
      the sorted digits and the permutation from a single torch.sort;
   C. the sorted points gathered into the (R, 16, L) layout, L = B W C
-     lanes, and suffix-summed per column by `suffix_madd_scan` (W n mixed
-     adds, the Pippenger work floor);
+     lanes of R = n / C rows, and suffix-summed per column by
+     `suffix_madd_scan` (W n mixed adds, the Pippenger work floor);
   D. column carries, two levels: `suffix_jac_scan` over the c2 columns of
-     each chunk, then over the c1 = 16 chunk totals, joined by one add;
+     each chunk, then over the c1 chunk totals, joined by one add;
   E. the window sum sum_j j B_j telescopes to sum_{j >= 1} T[pos_j], T the
      global suffix sum and pos_j = searchsorted(digits, j): a gather and
      one add per bucket;
@@ -29,6 +29,20 @@ C <= 64 carry layout are gone (C >= 256 here, so only the two-level carry
 and the gather paths exist), and the small Hillis-Steele chunk-carry
 suffix is a second `suffix_jac_scan`. PyTorch runs eagerly, so there is
 no fused-vs-staged split.
+
+The column plan (`plan_columns`) is this card's, not the TPU's. The W n
+mixed adds of stage C do not depend on C; its serial depth R = n / C and
+stage D's depth c1 + c2 (c1 c2 = C) do, and so does how full the card is:
+the scan runs one thread a lane, each a chain of R dependent mixed adds,
+and the card holds its SMs x SCAN_MIN_BLOCKS x SCAN_THREADS of them at
+once (`fill_lanes`). So C starts at min(C_COLS, n) (the JAX package's
+plan, which the port keeps for n <= C_COLS) and doubles while the lanes
+leave the card under-filled and the doubled plan's scan stays at least
+DEPTH_RATIO times deeper than stage D. At n = 2^20, B = 1 that gives
+C = 4096, R = 256, L = 90,112 lanes and c1 = c2 = 64; the JAX plan was
+C = 1024, R = 1024, L = 22,528 on about one block an SM. On the H100 the
+n = 2^20 MSM took 40.5 / 41.3 / 43.9 ms (secq256k1) at C = 4096 / 2048 /
+1024 (PERF.md, PR 7).
 
 Points are (NC, 16, lanes) int32 throughout: RCB projective, NC = 3, on
 a short-Weierstrass curve; HWCD extended, NC = 4, on a twisted-Edwards
@@ -47,8 +61,18 @@ from .limbs import N_LIMBS
 
 NL = N_LIMBS
 SCALAR_BITS = 256
-C_COLS = 1024  # column count cap: L = B * W * C lanes for the scan
-C1 = 16  # chunks of the two-level column-carry suffix
+# The column plan (plan_columns): C starts at min(C_COLS, n), the JAX
+# package's cap, and doubles while the B * W * C lanes are fewer than the
+# scan threads the card keeps resident at once (fill_lanes), and the
+# doubled plan keeps R >= DEPTH_RATIO * (c1 + c2). SCAN_THREADS and
+# SCAN_MIN_BLOCKS are csrc/msm_kernels.cu's launch bounds of the scan
+# (tests/test_torch_msm_plan.py ties the two); PLAN_SMS, the H100's SM
+# count, stands in for the card's when the plan is made for CPU tensors.
+C_COLS = 1024
+DEPTH_RATIO = 2
+SCAN_THREADS = 128
+SCAN_MIN_BLOCKS = 3
+PLAN_SMS = 132
 V2_MIN_N = 256
 
 
@@ -71,13 +95,46 @@ def window_bits(n: int) -> int:
     return min(c, 32 - lg)
 
 
+def column_split(C: int) -> tuple[int, int]:
+    """(c1, c2) with c1 * c2 = C, c1 >= c2, both powers of two: stage D
+    scans c2 rows over B W c1 lanes, then c1 rows over B W lanes, so the
+    near-square split keeps its depth c1 + c2 least."""
+    c1 = 1 << ((_log2(C) + 1) // 2)
+    return c1, C // c1
+
+
+def fill_lanes(device) -> int:
+    """The scan threads `device` keeps resident at once: its SMs (PLAN_SMS
+    off the card) x SCAN_MIN_BLOCKS x SCAN_THREADS."""
+    device = torch.device(device)
+    sms = PLAN_SMS
+    if device.type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * SCAN_MIN_BLOCKS * SCAN_THREADS
+
+
+def plan_columns(n: int, c: int, B: int, fill: int) -> int:
+    """Stage C's column count C for B sets of n scalars in c-bit windows:
+    min(C_COLS, n), doubled while the scan's B W C lanes under-fill the
+    card (fewer than `fill`) and the doubled plan's R = n / C stays at
+    least DEPTH_RATIO (c1 + c2)."""
+    W = -(-SCALAR_BITS // c)
+    C = min(C_COLS, n)
+    while 2 * C <= n and B * W * C < fill:
+        c1, c2 = column_split(2 * C)
+        if n // (2 * C) < DEPTH_RATIO * (c1 + c2):
+            break
+        C *= 2
+    return C
+
+
 class _Cfg:
-    """Shape plan for one (n, c, B) instantiation."""
+    """Shape plan for one (n, c, B) instantiation on `device`."""
 
     __slots__ = ("n", "c", "B", "lg", "W", "BW", "C", "c1", "c2", "R",
                  "L", "S")
 
-    def __init__(self, n: int, c: int, B: int):
+    def __init__(self, n: int, c: int, B: int, device="cpu"):
         lg = _log2(n)
         if n != 1 << lg or n < V2_MIN_N:
             raise ValueError(f"msm2: n={n} must be a power of two "
@@ -87,8 +144,8 @@ class _Cfg:
         self.n, self.c, self.B, self.lg = n, c, B, lg
         self.W = -(-SCALAR_BITS // c)
         self.BW = B * self.W
-        self.C = min(C_COLS, n)
-        self.c1, self.c2 = C1, self.C // C1
+        self.C = plan_columns(n, c, B, fill_lanes(device))
+        self.c1, self.c2 = column_split(self.C)
         self.R = n // self.C
         self.L = self.BW * self.C
         self.S = 1 << c
@@ -205,7 +262,7 @@ def msm2_impl(spec, c: int, X, Y, inf, scal,
     one device. Without base_map m = n and scalar j multiplies point j;
     with base_map (B, n) it multiplies table row base_map[b, j]. Returns
     the B sums as an (NC, 16, B) point tensor."""
-    g = _Cfg(scal.shape[-1], c, scal.shape[0])
+    g = _Cfg(scal.shape[-1], c, scal.shape[0], scal.device)
     order, sd = _stage_sort(g, scal)
     xy = _stage_gather(g, X, Y, inf, order, base_map)
     del order

@@ -13,8 +13,10 @@ Phases, each printed with its seconds:
      bit-equal limbs: the MSM kernels on secq256k1 and zorro (RCB) and on
      curve25519 (twisted-Edwards: the TE instantiations of the three
      scans, te_double_k_add and te_double) with identity, doubling and
-     P + (-P) lanes; the Jacobian jac_double_k_add (k = 0, 1, 4) and
-     jac_double on secq256k1 and zorro with doubling, P + (-P), O + P and
+     P + (-P) lanes, suffix_madd_scan also at the n = 2^20 plan's shape
+     (256 rows x 90,112 lanes) and at the 2048-column plan's (512 x
+     45,056), timed at both and at the JAX plan's (1024 x 22,528); the
+     Jacobian jac_double_k_add (k = 0, 1, 4) and jac_double on secq256k1 and zorro with doubling, P + (-P), O + P and
      P + O lanes at the batch tree's 65,536 lanes and the Q table's one;
      fs_round at P = 1 and 128 transcripts on the three curves; the mixed
      adds of the v1 Pippenger, jac_madd (secq256k1, zorro) and te_madd
@@ -37,12 +39,14 @@ Phases, each printed with its seconds:
      jac_double_k_add at the P = 128 batch tree's first 32,768 lanes,
      jac_double at one lane, fs_round at P = 1 and 128, jac_madd and
      te_madd at the create_batch row scan's 32,768 lanes, horner_windows
-     at the stage-G shape and against its loop, jac_horner_windows at the
-     v1 shape, rcb_double at 65,536 lanes, row_gather at both shapes
+     at the stage-G shape and against its loop (also in microseconds a
+     group operation of the chain), jac_horner_windows at the v1 shape, rcb_double at 65,536 lanes, row_gather at both shapes
      beside index_select), the kernel alone by replaying a CUDA graph of
      its launches, beside its plain version and its bound;
   3. msm: n = 2^20 secq256k1 through the port's `msm`, equal to the native
-     host Pippenger, then timed (median of 5) with its peak memory;
+     host Pippenger, then timed (median of 5) with its peak memory, and
+     its stage split (sort, gather, C, D, E, F, G) by CUDA events, the
+     median of 3 staged calls, whose sum equals the host Pippenger too;
   4. shuffle: a k = 1024 secq256k1 shuffle proved on the card through the
      device branches (tabled phase MSMs, vector phase, the IPA on the
      on-device Fiat-Shamir route), with its protocol phases on the host
@@ -120,7 +124,12 @@ N_DISTINCT = 1 << 13
 SHUFFLE_K = 1024
 BATCH_CACHE = os.path.join(ROOT, "benches",
                            ".cache_batch_secq256k1_k8_n1024.pkl")
-L_MAIN = 22 * 1024  # scan lanes at n = 2^20: W * C = 22 * 1024
+L_MAIN = 22 * 1024  # scan lanes at n = 2^20 under the JAX plan (C = 1024)
+# The n = 2^20 MSM's scan under the port's plan (ops/msm2.py::plan_columns:
+# C = 4096): 256 rows of W * C = 22 * 4096 lanes; and under the 2048-column
+# plan it was measured against (512 x 22 * 2048).
+R_PLAN, L_PLAN = 256, 22 * 4096
+R_MID, L_MID = 512, 22 * 2048
 MM_LANES = 6 * 2048  # the k = 1024 IPA fold's product launch
 MSM_CU = "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu"
 FS_CU = "ark_bulletproofs_tpu_torch/csrc/fs_kernels.cu"
@@ -453,21 +462,36 @@ class KernelCheck:
         te = model(spec) == "te"
         nc = 4 if te else 3
         dka = kk.te_double_k_add if te else kk.rcb_double_k_add
-        for R in (8, 1024):
+        for R, L in ((R_PLAN, L_PLAN), (R_MID, L_MID), (8, L_MAIN),
+                     (1024, L_MAIN)):
             t0 = time.perf_counter()
-            xy = self.affine_rows(curve, spec, R, L_MAIN, seed + R)
+            xy = self.affine_rows(curve, spec, R, L, seed + R)
             locs = k2.suffix_madd_scan(spec, xy)
             plain_ms = host_ms(lambda: self.compare(
                 entry("suffix_madd_scan", spec), locs,
                 k2.suffix_madd_scan_plain(spec, xy)))
-            if timed and R == 1024:
-                self.times[entry("suffix_madd_scan", spec)] = (
-                    graph_ms(lambda: k2.suffix_madd_scan(spec, xy), 3),
-                    plain_ms,
-                    *self.bound((2 + nc) * R * 16 * L_MAIN * 4,
-                                R * L_MAIN * FE_MULS[model(spec)]["madd"]
-                                * MULS_PER_FE_MUL))
+            if timed and R > 8:
+                ms = graph_ms(lambda: k2.suffix_madd_scan(spec, xy), 3)
+                bound = self.bound((2 + nc) * R * 16 * L * 4,
+                                   R * L * FE_MULS[model(spec)]["madd"]
+                                   * MULS_PER_FE_MUL)
+                plan = {R_PLAN: "the port's", R_MID: "the 2048-column",
+                        1024: "the JAX"}[R]
+                print(f"   {curve.name} suffix_madd_scan at {plan} plan "
+                      f"({R} rows x {L} lanes): kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.1f} ms, bound {bound[0]:.5g} ms "
+                      f"({bound[1]})", flush=True)
+                if R == R_PLAN:  # the main path's shape
+                    self.times[entry("suffix_madd_scan", spec)] = (
+                        ms, plain_ms, *bound)
             del xy
+            if R in (R_PLAN, R_MID):  # the others are held at L_MAIN
+                del locs
+                torch.cuda.empty_cache()
+                print(f"   {curve.name} suffix_madd_scan R={R} L={L}: "
+                      f"bit-equal ({time.perf_counter() - t0:.1f} s)",
+                      flush=True)
+                continue
             T = self.special_rows(spec, locs)
             self.compare(entry("suffix_jac_scan", spec),
                          k2.suffix_jac_scan(spec, T),
@@ -498,19 +522,22 @@ class KernelCheck:
 
     def time_main_shapes(self, curve, spec, seed: int) -> None:
         """The other kernels at their n = 2^20 main-path shapes: stage D
-        level A (64 rows x 22 * 16 lanes), stage F pass 1 (64 rows x 22 *
-        64 lanes), stage E bucket add (22 * 4096 lanes); te_double at the
-        commit table's 2 lanes (ops/prove.py::_commit_table)."""
+        level A (c2 = 64 rows x 22 * c1 = 1408 lanes under the port's
+        plan), stage F pass 1 (64 rows x 22 * 64 lanes), stage E bucket add
+        (22 * 4096 lanes); te_double at the commit table's 2 lanes
+        (ops/prove.py::_commit_table)."""
         from ark_bulletproofs_tpu_torch.ops import kernels as kk
         from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+        from ark_bulletproofs_tpu_torch.ops import msm2
 
         te = model(spec) == "te"
         nc = 4 if te else 3
         fe = FE_MULS[model(spec)]
         add = fe["add"] * MULS_PER_FE_MUL
+        g = msm2._Cfg(N_MSM, msm2.window_bits(N_MSM), 1, self.dev)
         T = k2.suffix_madd_scan(spec, self.affine_rows(curve, spec, 64,
                                                        22 * 64, seed))
-        Ta = T[..., :22 * 16].contiguous()
+        Ta = T[:, :g.c2, :, :g.BW * g.c1].contiguous()
         R, La = Ta.shape[1], Ta.shape[-1]
         self.times[entry("suffix_jac_scan", spec)] = (
             graph_ms(lambda: k2.suffix_jac_scan(spec, Ta), 20),
@@ -855,9 +882,10 @@ class KernelCheck:
                                    * MULS_PER_FE_MUL)
                 print(f"   {curve.name} {name} {shape} (B = {B}, "
                       f"{Wu} windows, c = {c}, from the {start}): kernel "
-                      f"{ms:.4f} ms, the {Wu}-launch double-k-add loop "
-                      f"{loop_ms:.4f} ms, bound {bound[0]:.5g} ms "
-                      f"({bound[1]})", flush=True)
+                      f"{ms:.4f} ms ({ms * 1e3 / (Wu * (c + 1)):.3f} us a "
+                      f"group operation of the chain), the {Wu}-launch "
+                      f"double-k-add loop {loop_ms:.4f} ms, bound "
+                      f"{bound[0]:.5g} ms ({bound[1]})", flush=True)
                 if (shape == "stage G") != jac:  # each one's main path
                     self.times[name] = (
                         ms, host_ms(lambda: plain(spec, pw, c, acc0)),
@@ -958,14 +986,17 @@ def path_name(what: str, curve) -> str:
 def phase_msm(curve, launches: Launches) -> None:
     """n = 2^20 MSM through `msm`, equal to the host Pippenger (native
     C++, or for curve25519 pure Python), then the device MSM timed (median
-    of 5) with its peak memory."""
+    of 5) with its peak memory, and its stage split by CUDA events (equal
+    to the host Pippenger too)."""
     import numpy as np
     import torch
 
     import ark_bulletproofs_tpu_torch as port
     from ark_bulletproofs_tpu_torch import engine
     from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
-    from ark_bulletproofs_tpu_torch.ops.curve import affine_to_device, spec_for
+    from ark_bulletproofs_tpu_torch.ops.curve import (affine_to_device,
+                                                      point_batch_to_host,
+                                                      spec_for)
     from ark_bulletproofs_tpu_torch.ops.msm import scalars_to_device
     from ark_bulletproofs_tpu_torch.parallel.msm import msm_device_ragged
 
@@ -1010,6 +1041,61 @@ def phase_msm(curve, launches: Launches) -> None:
           f"{[round(t * 1e3, 1) for t in times]} -> {N_MSM / med:.0f} "
           f"points/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    split, out, g = msm_stage_split(spec, X, Y, inf, scal)
+    if point_batch_to_host(curve, out)[0] != want:
+        raise AssertionError("the staged n=2^20 MSM differs from the host")
+    total = sum(split.values())
+    print(f"   stage split {curve.name} (CUDA events, median of 3; plan "
+          f"C = {g.C}, R = {g.R}, c1 = {g.c1}, c2 = {g.c2}, L = {g.L}): "
+          + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                      for k, v in split.items())
+          + f"; sum {total:.3f} ms", flush=True)
+
+
+MSM_STAGES = ("sort", "gather", "C scan", "D carries", "E buckets",
+              "F rowsum", "G horner")
+
+
+def msm_stage_split(spec, X, Y, inf, scal, reps: int = 3):
+    """Milliseconds of each stage of one v2 MSM (ops/msm2.py::msm2_impl's
+    stages in its order: A and B's digits and sort, the gather, the scan,
+    the carries, the bucket terms, the row sums, the window Horner) by CUDA
+    events between them, the median of `reps` calls; also the sums of the
+    last call (NC, 16, B) and its plan. scal: (B, 16, n) on the card."""
+    import torch
+
+    from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+    from ark_bulletproofs_tpu_torch.ops import msm2
+
+    n, B = scal.shape[-1], scal.shape[0]
+    g = msm2._Cfg(n, msm2.window_bits(n), B, scal.device)
+    runs = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in MSM_STAGES]
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        order, sd = msm2._stage_sort(g, scal)
+        ev[1].record()
+        xy = msm2._stage_gather(g, X, Y, inf, order)
+        ev[2].record()
+        del order
+        locs = k2.suffix_madd_scan(spec, xy)
+        ev[3].record()
+        del xy
+        excl = msm2._stage_carries(g, spec, locs)
+        ev[4].record()
+        U = msm2._stage_buckets(g, spec, sd, excl, locs)
+        ev[5].record()
+        del locs, excl
+        wsum = msm2._stage_rowsum(g, spec, U)
+        ev[6].record()
+        out = msm2._stage_horner(g, spec, wsum)
+        ev[7].record()
+        torch.cuda.synchronize()
+        runs.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    split = {name: statistics.median(r[i] for r in runs)
+             for i, name in enumerate(MSM_STAGES)}
+    return split, out, g
 
 
 def tamper_t_x(curve, proof):

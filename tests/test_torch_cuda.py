@@ -532,3 +532,141 @@ def test_row_gather_matches_index_select(dtype, cuda_dev):
     got = gather.row_gather(tbl, idx)
     assert got.is_cuda and torch.equal(got, tbl.index_select(0, idx))
     assert gather.row_gather.launches == before + 1
+
+
+FIELDS = [(c, f) for c in CURVES for f in ("fq", "fr")]
+
+
+@pytest.mark.parametrize("curve,which", FIELDS,
+                         ids=[f"{c.name}-{f}" for c, f in FIELDS])
+def test_mont_mul_both_fields_top_carry(curve, which, cuda_dev):
+    """mont_mul (csrc/field.cuh's carry-chain product) on the base and the
+    scalar field of each curve, 2^16 pairs: 0, 1, p - 1, p - 2, R mod p,
+    operands in [2^255, p) where p > 2^255 (secq256k1 and zorro, whose
+    CIOS top carry must survive), random ones; and left operands up to
+    2^256 - 1, as the kernel's contract allows. Bit-equal to the plain
+    version and to Python's integers."""
+    fs = df.spec_for(getattr(curve, which))
+    p = fs.p
+    rng = random.Random(len(curve.name) + len(which))
+    top = [0, 1, p - 1, p - 2, (1 << 256) % p]
+    if p > 1 << 255:
+        top += [1 << 255] + [rng.randrange(1 << 255, p) for _ in range(4096)]
+    n = 1 << 16
+    xs = top + [rng.randrange(p) for _ in range(n - len(top))]
+    ys = top[::-1] + [rng.randrange(p) for _ in range(n - len(top))]
+    ys[1::7] = xs[1::7]  # squares
+    a, b = ints_to_limbs(xs, cuda_dev), ints_to_limbs(ys, cuda_dev)
+    got = df.mont_mul(fs, a, b)
+    assert torch.equal(got.long(), df.mont_mul_plain(fs, a, b))
+    Rinv = pow(1 << 256, -1, p)
+    assert limbs_to_ints(got) == [x * y * Rinv % p for x, y in zip(xs, ys)]
+    wide = [(1 << 256) - 1 - k for k in range(64)]
+    wide += [rng.randrange(1 << 256) for _ in range(960)]
+    w = ints_to_limbs(wide, cuda_dev)
+    got = df.mont_mul(fs, w, b[:, :1024].contiguous())
+    assert limbs_to_ints(got) == [x * y * Rinv % p
+                                  for x, y in zip(wide, ys[:1024])]
+
+
+MODELS = [(curves.secq256k1, False), (curves.zorro, False),
+          (curves.curve25519, False), (curves.secq256k1, True),
+          (curves.zorro, True)]
+
+
+@pytest.mark.parametrize("B", [1, 2, 31, 33, 256])
+@pytest.mark.parametrize("curve,jac", MODELS,
+                         ids=["secq256k1", "zorro", "curve25519",
+                              "secq256k1-jac", "zorro-jac"])
+def test_horner_group_at_odd_set_counts(curve, jac, B, cuda_dev):
+    """The window Horner (a group of 4 or 8 threads a scalar set) at set
+    counts that leave a block part-filled or span blocks, over 8 windows
+    with identity parts, from the identity and from the top window:
+    bit-equal to the plain version and to the double-k-add loop."""
+    spec = spec_for(curve)
+    if jac:
+        T = _model_points(curve, spec, 8, cuda_dev, seed=30 + B)
+        horner, dka = k2.jac_horner_windows, kk.jac_double_k_add
+        plain = k2.jac_horner_windows_plain
+    else:
+        T = k2.suffix_madd_scan(spec, _affine_rows(curve, spec, 8, cuda_dev,
+                                                   seed=30 + B))
+        horner, dka = k2.horner_windows, kk.double_k_add
+        plain = k2.horner_windows_plain
+    nc, W = T.shape[0], T.shape[1]
+    parts = T[..., :B].permute(0, 2, 3, 1).contiguous()  # (NC, 16, B, W)
+    zero = (torch.zeros(nc, 16, B, dtype=torch.int32, device=cuda_dev)
+            if jac else proj.point_zero(spec, B, cuda_dev).to(torch.int32))
+    half = max(B // 2, 1)
+    parts[..., :half, 2] = zero[..., :half]
+    parts[..., B // 4:half, W - 1] = zero[..., B // 4:half]
+    for c in (4, 12):
+        for pw, acc0 in ((parts, zero),
+                         (parts[..., :W - 1], parts[..., W - 1].contiguous())):
+            got = horner(spec, pw, c, acc0)
+            assert torch.equal(got, plain(spec, pw, c, acc0)), c
+            acc = acc0
+            for w in range(pw.shape[-1] - 1, -1, -1):
+                acc = dka(spec, acc, pw[..., w].contiguous(), c)
+            assert torch.equal(got, acc), c
+
+
+def _scan_rows(curve, spec, R, lanes, dev, seed):
+    """(2, R, 16, lanes) affine rows from 32 random points and their
+    negatives: the first eighth of the lanes double (row r = row r + 1),
+    the next eighth cancel, a tenth of the rest are identity rows."""
+    rng = seeded_rng(seed)
+    X, Y, _ = affine_to_device(curve, [curve.rand(rng) for _ in range(32)],
+                               dev)
+    pool = torch.stack([X, Y])
+    pool = torch.cat([pool, _neg(spec, pool)], dim=2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, 64, (R, lanes), generator=g, device=dev)
+    e = lanes // 8
+    if R > 1:
+        idx[0::2, :e] = idx[1::2, :e]
+        idx[0::2, e:2 * e] = (idx[1::2, e:2 * e] + 32) % 64
+    xy = pool[:, :, idx].permute(0, 2, 1, 3).contiguous()
+    ident = torch.rand((R, lanes), generator=g, device=dev) < 0.1
+    ident[:, :2 * e] = False
+    xy[1].masked_fill_(ident.unsqueeze(1), 0)
+    return xy
+
+
+@pytest.mark.parametrize("R,lanes", [(256, 22 * 4096), (512, 22 * 2048),
+                                     (3, 1077)],
+                         ids=["n2^20-plan", "n2^20-C2048", "ragged-block"])
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_suffix_madd_scan_at_the_plan_shapes(curve, R, lanes, cuda_dev):
+    """suffix_madd_scan at the n = 2^20 MSM's plan (256 rows x 90,112
+    lanes: C = 4096, B = 1), at the 2048-column plan it was measured
+    against (512 x 45,056; two sets' plan), and at a lane count that is
+    no multiple of the kernel's 128-thread block: bit-equal to its plain
+    version."""
+    spec = spec_for(curve)
+    xy = _scan_rows(curve, spec, R, lanes, cuda_dev, seed=R)
+    before = k2.suffix_madd_scan.launches
+    got = k2.suffix_madd_scan(spec, xy)
+    assert k2.suffix_madd_scan.launches == before + 1
+    assert torch.equal(got, k2.suffix_madd_scan_plain(spec, xy))
+
+
+@pytest.mark.parametrize("curve", [curves.secq256k1, curves.curve25519],
+                         ids=lambda c: c.name)
+def test_msm_2_20_matches_host(curve, cuda_dev):
+    """The n = 2^20 MSM under the card's plan (C = 4096, R = 256) equals
+    the host Pippenger in affine: 2^13 random points tiled 128 times, so
+    the host sums 2^13 terms with each point's scalars added."""
+    from ark_bulletproofs_tpu_torch.ops import msm2
+
+    n, distinct = 1 << 20, 1 << 13
+    assert msm2._Cfg(n, msm2.window_bits(n), 1, cuda_dev).C == 4096
+    rng = seeded_rng(20)
+    pts = [curve.rand(rng) for _ in range(distinct)]
+    prng = random.Random(20)
+    r = curve.fr.p
+    ks = [prng.randrange(r) for _ in range(n)]
+    ks[5], ks[6] = 0, r - 1
+    ksum = [sum(ks[j::distinct]) % r for j in range(distinct)]
+    assert msm(curve, pts * (n // distinct), ks,
+               device=cuda_dev) == curve.msm(pts, ksum)

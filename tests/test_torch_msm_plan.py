@@ -1,0 +1,187 @@
+"""The v2 MSM's column plan (ops/msm2.py::plan_columns, column_split).
+
+The port chooses stage C's column count C for the card: min(C_COLS, n),
+raised while B W C lanes under-fill the card (fill_lanes: its SMs times
+the scan kernel's launch bounds, which these tests tie to
+csrc/msm_kernels.cu) and the scan's depth R = n / C stays DEPTH_RATIO
+times stage D's c1 + c2. These tests state the plan at the smoke's shapes, hold it to the JAX package's plan where the
+port keeps that (n <= C_COLS), force other plans at small n through the
+plan's constants and hold the MSM to the host Pippenger under them (equal
+in affine: other plans add in another order, so projective coordinates
+differ), and hold the two-level column carries under other splits to a
+direct exclusive suffix over the columns. On the CPU the kernels' plain
+versions run.
+"""
+
+import os
+import random
+import re
+
+import pytest
+import torch
+
+from ark_bulletproofs_tpu.ops import msm2 as jm
+from ark_bulletproofs_tpu_torch import curves, engine, msm, seeded_rng
+from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+from ark_bulletproofs_tpu_torch.ops import msm2
+from ark_bulletproofs_tpu_torch.ops.curve import (affine_to_device,
+                                                  point_batch_to_host,
+                                                  spec_for)
+
+torch.set_num_threads(1)
+
+CURVES = [curves.secq256k1, curves.zorro, curves.curve25519]
+MSM_CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "ark_bulletproofs_tpu_torch", "csrc", "msm_kernels.cu")
+FILL = msm2.fill_lanes("cpu")
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setattr(engine.config, "device", "cpu")
+
+
+# (n, B) -> (C, R, c1, c2) at the default constants: the smoke's n = 2^20
+# MSM (B = 1) doubles from 22,528 and 45,056 lanes, both fewer than the
+# 50,688 the card keeps resident, to 90,112 lanes of 256 rows; two sets
+# stop at 2048 columns, 128 sets keep the JAX plan; n = 2^16 and 8192
+# would need R below 2 (c1 + c2) to grow C; n = 256 keeps C = n.
+PLANS = {
+    (1 << 20, 1): (4096, 256, 64, 64),
+    (1 << 20, 2): (2048, 512, 64, 32),
+    (1 << 20, 128): (1024, 1024, 32, 32),
+    (1 << 16, 1): (1024, 64, 32, 32),
+    (1 << 16, 2): (1024, 64, 32, 32),
+    (1 << 16, 128): (1024, 64, 32, 32),
+    (8192, 1): (1024, 8, 32, 32),
+    (8192, 2): (1024, 8, 32, 32),
+    (8192, 128): (1024, 8, 32, 32),
+    (256, 1): (256, 1, 16, 16),
+    (256, 2): (256, 1, 16, 16),
+    (256, 128): (256, 1, 16, 16),
+}
+
+
+@pytest.mark.parametrize("n,B", sorted(PLANS), ids=lambda v: str(v))
+def test_plan_at_the_smoke_shapes(n, B):
+    g = msm2._Cfg(n, msm2.window_bits(n), B)
+    assert (g.C, g.R, g.c1, g.c2) == PLANS[n, B]
+    assert g.C * g.R == n and g.c1 * g.c2 == g.C and g.c1 >= g.c2
+    assert g.L == B * g.W * g.C
+    if g.C > min(msm2.C_COLS, n):  # raised: the card was under-filled
+        assert g.L // 2 < FILL
+        assert g.R >= msm2.DEPTH_RATIO * (g.c1 + g.c2)
+    if 2 * g.C <= n:  # not raised further: card full or too shallow
+        c1, c2 = msm2.column_split(2 * g.C)
+        assert (g.L >= FILL
+                or g.R // 2 < msm2.DEPTH_RATIO * (c1 + c2))
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024])
+@pytest.mark.parametrize("B", [1, 2, 128])
+def test_plan_keeps_the_jax_columns_up_to_c_cols(n, B):
+    c = msm2.window_bits(n)
+    g, jg = msm2._Cfg(n, c, B), jm._Cfg(n, c, B)
+    assert g.C == min(1024, n)
+    assert (g.W, g.BW, g.C, g.R, g.L, g.S) == (jg.W, jg.BW, jg.C, jg.R,
+                                               jg.L, jg.S)
+
+
+def test_fill_rule_raises_columns_only_while_deep_enough(monkeypatch):
+    """C doubles from min(C_COLS, n) while the lanes under-fill the card
+    and stops at the depth limit, whichever comes first."""
+    monkeypatch.setattr(msm2, "C_COLS", 256)
+    monkeypatch.setattr(msm2, "DEPTH_RATIO", 0)
+    assert msm2.plan_columns(4096, 8, 1, 1 << 14) == 512  # 32 x 512 fill
+    assert msm2.plan_columns(4096, 8, 1, 1 << 30) == 4096  # C = n: one row
+    monkeypatch.setattr(msm2, "DEPTH_RATIO", 1)
+    assert msm2.plan_columns(4096, 8, 1, 1 << 30) == 256  # R 8 < 48
+    assert msm2.column_split(4096) == (64, 64)
+    assert msm2.column_split(2048) == (64, 32)
+    assert msm2.column_split(256) == (16, 16)
+
+
+def test_fill_lanes_follow_the_scan_launch_bounds():
+    """The plan's SCAN_THREADS and SCAN_MIN_BLOCKS are the scan kernel's
+    block size and __launch_bounds__ minimum in csrc/msm_kernels.cu, and
+    off the card the plan assumes the H100's 132 SMs."""
+    with open(MSM_CU) as fh:
+        src = fh.read()
+    defs = dict(re.findall(r"^#define (SCAN_\w+) (\d+)$", src, re.M))
+    assert defs == {"SCAN_THREADS": str(msm2.SCAN_THREADS),
+                    "SCAN_MIN_BLOCKS": str(msm2.SCAN_MIN_BLOCKS)}
+    assert re.search(r"__launch_bounds__\(SCAN_THREADS, SCAN_MIN_BLOCKS\)"
+                     r"\s+suffix_madd_scan_kernel\(", src)
+    assert FILL == 132 * 3 * 128 == 50_688
+
+
+def _case(curve, n, seed):
+    """n bases from 12 random points and their negatives (repeats give
+    doublings and cancellations), identity bases, and the scalars 0, 1 and
+    r - 1."""
+    rng = seeded_rng(seed)
+    pool = [curve.rand(rng) for _ in range(12)]
+    pool += [curve.neg(P) for P in pool]
+    prng = random.Random(seed)
+    bases = [pool[prng.randrange(24)] for _ in range(n)]
+    bases[1] = bases[9] = curve.zero()
+    ks = [prng.randrange(curve.fr.p) for _ in range(n)]
+    ks[2], ks[3], ks[4] = 0, 1, curve.fr.p - 1
+    ks[9] = curve.fr.p - 1  # times the identity
+    return bases, ks
+
+
+# n = 1024 (c = 8, W = 32) under forced plans: the JAX columns cut to 256
+# (R = 4, c1 = c2 = 16), and 256 raised by the fill rule to 512 (R = 2,
+# c1 = 32 != 16: 32 x 256 lanes under-fill 2^14, 32 x 512 do not).
+FORCED = {
+    "C256": ({"C_COLS": 256}, (256, 4, 16, 16)),
+    "raised": ({"C_COLS": 256, "DEPTH_RATIO": 0,
+                "fill_lanes": lambda device: 1 << 14}, (512, 2, 32, 16)),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(FORCED))
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_msm_under_forced_plans_matches_host(curve, plan, monkeypatch):
+    consts, want = FORCED[plan]
+    for name, value in consts.items():
+        monkeypatch.setattr(msm2, name, value)
+    n = 1024
+    g = msm2._Cfg(n, msm2.window_bits(n), 1)
+    assert (g.C, g.R, g.c1, g.c2) == want
+    bases, ks = _case(curve, n, 40 + len(plan))
+    assert msm(curve, bases, ks, device="cpu") == curve.msm(bases, ks)
+
+
+def _random_points(curve, spec, count, seed):
+    """(NC, 16, count) device-coordinate points (Z = 1; a sixth of them the
+    identity) drawn from 64 random affine points."""
+    rng = seeded_rng(seed)
+    pool = [curve.rand(rng) for _ in range(64)]
+    prng = random.Random(seed)
+    X, Y, inf = affine_to_device(
+        curve, [pool[prng.randrange(64)] for _ in range(count)], "cpu")
+    inf = inf | (torch.arange(count) % 6 == 5)
+    P = k2.suffix_madd_scan_plain(
+        spec, torch.stack([X, torch.where(inf, 0, Y)]).unsqueeze(1))
+    return P[:, 0]
+
+
+@pytest.mark.parametrize("c1", [4, 8, 64])
+def test_stage_carries_under_other_splits(c1):
+    """The two-level exclusive column suffix (level A over c2 columns, level
+    B over the c1 chunk totals, one add) equals suffix_jac_scan_plain run
+    once over all C columns, for splits other than column_split's."""
+    curve = curves.secq256k1
+    spec = spec_for(curve)
+    g = msm2._Cfg(256, 16, 1)  # C = 256, W = 16
+    g.c1, g.c2 = c1, g.C // c1
+    tot = _random_points(curve, spec, g.L, 70 + c1)  # (NC, 16, BW * C)
+    locs = tot.unsqueeze(1)  # (NC, R = 1, 16, L): row 0 the column totals
+    got = msm2._stage_carries(g, spec, locs)
+    cols = tot.reshape(3, 16, g.BW, g.C).permute(0, 3, 1, 2).contiguous()
+    excl, _ = k2.suffix_jac_scan_plain(spec, cols)  # (NC, C, 16, BW)
+    want = excl.permute(0, 2, 3, 1).reshape(3, 16, g.L)
+    assert point_batch_to_host(curve, got) == point_batch_to_host(curve,
+                                                                  want)
