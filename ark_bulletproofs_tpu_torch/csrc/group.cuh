@@ -1,5 +1,7 @@
 // A group of G threads of one warp that run one chain of group operations
-// together (the window Horner, csrc/msm_kernels.cu::horner_group_kernel).
+// together (csrc/msm_kernels.cu: the window Horner, horner_group_kernel,
+// and the add-only chains of stages D and F, suffix_jac_scan_group_kernel
+// and rowsum_group_kernel).
 //
 // Every thread of the group holds the whole running point and does the
 // cheap field adds of each law itself; the products of one level of the
@@ -29,6 +31,21 @@ struct Grp {
   unsigned mask;   // the group's lanes of the warp
   int half;        // the half the next round writes
 };
+
+// The group of thread `tid` of a block whose consecutive G threads are
+// one group each, group k's slots at slots[k]. The block's size must be a
+// multiple of G, so that a tail block returns whole groups only.
+template <int G>
+__device__ __forceinline__ Grp<G> grp_of(uint4 (*slots)[4 * GRP_SLOTS],
+                                         int tid) {
+  static_assert(G >= 1 && G < 32 && 32 % G == 0, "a group within a warp");
+  Grp<G> gr;
+  gr.buf = slots[tid / G];
+  gr.g = tid % G;
+  gr.mask = ((1u << G) - 1u) << ((tid & 31) / G * G);
+  gr.half = 0;
+  return gr;
+}
 
 __device__ __forceinline__ void sh_store(uint4* p, const Fe& a) {
   p[0] = make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]);

@@ -34,11 +34,12 @@
 // carries no dead registers of another. A 3-coordinate model reads and
 // writes (3, rows, 16, L) arrays, TeModel (4, rows, 16, L).
 //
-// Design: one thread per lane, the running point in registers. On the TPU
-// the row loop was the grid's sequential dimension with a VMEM scratch
-// carry; on Hopper blocks run in no order, so the loop over rows moves into
-// the thread. Lanes are columns of independent sums, so no block needs
-// another's result.
+// Design of the scans: one thread per lane (stages D and F below their
+// crossover: a group of threads, see below), the running point in
+// registers. On the TPU the row loop was the grid's sequential dimension
+// with a VMEM scratch carry; on Hopper blocks run in no order, so the loop
+// over rows moves into the thread. Lanes are columns of independent sums,
+// so no block needs another's result.
 //
 // What bounds the scans: integer multiply throughput, once enough chains
 // run at a time to hide each product's latency. One mixed add is 11
@@ -66,6 +67,25 @@
 // to 16,384 sets and lost only from 32,768 (PERF.md, PR 7); no caller
 // comes near that (the largest is v1's B = 256), so it is the only one.
 //
+// Stages D and F (suffix_jac_scan, rowsum) are chains of complete adds,
+// one a lane, in the JAX kernels' row order (which fixes the projective
+// coordinates the tests hold bit for bit, so no tree over the rows), on
+// few lanes: 64 rows of 1,408 and of 22 lanes at n = 2^20, 16 or 1 row of
+// 64 to 1,024 at n = 256. One thread a lane waits about 9 us an add on
+// its 11 or 12 products, with the card nearly idle. So a group of
+// M::ADD_GRP = 8 threads shares each lane's chain as in the Horner: an
+// add costs its product levels (2 on RCB a = 0, 3 on zorro and HWCD, each
+// level one product at G = 8) plus the field adds every thread repeats,
+// 2.6 to 4.4 us an add on the H100. G = 8 beat G = 4 at every shape of
+// the one-set MSMs; G = 4 was faster only at 16 x 8,192, a B = 128
+// batch's level B (PERF.md, PR 8). The row a chain adds next does not
+// depend on it and is loaded one add ahead. From
+// CHAIN_ONE_THREAD_MIN_LANES lanes the card is throughput-bound and the
+// G-fold repeated adds lose: at 16 rows of 131,072 lanes one thread a
+// lane took 1.03 ms against the group's 2.17 (RCB a = 0), and the
+// on-device Fiat-Shamir IPA's table shrink (1024 sets at n = 256) sends
+// stage D 16 rows of 1,048,576.
+//
 // A TE point is 4 x 8 words against 3 x 8: the TE scans write a third
 // more bytes (5.9 GB at the n = 2^20 shape) for the same 11 products a
 // mixed add.
@@ -88,8 +108,13 @@
 // both (tests/test_torch_msm_plan.py ties them).
 #define SCAN_THREADS 128
 #define SCAN_MIN_BLOCKS 3
-// The group Horner's block: 128 threads, 32 / G scalar sets a warp.
+// The group kernels' block (the Horner, stages D and F): 128 threads, 32 /
+// G chains a warp.
 #define HG_THREADS 128
+// Stages D and F: from this many lanes on, one thread runs each lane's
+// chain; below it a group of M::ADD_GRP threads (see the note above;
+// ops/kernels2.py mirrors it, tests/test_torch_msm_plan.py ties the two).
+#define CHAIN_ONE_THREAD_MIN_LANES 16384
 
 template <bool AZ>
 struct RcbModel {
@@ -110,6 +135,8 @@ struct RcbModel {
     return rcb_double<AZ>(a, cc);
   }
   static constexpr int GRP = AZ ? 4 : 8;  // the widest level: 4, or 6
+  // An add-only chain (stages D and F): add levels of 6 + 6, or 6 + 4 + 6.
+  static constexpr int ADD_GRP = 8;
   template <int G>
   static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
                                            const P& b, const CurveConst& cc) {
@@ -150,6 +177,7 @@ struct TeModel {
     return te_double(a, cc);
   }
   static constexpr int GRP = 8;  // levels of 5, 2 and 4 products
+  static constexpr int ADD_GRP = 8;  // the same levels in an add-only chain
   template <int G>
   static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
                                            const P& b, const CurveConst& cc) {
@@ -240,7 +268,8 @@ __global__ void __launch_bounds__(SCAN_THREADS, SCAN_MIN_BLOCKS)
 }
 
 // excl[:, r] = sum_{r' > r} in[:, r'], tot = sum over all rows.
-// in, excl: (NC, R, 16, L); tot: (NC, 1, 16, L).
+// in, excl: (NC, R, 16, L); tot: (NC, 1, 16, L). One thread a lane, from
+// CHAIN_ONE_THREAD_MIN_LANES lanes.
 template <class M>
 __global__ void __launch_bounds__(THREADS)
     suffix_jac_scan_kernel(const int32_t* __restrict__ in,
@@ -258,7 +287,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // out = in[:, 0] + in[:, 1] + ... + in[:, K-1], added in that order.
-// in: (NC, K, 16, L); out: (NC, 1, 16, L).
+// in: (NC, K, 16, L); out: (NC, 1, 16, L). One thread a lane, as above.
 template <class M>
 __global__ void __launch_bounds__(THREADS)
     rowsum_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
@@ -270,6 +299,53 @@ __global__ void __launch_bounds__(THREADS)
     acc = M::add(acc, M::load(in, K, r, L, lane), cc);
   }
   M::store(out, 1, 0, L, lane, acc);
+}
+
+// suffix_jac_scan_kernel with a group of G threads a lane (group.cuh):
+// every thread holds the accumulator, the products of each level of the
+// add are dealt out, thread 0 stores. The next row's point, which does not
+// depend on the chain, is loaded while the current row's add runs.
+template <class M, int G>
+__global__ void __launch_bounds__(HG_THREADS, 1)
+    suffix_jac_scan_group_kernel(const int32_t* __restrict__ in,
+                                 int32_t* __restrict__ excl,
+                                 int32_t* __restrict__ tot, int64_t R,
+                                 int64_t L, CurveConst cc) {
+  __shared__ uint4 slots[HG_THREADS / G][4 * GRP_SLOTS];
+  const int tid = threadIdx.x;
+  const size_t lane = ((size_t)blockIdx.x * HG_THREADS + tid) / G;
+  if (lane >= (size_t)L) return;  // whole groups only: HG_THREADS % G == 0
+  Grp<G> gr = grp_of<G>(slots, tid);
+  typename M::P acc = M::identity(cc);
+  typename M::P nxt = M::load(in, R, R - 1, L, lane);
+  for (int64_t r = R - 1; r >= 0; --r) {
+    typename M::P cur = nxt;
+    nxt = M::load(in, R, r > 0 ? r - 1 : 0, L, lane);
+    if (gr.g == 0) M::store(excl, R, r, L, lane, acc);
+    acc = M::template gadd<G>(gr, acc, cur, cc);
+  }
+  if (gr.g == 0) M::store(tot, 1, 0, L, lane, acc);
+}
+
+// rowsum_kernel with a group of G threads a lane, as above.
+template <class M, int G>
+__global__ void __launch_bounds__(HG_THREADS, 1)
+    rowsum_group_kernel(const int32_t* __restrict__ in,
+                        int32_t* __restrict__ out, int64_t K, int64_t L,
+                        CurveConst cc) {
+  __shared__ uint4 slots[HG_THREADS / G][4 * GRP_SLOTS];
+  const int tid = threadIdx.x;
+  const size_t lane = ((size_t)blockIdx.x * HG_THREADS + tid) / G;
+  if (lane >= (size_t)L) return;  // whole groups only: HG_THREADS % G == 0
+  Grp<G> gr = grp_of<G>(slots, tid);
+  typename M::P acc = M::identity(cc);
+  typename M::P nxt = M::load(in, K, 0, L, lane);
+  for (int64_t r = 0; r < K; ++r) {
+    typename M::P cur = nxt;
+    nxt = M::load(in, K, r + 1 < K ? r + 1 : r, L, lane);
+    acc = M::template gadd<G>(gr, acc, cur, cc);
+  }
+  if (gr.g == 0) M::store(out, 1, 0, L, lane, acc);
 }
 
 // out = 2^k * P + Q elementwise; P, Q, out: (NC, 1, 16, m).
@@ -324,6 +400,11 @@ static inline unsigned blocks_for(int64_t lanes) {
   return (unsigned)((lanes + THREADS - 1) / THREADS);
 }
 
+// Blocks of HG_THREADS for `chains` groups of G threads.
+static inline unsigned group_blocks(int64_t chains, int G) {
+  return (unsigned)((chains * G + HG_THREADS - 1) / HG_THREADS);
+}
+
 // The window Horner of both MSM engines: acc = acc0, then for w = W - 1
 // down to 0, c doublings and acc += part[w]; out = acc. parts: (NC, 16,
 // B, Ws) with the windows innermost, the layout the engines hold their
@@ -345,11 +426,7 @@ __global__ void __launch_bounds__(HG_THREADS, 1)
   const int tid = threadIdx.x;
   const size_t set = ((size_t)blockIdx.x * HG_THREADS + tid) / G;
   if (set >= (size_t)B) return;  // whole groups only: HG_THREADS % G == 0
-  Grp<G> gr;
-  gr.buf = slots[tid / G];
-  gr.g = tid % G;
-  gr.mask = ((1u << G) - 1u) << ((tid & 31) / G * G);
-  gr.half = 0;
+  Grp<G> gr = grp_of<G>(slots, tid);
   typename M::P acc = M::load(acc0, 1, 0, B, set);
   for (int64_t w = W - 1; w >= 0; --w) {
     for (int32_t i = 0; i < c; ++i) acc = M::template gdbl<G>(gr, acc, cc);
@@ -366,23 +443,40 @@ static void launch_horner(const void* parts, const void* acc0, void* out,
                           const CurveConst& cc, cudaStream_t s) {
   constexpr int G = M::GRP;
   static_assert(HG_THREADS % G == 0 && 32 % G == 0, "group size");
-  unsigned blocks = (unsigned)((B * G + HG_THREADS - 1) / HG_THREADS);
-  horner_group_kernel<M, G><<<blocks, HG_THREADS, 0, s>>>(
+  horner_group_kernel<M, G><<<group_blocks(B, G), HG_THREADS, 0, s>>>(
       (const int32_t*)parts, (const int32_t*)acc0, (int32_t*)out, B, W, Ws,
       c, cc);
 }
 
-// Launch KERNEL<model>(args...) over `lanes` threads, the model picked from
-// the constants `cc` (in scope with the stream `s`).
-#define LAUNCH_BY_MODEL(KERNEL, lanes, ...)                           \
-  do {                                                                \
-    if (cc.te)                                                        \
-      KERNEL<TeModel><<<blocks_for(lanes), THREADS, 0, s>>>(__VA_ARGS__); \
-    else if (cc.a_zero)                                               \
-      KERNEL<RcbA0><<<blocks_for(lanes), THREADS, 0, s>>>(__VA_ARGS__);   \
-    else                                                              \
-      KERNEL<RcbA><<<blocks_for(lanes), THREADS, 0, s>>>(__VA_ARGS__);    \
-  } while (0)
+// Stages D and F: a group of M::ADD_GRP threads a lane below
+// CHAIN_ONE_THREAD_MIN_LANES lanes, one thread a lane from it.
+template <class M>
+static void launch_suffix_jac_scan(const void* in, void* excl, void* tot,
+                                   int64_t R, int64_t L, const CurveConst& cc,
+                                   cudaStream_t s) {
+  constexpr int G = M::ADD_GRP;
+  static_assert(HG_THREADS % G == 0, "group size");
+  if (L >= CHAIN_ONE_THREAD_MIN_LANES)
+    suffix_jac_scan_kernel<M><<<blocks_for(L), THREADS, 0, s>>>(
+        (const int32_t*)in, (int32_t*)excl, (int32_t*)tot, R, L, cc);
+  else
+    suffix_jac_scan_group_kernel<M, G><<<group_blocks(L, G), HG_THREADS, 0,
+                                         s>>>(
+        (const int32_t*)in, (int32_t*)excl, (int32_t*)tot, R, L, cc);
+}
+
+template <class M>
+static void launch_rowsum(const void* in, void* out, int64_t K, int64_t L,
+                          const CurveConst& cc, cudaStream_t s) {
+  constexpr int G = M::ADD_GRP;
+  static_assert(HG_THREADS % G == 0, "group size");
+  if (L >= CHAIN_ONE_THREAD_MIN_LANES)
+    rowsum_kernel<M><<<blocks_for(L), THREADS, 0, s>>>(
+        (const int32_t*)in, (int32_t*)out, K, L, cc);
+  else
+    rowsum_group_kernel<M, G><<<group_blocks(L, G), HG_THREADS, 0, s>>>(
+        (const int32_t*)in, (int32_t*)out, K, L, cc);
+}
 
 extern "C" int abtpu_suffix_madd_scan(const void* xy, void* out, int64_t R,
                                       int64_t L, const void* words,
@@ -407,8 +501,12 @@ extern "C" int abtpu_suffix_jac_scan(const void* in, void* excl, void* tot,
                                      void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
-  LAUNCH_BY_MODEL(suffix_jac_scan_kernel, L, (const int32_t*)in,
-                  (int32_t*)excl, (int32_t*)tot, R, L, cc);
+  if (cc.te)
+    launch_suffix_jac_scan<TeModel>(in, excl, tot, R, L, cc, s);
+  else if (cc.a_zero)
+    launch_suffix_jac_scan<RcbA0>(in, excl, tot, R, L, cc, s);
+  else
+    launch_suffix_jac_scan<RcbA>(in, excl, tot, R, L, cc, s);
   return (int)cudaGetLastError();
 }
 
@@ -416,8 +514,12 @@ extern "C" int abtpu_rowsum(const void* in, void* out, int64_t K, int64_t L,
                             const void* words, void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
-  LAUNCH_BY_MODEL(rowsum_kernel, L, (const int32_t*)in, (int32_t*)out, K, L,
-                  cc);
+  if (cc.te)
+    launch_rowsum<TeModel>(in, out, K, L, cc, s);
+  else if (cc.a_zero)
+    launch_rowsum<RcbA0>(in, out, K, L, cc, s);
+  else
+    launch_rowsum<RcbA>(in, out, K, L, cc, s);
   return (int)cudaGetLastError();
 }
 
@@ -427,8 +529,12 @@ extern "C" int abtpu_rcb_double_k_add(const void* P, const void* Q, void* out,
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
   if (cc.te) return (int)cudaErrorInvalidValue;
-  LAUNCH_BY_MODEL(double_k_add_kernel, m, (const int32_t*)P,
-                  (const int32_t*)Q, (int32_t*)out, m, k, cc);
+  if (cc.a_zero)
+    double_k_add_kernel<RcbA0><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
+  else
+    double_k_add_kernel<RcbA><<<blocks_for(m), THREADS, 0, s>>>(
+        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
   return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,10 @@ Replace the TPU mega-kernels of ark_bulletproofs_tpu/ops/kernels2.py:
   suffix_jac_scan  <- suffix_jac_scan: stage D, per-column exclusive
       suffix sums plus totals over rows of projective points;
   rowsum           <- rowsum_jac: stage F, row sums down to totals;
+      both are a chain of complete adds a lane, in the JAX kernels' row
+      order, shared by a group of threads (csrc/group.cuh) below
+      CHAIN_ONE_THREAD_MIN_LANES lanes and run by one thread a lane from
+      it;
   horner_windows   <- horner_windows: acc = 2^c acc + part[w] over the
       window axis in one launch, the window Horner of both MSM engines
       (v2's stage G on RCB or extended points; v1's on extended points),
@@ -41,6 +45,10 @@ from .kernels import (_check_model, check_tensor, lane_slices, launch,
 from .limbs import N_LIMBS
 
 NL = N_LIMBS
+# csrc/msm_kernels.cu's lane count from which suffix_jac_scan and rowsum
+# run one thread a lane instead of a thread group (the H100's crossover,
+# PERF.md; tests/test_torch_msm_plan.py ties the two).
+CHAIN_ONE_THREAD_MIN_LANES = 16384
 
 
 # --- plain versions ---------------------------------------------------------

@@ -33,7 +33,14 @@ Phases, each printed with its seconds:
      rcb_double on secq256k1 and zorro at 65,536 and 1 lanes with
      identity lanes; row_gather against index_select at the DMA probe's
      shape (2^22 rows of a 2^20-row table) and stage B's row count
-     (22 x 2^20 rows); then each timed at its main-path shape (n = 2^20
+     (22 x 2^20 rows); stages D and F's suffix_jac_scan and rowsum on the
+     three curves at every (rows, lanes) the paths launch them at
+     (CHAIN_SHAPES: 64 x 1,408 and 64 x 22 at n = 2^20; 16 x 1,024,
+     16 x 64 and 1 x 64 at n = 256; 16 x 1,048,576, the most lanes a
+     path sends), with doubling, P + (-P) and identity lanes, each timed there
+     (also in microseconds a complete add, beside the bound and the
+     chain's product levels; the table keeps 64 x 1,408); then each
+     timed at its main-path shape (n = 2^20
      MSM on secq256k1 and on curve25519; mont_mul at the k = 1024 fold's
      6 x 2048 lanes; te_double at the commit table's 2 lanes;
      jac_double_k_add at the P = 128 batch tree's first 32,768 lanes,
@@ -93,7 +100,9 @@ Phases, each printed with its seconds:
  14. launches: each path of phases 3-13 runs with every launch count set
      to 0 just before it and read just after; each of its kernels
      launched (the window Horner on every MSM path), and the v1 paths'
-     double-k-add kernel at k > 0;
+     double-k-add kernel at k > 0; and the most lanes suffix_jac_scan and
+     rowsum were launched at over those paths, no more than phase 2 held
+     them at;
  15. traces: the card prove (secq256k1 and curve25519) and the verify
      once more each under torch.profiler, which splits card time from
      host time and names the largest kernels (last, so that no timing
@@ -131,6 +140,19 @@ L_MAIN = 22 * 1024  # scan lanes at n = 2^20 under the JAX plan (C = 1024)
 R_PLAN, L_PLAN = 256, 22 * 4096
 R_MID, L_MID = 512, 22 * 2048
 MM_LANES = 6 * 2048  # the k = 1024 IPA fold's product launch
+# Stages D and F's (rows, lanes) on the paths: the n = 2^20 MSM's (c2 = 64
+# rows of 22 c1 lanes, then c1 = 64 rows of 22; K1 = 64 rows of 22 M1,
+# then M1 = 64 rows of 22), the n = 256 MSM's (16 x 1,024, 16 x 64;
+# 16 x 64, 1 x 64), and the most lanes a path sends: the on-device
+# Fiat-Shamir IPA's table shrink at n = 2^16 is an MSM of 1024 sets of 128
+# terms padded to 256, whose stage D level A is 16 rows of 1024 x 64 x 16
+# lanes (phase 14 checks that no path sends more).
+CHAIN_SHAPES = [(64, 22 * 64, "n = 2^20: stage D level A, stage F pass 1"),
+                (64, 22, "n = 2^20: level B, pass 2"),
+                (16, 1024, "n = 256: level A"),
+                (16, 64, "n = 256: level B, pass 1"),
+                (1, 64, "n = 256: pass 2"),
+                (16, 1024 * 64 * 16, "the most lanes a path sends")]
 MSM_CU = "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu"
 FS_CU = "ark_bulletproofs_tpu_torch/csrc/fs_kernels.cu"
 GATHER_CU = "ark_bulletproofs_tpu_torch/csrc/gather_kernels.cu"
@@ -266,6 +288,7 @@ class Launches:
     def __init__(self, wrappers: dict):
         self.wrappers = wrappers
         self.paths = {}
+        self.current = None  # the path running now
 
     def run(self, path: str, fn, kernels, spec, doubling=()):
         """Run path `path` on `spec`'s curve; `kernels` must launch, and
@@ -274,7 +297,11 @@ class Launches:
             w.launches = 0
             if hasattr(w, "doubling_launches"):
                 w.doubling_launches = 0
-        out = fn()
+        self.current = path
+        try:
+            out = fn()
+        finally:
+            self.current = None
         self.paths[path] = (
             {n: w.launches for n, w in self.wrappers.items()}, kernels,
             model(spec),
@@ -298,6 +325,41 @@ class Launches:
         paths for None)."""
         return sum(counts[wrapper] for counts, _, m, _ in self.paths.values()
                    if on_model in (None, m))
+
+
+class ChainLanes:
+    """The most lanes (with the rows and the counted path then, None
+    between paths) each of stages D and F's kernels is launched at in
+    phases 3-13: kernels2's launch helper is replaced by a recorder that
+    reads those launchers' (rows, lanes) arguments and launches as before
+    (the wrappers and their counts stay as they are)."""
+
+    NAMES = ("suffix_jac_scan", "rowsum")
+
+    def __init__(self, k2, launches: Launches):
+        self.most = {name: (0, 0, None) for name in self.NAMES}
+        launch = k2.launch
+
+        def record(name, spec, dev, *args):
+            if name in self.most:
+                rows, lanes = args[-2:]
+                if (lanes, rows) > self.most[name][:2]:
+                    self.most[name] = (lanes, rows, launches.current)
+            return launch(name, spec, dev, *args)
+
+        k2.launch = record
+
+    def check(self) -> None:
+        """Print each kernel's most lanes; raise if phase 2 held it at
+        fewer."""
+        held = max(L for _, L, _ in CHAIN_SHAPES)
+        for name, (L, R, path) in self.most.items():
+            print(f"   {name}: at most {L} lanes ({R} rows, path {path}); "
+                  f"phase 2 holds it at up to {held}", flush=True)
+        over = [name for name, (L, _, _) in self.most.items() if L > held]
+        if over:
+            raise AssertionError(f"{over}: a path sent more lanes than "
+                                 f"phase 2 holds them at")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -520,34 +582,76 @@ class KernelCheck:
         if timed:
             self.time_main_shapes(curve, spec, seed)
 
+    def run_chains(self, curve, seed: int, timed: bool) -> None:
+        """Stages D and F's kernels (suffix_jac_scan, rowsum: a thread
+        group a lane's chain of complete adds) bit-equal to their plain
+        versions at every (rows, lanes) the paths launch them at
+        (CHAIN_SHAPES), on projective rows with doubling, P + (-P) and
+        identity lanes; timed there, in ms and in microseconds a complete
+        add of the chain, beside the bound and the chain's critical path
+        (its adds x product levels an add). The table keeps the n = 2^20
+        stage-D shape, 64 x 1,408, as PR 7 measured it."""
+        from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
+        te = model(spec) == "te"
+        nc = 4 if te else 3
+        add = FE_MULS[model(spec)]["add"] * MULS_PER_FE_MUL
+        levels = 3 if te or not spec.is_a_zero else 2  # at G = 8
+        t0 = time.perf_counter()
+        for R, L, where in CHAIN_SHAPES:
+            T = k2.suffix_madd_scan(spec, self.affine_rows(curve, spec, R, L,
+                                                           seed + R + L))
+            T = self.special_rows(spec, T).contiguous()
+            self.compare(entry("suffix_jac_scan", spec),
+                         k2.suffix_jac_scan(spec, T),
+                         k2.suffix_jac_scan_plain(spec, T))
+            self.compare(entry("rowsum", spec), k2.rowsum(spec, T),
+                         k2.rowsum_plain(spec, T))
+            if not timed:
+                continue
+            reps = 20 if L <= 16384 else 5
+            runs = {
+                "suffix_jac_scan": (
+                    lambda: k2.suffix_jac_scan(spec, T),
+                    lambda: k2.suffix_jac_scan_plain(spec, T),
+                    self.bound((2 * R + 1) * nc * 16 * L * 4, R * L * add)),
+                "rowsum": (
+                    lambda: k2.rowsum(spec, T),
+                    lambda: k2.rowsum_plain(spec, T),
+                    self.bound((R + 1) * nc * 16 * L * 4, R * L * add)),
+            }
+            if L < k2.CHAIN_ONE_THREAD_MIN_LANES:
+                path = f"a group of 8 threads a lane: {R} x {levels}"
+            else:
+                path = (f"one thread a lane: {R} x "
+                        f"{FE_MULS[model(spec)]['add']}")
+            for name, (kernel, plain, bound) in runs.items():
+                ms = graph_ms(kernel, reps)
+                print(f"   {curve.name} {name} {R} x {L} ({where}): kernel "
+                      f"{ms:.4f} ms, {ms * 1e3 / R:.3f} us a complete add; "
+                      f"bound {bound[0]:.5g} ms ({bound[1]}); critical path "
+                      f"({path}) product latencies", flush=True)
+                if (R, L) == (64, 22 * 64) and curve.name != "zorro":
+                    self.times[entry(name, spec)] = (ms, host_ms(plain),
+                                                     *bound)
+            del T
+        print(f"   {curve.name} suffix_jac_scan and rowsum at "
+              f"{[(R, L) for R, L, _ in CHAIN_SHAPES]}: bit-equal "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     def time_main_shapes(self, curve, spec, seed: int) -> None:
-        """The other kernels at their n = 2^20 main-path shapes: stage D
-        level A (c2 = 64 rows x 22 * c1 = 1408 lanes under the port's
-        plan), stage F pass 1 (64 rows x 22 * 64 lanes), stage E bucket add
-        (22 * 4096 lanes); te_double at the commit table's 2 lanes
-        (ops/prove.py::_commit_table)."""
+        """The other kernels at their n = 2^20 main-path shapes: stage E
+        bucket add (22 * 4096 lanes); te_double at the commit table's 2
+        lanes (ops/prove.py::_commit_table)."""
         from ark_bulletproofs_tpu_torch.ops import kernels as kk
         from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
-        from ark_bulletproofs_tpu_torch.ops import msm2
 
         te = model(spec) == "te"
         nc = 4 if te else 3
         fe = FE_MULS[model(spec)]
         add = fe["add"] * MULS_PER_FE_MUL
-        g = msm2._Cfg(N_MSM, msm2.window_bits(N_MSM), 1, self.dev)
-        T = k2.suffix_madd_scan(spec, self.affine_rows(curve, spec, 64,
-                                                       22 * 64, seed))
-        Ta = T[:, :g.c2, :, :g.BW * g.c1].contiguous()
-        R, La = Ta.shape[1], Ta.shape[-1]
-        self.times[entry("suffix_jac_scan", spec)] = (
-            graph_ms(lambda: k2.suffix_jac_scan(spec, Ta), 20),
-            host_ms(lambda: k2.suffix_jac_scan_plain(spec, Ta)),
-            *self.bound((2 * R + 1) * nc * 16 * La * 4, R * La * add))
-        K, Lr = T.shape[1], T.shape[-1]
-        self.times[entry("rowsum", spec)] = (
-            graph_ms(lambda: k2.rowsum(spec, T), 20),
-            host_ms(lambda: k2.rowsum_plain(spec, T)),
-            *self.bound((K + 1) * nc * 16 * Lr * 4, K * Lr * add))
         xy = self.affine_rows(curve, spec, 8, 22 * 4096, seed + 1)
         U = k2.suffix_madd_scan(spec, xy)
         P, Q = U[:, 0].contiguous(), U[:, 1].contiguous()
@@ -1992,6 +2096,9 @@ def main() -> int:
         check.run_curve(curves.secq256k1, seed=1, timed=True)
         check.run_curve(curves.zorro, seed=2, timed=False)
         check.run_curve(curves.curve25519, seed=5, timed=True)
+        check.run_chains(curves.secq256k1, seed=19, timed=True)
+        check.run_chains(curves.zorro, seed=20, timed=True)
+        check.run_chains(curves.curve25519, seed=21, timed=True)
         check.run_mont_mul(curves.secq256k1, seed=3, timed=True)
         check.run_mont_mul(curves.zorro, seed=4, timed=False)
         check.run_jac(curves.secq256k1, seed=6, timed=True)
@@ -2012,6 +2119,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = Launches(wrappers)
+    chain_lanes = ChainLanes(k2, launches)
     with phase("3 msm n=2^20 secq256k1"):
         phase_msm(curves.secq256k1, launches)
     with phase(f"4 shuffle k={SHUFFLE_K} secq256k1"):
@@ -2037,6 +2145,7 @@ def main() -> int:
         phase_batch_verify_dev(curves.secq256k1, launches)
     with phase("14 launches"):
         launches.check()
+        chain_lanes.check()
     with phase("15 traces"):
         traced(f"secq256k1 card prove k={SHUFFLE_K}", prove)
         traced(f"secq256k1 verify k={SHUFFLE_K}", verify)

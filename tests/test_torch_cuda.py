@@ -670,3 +670,86 @@ def test_msm_2_20_matches_host(curve, cuda_dev):
     ksum = [sum(ks[j::distinct]) % r for j in range(distinct)]
     assert msm(curve, pts * (n // distinct), ks,
                device=cuda_dev) == curve.msm(pts, ksum)
+
+
+def _chain_points(curve, spec, R, lanes, dev, seed, prefix):
+    """(NC, R, 16, lanes) points for the add-only chains (suffix_jac_scan
+    from the last row up, rowsum from row 0 down): the rows of a
+    suffix_madd_scan over _scan_rows, then lanes by (lane + R) % 6: 1, a
+    third of the rows the identity (on curve25519 the point (0, 1)); 2,
+    the whole column the identity; 3, the row in the middle of the chain
+    equal to the sum before it (P + P); 4, its negative (P + (-P)); 5,
+    rows r and r + 1 equal in turn. `prefix(T, r)` is the chain's sum
+    before row r (the plain version's)."""
+    T = k2.suffix_madd_scan(spec, _scan_rows(curve, spec, R, lanes, dev,
+                                             seed))
+    kind = (torch.arange(lanes, device=dev) + R) % 6
+    zero = proj.point_zero(spec, lanes, dev).to(torch.int32)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ident = ((torch.rand((R, lanes), generator=g, device=dev) < 0.3)
+             & (kind == 1)) | (kind == 2)
+    T = torch.where(ident[None, :, None], zero[:, None], T)
+    even = slice(0, R - R % 2, 2)
+    T[:, even] = torch.where((kind == 5)[None, None, None],
+                             T[:, 1:R:2], T[:, even])
+    r = R // 2
+    acc = prefix(T, r)
+    T[:, r] = torch.where(kind == 3, acc, T[:, r])
+    T[:, r] = torch.where(kind == 4, _neg(spec, acc), T[:, r])
+    return T.contiguous()
+
+
+def _suffix_prefix(spec, T, r):
+    return k2.suffix_jac_scan_plain(spec, T)[0][:, r]
+
+
+def _rowsum_prefix(spec, T, r):
+    if r == 0:
+        return proj.point_zero(spec, T.shape[-1], T.device).to(torch.int32)
+    return k2.rowsum_plain(spec, T[:, :r].contiguous())
+
+
+def _check_chains(curve, R, lanes, dev, seed):
+    """suffix_jac_scan and rowsum on _chain_points bit-equal to their plain
+    versions, each launch counted once."""
+    spec = spec_for(curve)
+    T = _chain_points(curve, spec, R, lanes, dev, seed,
+                      lambda T, r: _suffix_prefix(spec, T, r))
+    before = k2.suffix_jac_scan.launches
+    excl, tot = k2.suffix_jac_scan(spec, T)
+    assert k2.suffix_jac_scan.launches == before + 1
+    pexcl, ptot = k2.suffix_jac_scan_plain(spec, T)
+    assert torch.equal(excl, pexcl) and torch.equal(tot, ptot)
+    T = _chain_points(curve, spec, R, lanes, dev, seed + 1,
+                      lambda T, r: _rowsum_prefix(spec, T, r))
+    before = k2.rowsum.launches
+    got = k2.rowsum(spec, T)
+    assert k2.rowsum.launches == before + 1
+    assert torch.equal(got, k2.rowsum_plain(spec, T))
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 22, 33, 1408])
+@pytest.mark.parametrize("R", [1, 2, 16, 64])
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_chain_kernels_match_plain_versions(curve, R, lanes, cuda_dev):
+    """Stages D and F's kernels (a thread group a lane) at the row counts
+    of the paths (1-row rowsum, 16 and 64 rows) and lane counts that leave
+    a block part-filled, with identity rows and columns, P + P and
+    P + (-P) in the middle of the chain and equal neighbouring rows."""
+    _check_chains(curve, R, lanes, cuda_dev, seed=R * 7 + lanes)
+
+
+@pytest.mark.parametrize("lanes", [k2.CHAIN_ONE_THREAD_MIN_LANES - 1,
+                                   k2.CHAIN_ONE_THREAD_MIN_LANES,
+                                   16 * 64 * 1024],
+                         ids=["group-below", "one-thread-from", "largest"])
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_chain_kernels_on_both_sides_of_the_crossover(curve, lanes,
+                                                      cuda_dev):
+    """Stages D and F's kernels at 16 rows just below the lane count from
+    which the launchers run one thread a lane (the group kernel, with a
+    ragged last block), at it (one thread a lane), and at the most lanes a
+    path sends (stage D level A of 1024 sets at n = 256: the on-device
+    Fiat-Shamir IPA's table shrink at n = 2^16): bit-equal to the plain
+    versions."""
+    _check_chains(curve, 16, lanes, cuda_dev, seed=lanes % 997)

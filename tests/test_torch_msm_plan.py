@@ -115,6 +115,29 @@ def test_fill_lanes_follow_the_scan_launch_bounds():
     assert FILL == 132 * 3 * 128 == 50_688
 
 
+def test_chain_crossover_follows_the_launcher():
+    """kernels2.CHAIN_ONE_THREAD_MIN_LANES is the lane count from which
+    csrc/msm_kernels.cu's suffix_jac_scan and rowsum launchers run one
+    thread a lane, each model's add-only chain takes a group of 8 threads
+    below it, and the plans put the n = 2^20 MSM's stage D and F (22 c1
+    and 22 M1 lanes) below it and stage D level A of 1024 sets at n = 256
+    (16 rows of 1,048,576 lanes: the on-device Fiat-Shamir IPA's table
+    shrink, ops/ipa.py SHRINK_SETS) above it."""
+    with open(MSM_CU) as fh:
+        src = fh.read()
+    cross = re.findall(r"^#define CHAIN_ONE_THREAD_MIN_LANES (\d+)$", src,
+                       re.M)
+    assert cross == [str(k2.CHAIN_ONE_THREAD_MIN_LANES)]
+    assert src.count("if (L >= CHAIN_ONE_THREAD_MIN_LANES)") == 2
+    assert re.findall(r"static constexpr int ADD_GRP = (\d+);", src) == [
+        "8", "8"]
+    big = msm2._Cfg(1 << 20, msm2.window_bits(1 << 20), 1, "cpu")
+    assert big.BW * big.c1 == 1408 < k2.CHAIN_ONE_THREAD_MIN_LANES
+    batch = msm2._Cfg(256, msm2.window_bits(256), 1024, "cpu")
+    assert (batch.c2, batch.BW * batch.c1) == (16, 1_048_576)
+    assert k2.CHAIN_ONE_THREAD_MIN_LANES <= batch.BW * batch.c1
+
+
 def _case(curve, n, seed):
     """n bases from 12 random points and their negatives (repeats give
     doublings and cancellations), identity bases, and the scalars 0, 1 and
