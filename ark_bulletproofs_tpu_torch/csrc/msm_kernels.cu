@@ -86,6 +86,13 @@
 // on-device Fiat-Shamir IPA's table shrink (1024 sets at n = 256) sends
 // stage D 16 rows of 1,048,576.
 //
+// The elementwise Jacobian 2^k P + Q (jac_double_k_add) is the same
+// latency problem one add deep: the on-device Fiat-Shamir IPA sends it 2 to
+// 256 lanes a launch for one proof. Below DKA_ONE_THREAD_MIN_LANES lanes
+// a group of JacModel::ADD_GRP = 8 threads runs each lane (of 4 from
+// DKA_GROUP4_MIN_LANES; double_k_add_group_kernel), from it one thread a
+// lane.
+//
 // A TE point is 4 x 8 words against 3 x 8: the TE scans write a third
 // more bytes (5.9 GB at the n = 2^20 shape) for the same 11 products a
 // mixed add.
@@ -115,6 +122,13 @@
 // chain; below it a group of M::ADD_GRP threads (see the note above;
 // ops/kernels2.py mirrors it, tests/test_torch_msm_plan.py ties the two).
 #define CHAIN_ONE_THREAD_MIN_LANES 16384
+// jac_double_k_add: from DKA_ONE_THREAD_MIN_LANES lanes on, one thread
+// runs each lane's 2^k P + Q; below it a group of M::ADD_GRP = 8 threads,
+// or of 4 from DKA_GROUP4_MIN_LANES (see the note at
+// double_k_add_group_kernel; ops/kernels.py mirrors both,
+// tests/test_torch_msm_plan.py ties them).
+#define DKA_GROUP4_MIN_LANES 4096
+#define DKA_ONE_THREAD_MIN_LANES 24576
 
 template <bool AZ>
 struct RcbModel {
@@ -221,6 +235,8 @@ struct JacModel {
     return jac_double<AZ>(a, cc);
   }
   static constexpr int GRP = 4;  // doubling levels of 4, 3, 1 (and 1, 1)
+  // jac_double_k_add's group: add levels of 5, 4, 3, 2, 2 products.
+  static constexpr int ADD_GRP = 8;
   template <int G>
   static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
                                            const P& b, const CurveConst& cc) {
@@ -361,6 +377,37 @@ __global__ void __launch_bounds__(THREADS)
   for (int32_t i = 0; i < k; ++i) acc = M::dbl(acc, cc);
   acc = M::add(acc, M::load(Q, 1, 0, m, lane), cc);
   M::store(out, 1, 0, m, lane, acc);
+}
+
+// double_k_add_kernel with a group of G threads a lane (group.cuh): every
+// thread holds the point, the products of each level of the k doublings
+// and of the add are dealt out, thread 0 stores. Used for Jacobian points
+// (jac_double_k_add) below DKA_ONE_THREAD_MIN_LANES lanes: the on-device
+// Fiat-Shamir IPA's c * Q tree and S = MSM + c * Q send 2 to 256 lanes a
+// launch for one proof, the v1 Pippenger its adds and bit-Horner steps,
+// where one thread a lane leaves the card idle and waits on 16 dependent
+// products an add (24 on a doubling lane) plus 8 (10) a doubling. A group
+// of 8 waits on the add's 5 product levels and a doubling's 3 (4 for
+// a != 0): on the H100 2 to 2,048 lanes took 5.8-9.2 us a launch against
+// one thread's 25-35 us. From 4,096 lanes the group's repeated field
+// adds cost throughput and a group of 4 (6 add levels) is faster; from
+// 24,576 one thread a lane is at k = 1, and from 32,768 at k = 0 as
+// well (PERF.md).
+template <class M, int G>
+__global__ void __launch_bounds__(HG_THREADS, 1)
+    double_k_add_group_kernel(const int32_t* __restrict__ P,
+                              const int32_t* __restrict__ Q,
+                              int32_t* __restrict__ out, int64_t m, int32_t k,
+                              CurveConst cc) {
+  __shared__ uint4 slots[HG_THREADS / G][4 * GRP_SLOTS];
+  const int tid = threadIdx.x;
+  const size_t lane = ((size_t)blockIdx.x * HG_THREADS + tid) / G;
+  if (lane >= (size_t)m) return;  // whole groups only: HG_THREADS % G == 0
+  Grp<G> gr = grp_of<G>(slots, tid);
+  typename M::P acc = M::load(P, 1, 0, m, lane);
+  for (int32_t i = 0; i < k; ++i) acc = M::template gdbl<G>(gr, acc, cc);
+  acc = M::template gadd<G>(gr, acc, M::load(Q, 1, 0, m, lane), cc);
+  if (gr.g == 0) M::store(out, 1, 0, m, lane, acc);
 }
 
 // out = P + affine (qx, qy) elementwise; a lane with q_inf[lane] != 0
@@ -559,6 +606,29 @@ extern "C" int abtpu_te_double(const void* P, void* out, int64_t m,
   return (int)cudaGetLastError();
 }
 
+// 2^k P + Q: a group of M::ADD_GRP threads a lane below
+// DKA_GROUP4_MIN_LANES lanes, of 4 below DKA_ONE_THREAD_MIN_LANES, one
+// thread a lane from it.
+template <class M>
+static void launch_double_k_add(const void* P, const void* Q, void* out,
+                                int64_t m, int32_t k, const CurveConst& cc,
+                                cudaStream_t s) {
+  constexpr int G = M::ADD_GRP;
+  static_assert(HG_THREADS % G == 0, "group size");
+  const int32_t* p = (const int32_t*)P;
+  const int32_t* q = (const int32_t*)Q;
+  int32_t* o = (int32_t*)out;
+  if (m >= DKA_ONE_THREAD_MIN_LANES)
+    double_k_add_kernel<M><<<blocks_for(m), THREADS, 0, s>>>(p, q, o, m, k,
+                                                             cc);
+  else if (m >= DKA_GROUP4_MIN_LANES)
+    double_k_add_group_kernel<M, 4><<<group_blocks(m, 4), HG_THREADS, 0, s>>>(
+        p, q, o, m, k, cc);
+  else
+    double_k_add_group_kernel<M, G><<<group_blocks(m, G), HG_THREADS, 0, s>>>(
+        p, q, o, m, k, cc);
+}
+
 // 2^k P + Q on Jacobian points (k = 0: sw_add_tiled's complete add).
 extern "C" int abtpu_jac_double_k_add(const void* P, const void* Q, void* out,
                                       int64_t m, int32_t k, const void* words,
@@ -567,11 +637,9 @@ extern "C" int abtpu_jac_double_k_add(const void* P, const void* Q, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   if (cc.te) return (int)cudaErrorInvalidValue;
   if (cc.a_zero)
-    double_k_add_kernel<JacModel<true>><<<blocks_for(m), THREADS, 0, s>>>(
-        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
+    launch_double_k_add<JacModel<true>>(P, Q, out, m, k, cc, s);
   else
-    double_k_add_kernel<JacModel<false>><<<blocks_for(m), THREADS, 0, s>>>(
-        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
+    launch_double_k_add<JacModel<false>>(P, Q, out, m, k, cc, s);
   return (int)cudaGetLastError();
 }
 

@@ -31,7 +31,11 @@ csrc/fs_kernels.cu (one thread per proof); `fs_round_plain` is its plain
 version, the composition of the functions above. The JAX package runs
 these steps as XLA ops inside one program; eager PyTorch would pay about
 a thousand launches a Keccak permutation and some 330 product launches an
-inversion, so the port has a kernel where the JAX package has none.
+inversion, so the port has a kernel where the JAX package has none. The
+kernel inverts by safegcd (csrc/fs.cuh, one fq inversion for L's and R's
+Z together), the plain version by `mont_pow_pm2`: the inverse is unique,
+so the two agree bit for bit (tests/test_torch_fs_inverse.py holds the
+kernel's algorithm, transcribed, against both).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import _build
@@ -448,6 +453,20 @@ def fs_round_plain(spec, fr: df.FieldSpec, S: torch.Tensor, st: torch.Tensor,
             st.int(), flags.int(), pos, pb)
 
 
+@functools.lru_cache(maxsize=None)
+def inv_words(fq: df.FieldSpec, fr: df.FieldSpec) -> np.ndarray:
+    """The 18 uint32 words of csrc/fs.cuh's InvConst for fq, then for fr:
+    R^3 mod p (8 words; one Montgomery product takes the safegcd inverse
+    (xR)^-1 to x^-1 R) and p^-1 mod 2^30. Cached: ctypes passes a pointer
+    to them."""
+    out = []
+    for f in (fq, fr):
+        r3 = pow(f.R, 3, f.p)
+        out += [(r3 >> (32 * i)) & M32 for i in range(8)]
+        out.append(pow(f.p, -1, 1 << 30))
+    return np.array(out, dtype=np.uint32)
+
+
 def fs_round(spec, fr: df.FieldSpec, S: torch.Tensor, st: torch.Tensor,
              pos: int, pb: int):
     """One IPA round's Fiat-Shamir step for P transcripts in lockstep.
@@ -456,7 +475,7 @@ def fs_round(spec, fr: df.FieldSpec, S: torch.Tensor, st: torch.Tensor,
     (Jacobian on a short-Weierstrass curve, extended on a twisted-Edwards
     one), lane 2b the L of transcript b and lane 2b + 1 its R. st: (P,
     200) int32 state bytes at the shared position (pos, pb). Per
-    transcript: L and R to affine (Z^(p-2)), encoded, appended as "L" and
+    transcript: L and R to affine (1 / Z), encoded, appended as "L" and
     "R", the challenge "u" squeezed and drawn with `Fp::rand`, u inverted.
 
     Returns (xy (2, 16, 2P) canonical affine coordinates, u (2, 16, P)
@@ -484,7 +503,8 @@ def fs_round(spec, fr: df.FieldSpec, S: torch.Tensor, st: torch.Tensor,
     flags = torch.empty(3, P, dtype=torch.int32, device=dev)
     launch("fs_round", spec, dev, S.data_ptr(), st.data_ptr(),
            xy.data_ptr(), u.data_ptr(), st_out.data_ptr(), flags.data_ptr(),
-           P, pos, pb, _build.curve_words(fr).ctypes.data_as(ctypes.c_void_p))
+           P, pos, pb, inv_words(spec.fq, fr).ctypes.data_as(ctypes.c_void_p),
+           _build.curve_words(fr).ctypes.data_as(ctypes.c_void_p))
     fs_round.launches += 1
     return (xy, u, st_out, flags, *round_positions(spec, pos, pb))
 

@@ -15,7 +15,10 @@
       reaches it and no path of the port calls that;
   jac_double_k_add <- ::sw_add_tiled (k = 0) and ::sw_double_k_add_tiled:
       Jacobian points (csrc/jac.cuh), the on-device Fiat-Shamir IPA's
-      c * Q tree and S = MSM + c * Q on short-Weierstrass curves;
+      c * Q tree and S = MSM + c * Q on short-Weierstrass curves, and the
+      v1 Pippenger's adds; a group of 8 threads a lane (csrc/group.cuh),
+      of 4 from DKA_GROUP4_MIN_LANES lanes, one thread a lane from
+      DKA_ONE_THREAD_MIN_LANES;
   jac_double       <- ::sw_double_tiled: that IPA's 2^i Q table;
   jac_madd         <- ::sw_madd_tiled: Jacobian P + affine Q, the row scan
       of the v1 Pippenger (ops/msm.py) on short-Weierstrass curves;
@@ -84,6 +87,12 @@ def launch(name: str, spec, dev: torch.device, *args) -> None:
         err = fn(*args, ctypes.c_void_p(stream))
     _build.check(err, name)
 
+
+# csrc/msm_kernels.cu's lane counts from which jac_double_k_add runs a
+# group of 4 threads a lane instead of 8, and one thread a lane (the
+# H100's crossovers, PERF.md; tests/test_torch_msm_plan.py ties them).
+DKA_GROUP4_MIN_LANES = 4096
+DKA_ONE_THREAD_MIN_LANES = 24576
 
 # Lanes per call of the plain versions on a CPU: lanes are independent,
 # and slices of this width keep the int64 temporaries of a stacked group

@@ -22,6 +22,15 @@ turns (committed, variants, variants reversed, committed) on the three
 point models at CHAIN_SHAPES, the paths' shapes and the crossover's
 neighbours.
 
+The Jacobian jac_double_k_add the same way (JAC_VARIANTS: a group of 8
+or 4 threads a lane at every lane count, one thread a lane at every lane
+count) at k = 0 and 1 on secq256k1 and zorro at every lane count the
+paths send (chip_smoke.DKA_LANES, 2 to 786,432), against the committed
+launcher's choice; and fs_round at P = 1 and 128 on the three curves
+against a build whose safegcd divstep inverts f mod 2^32 by Newton's
+iteration (FS_VARIANTS), beside one thread's SM cycles for a Keccak
+permutation, a field product and a field inverse (OP_PROBE).
+
 The last line is a JSON object of every number; --out also writes it to
 FILE. Needs one card; exits 1 without.
 """
@@ -47,15 +56,79 @@ GROUP = ("#define CHAIN_ONE_THREAD_MIN_LANES 16384",
          "#define CHAIN_ONE_THREAD_MIN_LANES 0x7fffffffffffffffLL")
 # msm_kernels.cu's text substitutions of each variant of stages D and F
 CHAIN_VARIANTS = {
-    "group 8": [GROUP],
-    "group 4": [GROUP, ("static constexpr int ADD_GRP = 8;",
-                        "static constexpr int ADD_GRP = 4;")],
-    "one thread": [(CROSS, "#define CHAIN_ONE_THREAD_MIN_LANES 1")],
+    "group 8": ("msm_kernels.cu", [GROUP]),
+    "group 4": ("msm_kernels.cu", [GROUP, (
+        "static constexpr int ADD_GRP = 8;",
+        "static constexpr int ADD_GRP = 4;")]),
+    "one thread": ("msm_kernels.cu",
+                   [(CROSS, "#define CHAIN_ONE_THREAD_MIN_LANES 1")]),
 }
 # (rows, lanes): the paths' (chip_smoke.CHAIN_SHAPES) and the crossover's
 CHAIN_SHAPES = [(64, 1408), (64, 22), (16, 1024), (16, 64), (1, 64),
                 (16, 8192), (16, 65536), (16, 1048576), (16, 4096),
                 (16, 16384), (16, 32768), (16, 131072)]
+# msm_kernels.cu's text substitutions of each variant of jac_double_k_add
+DKA = "#define DKA_ONE_THREAD_MIN_LANES 24576"
+DKA4 = "#define DKA_GROUP4_MIN_LANES 4096"
+NEVER = " 0x7fffffffffffffffLL"
+DKA_GROUP = [(DKA, DKA.rsplit(" ", 1)[0] + NEVER),
+             (DKA4, DKA4.rsplit(" ", 1)[0] + NEVER)]
+JAC_ADD_GRP = ("products.\n  static constexpr int ADD_GRP = 8;",
+               "products.\n  static constexpr int ADD_GRP = 4;")
+JAC_VARIANTS = {
+    "jac group 8": ("msm_kernels.cu", DKA_GROUP),
+    "jac group 4": ("msm_kernels.cu", [*DKA_GROUP, JAC_ADD_GRP]),
+    "jac one thread": ("msm_kernels.cu",
+                       [(DKA, "#define DKA_ONE_THREAD_MIN_LANES 1")]),
+}
+# fs_round with the inverse of f mod 2^32 by Newton's iteration in each
+# divstep (the first form of csrc/fs.cuh) instead of the 5-bit step
+FIVE_BIT = """    const int limit = min(min(eta + 1, i), 5);
+    const uint32_t m = 0xFFFFFFFFu >> (32 - limit);
+    const uint32_t fi = (3u * f) ^ 2u;  // f^-1 mod 2^5 (f odd)"""
+NEWTON = """    const int limit = min(eta + 1, i);
+    const uint32_t m = 0xFFFFFFFFu >> (32 - limit);
+    uint32_t fi = (3u * f) ^ 2u;
+    fi *= 2u - f * fi;
+    fi *= 2u - f * fi;
+    fi *= 2u - f * fi;"""
+FS_VARIANTS = {"fs newton step": ("fs_kernels.cu", [(FIVE_BIT, NEWTON)])}
+# One thread's latency, in SM cycles (clock64), of fs_round's parts:
+# Keccak-f[1600] on shared lanes, a chain of fe_mul, a chain of fe_inv_var.
+OP_PROBE = r"""
+#include <cuda_runtime.h>
+#include <string.h>
+#include "fs.cuh"
+__global__ void op_probe(long long* out, Fe x, CurveConst cc, InvConst ic) {
+  __shared__ uint64_t lanes[25][FS_THREADS];
+  for (int i = 0; i < 25; ++i) lanes[i][0] = i * 0x9E3779B97F4A7C15ULL ^ x.v[0];
+  keccak_f1600(&lanes[0][0]);
+  long long t0 = clock64();
+  for (int r = 0; r < 16; ++r) keccak_f1600(&lanes[0][0]);
+  long long t1 = clock64();
+  Fe acc = x;
+  for (int r = 0; r < 64; ++r) acc = fe_mul(acc, x, cc);
+  long long t2 = clock64();
+  Fe inv = acc;
+  for (int r = 0; r < 8; ++r) inv = fe_inv_var(inv, cc, ic);
+  long long t3 = clock64();
+  out[0] = (t1 - t0) / 16;
+  out[1] = (t2 - t1) / 64;
+  out[2] = (t3 - t2) / 8;
+  out[3] = (long long)(lanes[0][0] ^ acc.v[0] ^ inv.v[0]);
+}
+extern "C" int op_probe_run(void* out, const void* x, const void* cc,
+                            const void* ic, void* stream) {
+  Fe xv;
+  CurveConst c;
+  InvConst i;
+  memcpy(&xv, x, sizeof xv);
+  memcpy(&c, cc, sizeof c);
+  memcpy(&i, ic, sizeof i);
+  op_probe<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)out, xv, c, i);
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def sass_mix(lib_path: str, func: str) -> dict:
@@ -82,35 +155,68 @@ def sass_mix(lib_path: str, func: str) -> dict:
     return {"function": None, "error": r.stderr[-500:]}
 
 
-def build_chain_variants(build_dir: str) -> dict:
-    """Start one nvcc a CHAIN_VARIANTS entry: msm_kernels.cu with its
-    substitutions, beside copies of the headers, into a shared library.
-    Returns {name: (process, library path)}."""
+def in_turns(runs: dict, call, reps: int) -> dict:
+    """{name: [ms, ms]}: call(run) for each of runs from a CUDA graph of
+    `reps` launches, in turns (each run, then each in reverse order)."""
+    import chip_smoke as cs
+
+    times = {name: [] for name in runs}
+    for name in [*runs, *reversed(runs)]:
+        times[name].append(cs.graph_ms(lambda: call(runs[name]), reps))
+    return times
+
+
+def build_variants(build_dir: str, variants: dict) -> dict:
+    """Start one nvcc a variant {name: (source, substitutions)}: a copy of
+    csrc/ with each substitution made in the files that hold its text,
+    the variant's source built into a shared library. Returns {name:
+    (process, library path)}."""
     from ark_bulletproofs_tpu_torch.ops import _build
 
-    with open(os.path.join(CSRC, "msm_kernels.cu")) as fh:
-        text = fh.read()
     procs = {}
-    for i, (name, subs) in enumerate(CHAIN_VARIANTS.items()):
-        d = os.path.join(build_dir, f"chain_variant_{i}")
+    for i, (name, (source, subs)) in enumerate(variants.items()):
+        d = os.path.join(build_dir, f"variant_{i}")
         shutil.rmtree(d, ignore_errors=True)
-        os.makedirs(d)
-        for f in os.listdir(CSRC):
-            if f.endswith(".cuh"):
-                shutil.copy(os.path.join(CSRC, f), d)
-        src = text
+        shutil.copytree(CSRC, d, ignore=shutil.ignore_patterns("host"))
         for a, b in subs:
-            if a not in src:
-                raise RuntimeError(f"{name}: {a!r} not in msm_kernels.cu")
-            src = src.replace(a, b)
-        with open(os.path.join(d, "msm_kernels.cu"), "w") as fh:
-            fh.write(src)
+            hit = False
+            for f in os.listdir(d):
+                path = os.path.join(d, f)
+                with open(path) as fh:
+                    text = fh.read()
+                if a in text:
+                    hit = True
+                    with open(path, "w") as fh:
+                        fh.write(text.replace(a, b))
+            if not hit:
+                raise RuntimeError(f"{name}: {a!r} not in csrc/")
         lib = os.path.join(d, "lib.so")
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib,
-             os.path.join(d, "msm_kernels.cu")],
+             os.path.join(d, source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     return procs
+
+
+def launcher(lib, name: str):
+    """abtpu_<name> of a loaded kernel library, called with a spec and its
+    pointer and size arguments on the current stream."""
+    import ctypes
+
+    import torch
+
+    from ark_bulletproofs_tpu_torch.ops import _build
+
+    fn = getattr(lib, f"abtpu_{name}")
+    fn.argtypes = _build._SIGNATURES[f"abtpu_{name}"]
+    fn.restype = ctypes.c_int
+
+    def run(spec, *args):
+        words = _build.curve_words(spec)
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(fn(*args, words.ctypes.data_as(ctypes.c_void_p),
+                        ctypes.c_void_p(stream)), name)
+    return run
 
 
 def chain_launchers(path: str):
@@ -120,23 +226,9 @@ def chain_launchers(path: str):
 
     import torch
 
-    from ark_bulletproofs_tpu_torch.ops import _build
-
     lib = ctypes.CDLL(path)
-
-    def launcher(name: str):
-        fn = getattr(lib, f"abtpu_{name}")
-        fn.argtypes = _build._SIGNATURES[f"abtpu_{name}"]
-        fn.restype = ctypes.c_int
-
-        def run(spec, *args):
-            words = _build.curve_words(spec)
-            stream = torch.cuda.current_stream().cuda_stream
-            _build.check(fn(*args, words.ctypes.data_as(ctypes.c_void_p),
-                            ctypes.c_void_p(stream)), name)
-        return run
-
-    scan_fn, rowsum_fn = launcher("suffix_jac_scan"), launcher("rowsum")
+    scan_fn, rowsum_fn = launcher(lib, "suffix_jac_scan"), launcher(
+        lib, "rowsum")
 
     def total(T):
         return torch.empty(T.shape[0], 16, T.shape[-1], dtype=torch.int32,
@@ -155,6 +247,182 @@ def chain_launchers(path: str):
         return out
 
     return scan, rowsum
+
+
+def jac_launcher(path: str):
+    """jac_double_k_add of the kernel library at `path`, taking (spec, P,
+    Q, k) as the wrapper does."""
+    import ctypes
+
+    import torch
+
+    fn = launcher(ctypes.CDLL(path), "jac_double_k_add")
+
+    def run(spec, P, Q, k):
+        out = torch.empty_like(P)
+        fn(spec, P.data_ptr(), Q.data_ptr(), out.data_ptr(), P.shape[-1], k)
+        return out
+
+    return run
+
+
+def jac_compare(res: dict, variants: dict, dev) -> None:
+    """jac_double_k_add, committed and each variant, at k = 0 and 1 at
+    chip_smoke.DKA_LANES on secq256k1 and zorro (model_points: doubling,
+    P + (-P) and identity lanes): bit-equal, then ms from CUDA graphs in
+    turns into res["jac"]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import kernels as kk
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    runs = {"committed": kk.jac_double_k_add, **variants}
+    check = cs.KernelCheck(dev, cs.Bound(1980))
+    res["jac"] = {}
+    for curve in (curves.secq256k1, curves.zorro):
+        spec = spec_for(curve)
+        for L in cs.DKA_LANES:
+            T, _ = check.model_points(curve, spec, 2, L, L)
+            P, Q = T[:, 0].contiguous(), T[:, 1].contiguous()
+            for k in (0, 1):
+                want = kk.jac_double_k_add(spec, P, Q, k)
+                for name, run in runs.items():
+                    if not torch.equal(run(spec, P, Q, k), want):
+                        res["failures"].append(f"{curve.name} {L} lanes k = "
+                                               f"{k}: {name} differs")
+                times = in_turns(runs, lambda run: run(spec, P, Q, k), 20)
+                key = f"{curve.name} {L} lanes k={k}"
+                res["jac"][key] = times
+                print(f"  jac_double_k_add {key} (ms, mean of 2): "
+                      + "; ".join(f"{name} {statistics.mean(t):.4f}"
+                                  for name, t in times.items()), flush=True)
+            del T, P, Q
+        torch.cuda.empty_cache()
+
+
+def fs_launcher(path: str):
+    """fs_round of the kernel library at `path`, taking (spec, fr, S, st,
+    pos, pb) as the wrapper does; returns (xy, u, st, flags)."""
+    import ctypes
+
+    import torch
+
+    from ark_bulletproofs_tpu_torch.ops import fs
+
+    fn = launcher(ctypes.CDLL(path), "fs_round")
+
+    def run(spec, fr, S, st, pos, pb):
+        P = st.shape[0]
+        out = (torch.empty(2, 16, 2 * P, dtype=torch.int32, device=S.device),
+               torch.empty(2, 16, P, dtype=torch.int32, device=S.device),
+               torch.empty_like(st),
+               torch.empty(3, P, dtype=torch.int32, device=S.device))
+        fn(spec, S.data_ptr(), st.data_ptr(), *(t.data_ptr() for t in out),
+           P, pos, pb, fs.inv_words(spec.fq, fr).ctypes.data_as(
+               ctypes.c_void_p),
+           _curve_ptr(fr))
+        return out
+
+    return run
+
+
+def _curve_ptr(spec):
+    import ctypes
+
+    from ark_bulletproofs_tpu_torch.ops import _build
+
+    return _build.curve_words(spec).ctypes.data_as(ctypes.c_void_p)
+
+
+def fs_compare(res: dict, variants: dict, dev) -> None:
+    """fs_round, committed and each variant, at P = 1 and 128 on the three
+    curves (chip_smoke's model points, L = O and R = O lanes on the
+    short-Weierstrass curves): bit-equal, then ms from CUDA graphs in turns
+    into res["fs_round"]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import field as df
+    from ark_bulletproofs_tpu_torch.ops import fs
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    runs = {"committed": lambda *a: fs.fs_round(*a)[:4], **variants}
+    check = cs.KernelCheck(dev, cs.Bound(1980))
+    res["fs_round"] = {}
+    for curve in (curves.secq256k1, curves.zorro, curves.curve25519):
+        spec, fr = spec_for(curve), df.spec_for(curve.fr)
+        for P in (1, 128):
+            S, _ = check.model_points(curve, spec, 1, 2 * P, P)
+            S = S[:, 0].contiguous()
+            if cs.model(spec) == "sw":  # L = O, and R = O at P = 128
+                S[..., [lane for lane in (0, 3) if lane < 2 * P]] = 0
+            g = torch.Generator(device=dev).manual_seed(P)
+            st = torch.randint(0, 256, (P, 200), generator=g, device=dev,
+                               dtype=torch.int32)
+            want = fs.fs_round(spec, fr, S, st, 160, 150)[:4]
+            for name, run in runs.items():
+                got = run(spec, fr, S, st, 160, 150)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    res["failures"].append(f"fs_round {curve.name} P = {P}: "
+                                           f"{name} differs")
+            times = in_turns(runs, lambda run: run(spec, fr, S, st, 160,
+                                                   150), 20)
+            key = f"{curve.name} P={P}"
+            res["fs_round"][key] = times
+            print(f"  fs_round {key} (ms, mean of 2): " + "; ".join(
+                f"{name} {statistics.mean(t):.4f}"
+                for name, t in times.items()), flush=True)
+
+
+def op_cycles(build_dir: str) -> dict:
+    """OP_PROBE built beside csrc/ and run on one thread for the base and
+    scalar fields of secq256k1 and curve25519: SM cycles of one
+    keccak_f1600, one fe_mul and one fe_inv_var (mean over a chain)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import _build
+    from ark_bulletproofs_tpu_torch.ops import field as df
+    from ark_bulletproofs_tpu_torch.ops import fs
+
+    d = os.path.join(build_dir, "op_probe")
+    os.makedirs(d, exist_ok=True)
+    src, lib = os.path.join(d, "op_probe.cu"), os.path.join(d, "lib.so")
+    with open(src, "w") as fh:
+        fh.write(OP_PROBE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", CSRC,
+                    "-shared", "-o", lib, src], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(lib).op_probe_run
+    fn.argtypes = [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    out = {}
+    x = np.array([0x9E3779B9 * (i + 3) & 0xFFFFFFFF for i in range(8)],
+                 dtype=np.uint32)
+    x[7] &= 0x0FFFFFFF  # below every p
+    for field in (curves.secq256k1.fq, curves.secq256k1.fr,
+                  curves.curve25519.fq, curves.curve25519.fr):
+        f = df.spec_for(field)
+        t = torch.zeros(4, dtype=torch.int64, device="cuda")
+        for _ in range(2):  # the second run is the one kept
+            _build.check(fn(ctypes.c_void_p(t.data_ptr()),
+                            x.ctypes.data_as(ctypes.c_void_p), _curve_ptr(f),
+                            fs.inv_words(f, f).ctypes.data_as(
+                                ctypes.c_void_p),
+                            ctypes.c_void_p(
+                                torch.cuda.current_stream().cuda_stream)),
+                         "op_probe")
+        cyc = dict(zip(("keccak_f1600", "fe_mul", "fe_inv_var"),
+                       t.tolist()[:3]))
+        out[field.name] = cyc
+        print(f"  one thread's SM cycles, {field.name}: {cyc}", flush=True)
+    return out
 
 
 def chain_compare(res: dict, variants: dict, dev) -> None:
@@ -231,23 +499,34 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    procs = build_chain_variants(os.path.join(_build.BUILD_DIR, "bench"))
+    procs = build_variants(os.path.join(_build.BUILD_DIR, "bench"),
+                           {**CHAIN_VARIANTS, **JAC_VARIANTS, **FS_VARIANTS})
     _build.lib()
     res["build_s"] = time.perf_counter() - t0
     ptx = [line for line in cs.ptxas_report(_build.build_log or "")
-           if re.match(r"(suffix_|rowsum|horner|mont_mul)", line)]
-    variants = {}
+           if re.match(r"(suffix_|rowsum|horner|mont_mul|double_k_add|fs_)",
+                       line)]
+    chains, jacs, fss = {}, {}, {}
     for name, (p, lib) in procs.items():
         log = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         ptx += [f"{name}: {line}" for line in cs.ptxas_report(log)
-                if re.match(r"(suffix_jac|rowsum)", line)]
-        variants[name] = chain_launchers(lib)
+                if re.match(r"(suffix_jac|rowsum|double_k_add\w* jac|fs_)",
+                            line)]
+        if name in CHAIN_VARIANTS:
+            chains[name] = chain_launchers(lib)
+        elif name in JAC_VARIANTS:
+            jacs[name] = jac_launcher(lib)
+        else:
+            fss[name] = fs_launcher(lib)
     res["ptxas"] = ptx
     for line in ptx:
         print(f"  ptxas {line}", flush=True)
-    chain_compare(res, variants, dev)
+    res["op_cycles"] = op_cycles(os.path.join(_build.BUILD_DIR, "bench"))
+    fs_compare(res, fss, dev)
+    jac_compare(res, jacs, dev)
+    chain_compare(res, chains, dev)
     res["sass_mont_mul"] = sass_mix(_build.library_path(), "mont_mul_kernel")
     print(f"  SASS mont_mul_kernel: {res['sass_mont_mul']}", flush=True)
 

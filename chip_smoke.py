@@ -7,8 +7,8 @@ Phases, each printed with its seconds:
   1. build: the card's name, power limit and maximum SM clock, then nvcc
      builds the kernels (csrc/*.cu, one process per source, in parallel)
      for sm_90a into ark_bulletproofs_tpu_torch/_build/ and prints
-     ptxas's registers and spills per kernel, and g++ the native host
-     library (csrc/host/), which must load;
+     ptxas's registers, stack frame and spills per kernel, and g++ the
+     native host library (csrc/host/), which must load;
   2. kernels: each kernel against its plain PyTorch version on the card,
      bit-equal limbs: the MSM kernels on secq256k1 and zorro (RCB) and on
      curve25519 (twisted-Edwards: the TE instantiations of the three
@@ -16,10 +16,16 @@ Phases, each printed with its seconds:
      P + (-P) lanes, suffix_madd_scan also at the n = 2^20 plan's shape
      (256 rows x 90,112 lanes) and at the 2048-column plan's (512 x
      45,056), timed at both and at the JAX plan's (1024 x 22,528); the
-     Jacobian jac_double_k_add (k = 0, 1, 4) and jac_double on secq256k1 and zorro with doubling, P + (-P), O + P and
-     P + O lanes at the batch tree's 65,536 lanes and the Q table's one;
-     fs_round at P = 1 and 128 transcripts on the three curves; the mixed
-     adds of the v1 Pippenger, jac_madd (secq256k1, zorro) and te_madd
+     Jacobian jac_double_k_add (k = 0, 1, 4) on secq256k1 and zorro with
+     doubling, P + (-P), O + P and P + O lanes at every lane count the
+     paths send (DKA_HELD: 1 to 2^20 lanes, and both sides of the lane
+     counts from which it runs a group of 4 threads a lane instead of 8,
+     and one thread a lane), each timed at k = 0 and 1 on secq256k1 (in
+     microseconds, beside the bound and the critical path), and
+     jac_double at the batch tree's 65,536 lanes and the Q table's one;
+     fs_round at P = 1, 2, 33 and 128 transcripts on the three curves,
+     with L = O, R = O and both on secq256k1 and zorro; the mixed adds of
+     the v1 Pippenger, jac_madd (secq256k1, zorro) and te_madd
      (curve25519), at 65,536 and 1 lanes with P = O, Q = O, P = Q and
      P = -Q lanes (te_double_k_add also at k = 1 and 4); mont_mul
      on two fr fields at 1,000, 6 x 2048 and 9 x 2048 lanes, with a
@@ -47,8 +53,9 @@ Phases, each printed with its seconds:
      jac_double at one lane, fs_round at P = 1 and 128, jac_madd and
      te_madd at the create_batch row scan's 32,768 lanes, horner_windows
      at the stage-G shape and against its loop (also in microseconds a
-     group operation of the chain), jac_horner_windows at the v1 shape, rcb_double at 65,536 lanes, row_gather at both shapes
-     beside index_select), the kernel alone by replaying a CUDA graph of
+     group operation of the chain), jac_horner_windows at the v1 shape,
+     rcb_double at 65,536 lanes, row_gather at both shapes beside
+     index_select), the kernel alone by replaying a CUDA graph of
      its launches, beside its plain version and its bound;
   3. msm: n = 2^20 secq256k1 through the port's `msm`, equal to the native
      host Pippenger, then timed (median of 5) with its peak memory, and
@@ -100,9 +107,9 @@ Phases, each printed with its seconds:
  14. launches: each path of phases 3-13 runs with every launch count set
      to 0 just before it and read just after; each of its kernels
      launched (the window Horner on every MSM path), and the v1 paths'
-     double-k-add kernel at k > 0; and the most lanes suffix_jac_scan and
-     rowsum were launched at over those paths, no more than phase 2 held
-     them at;
+     double-k-add kernel at k > 0; and the most lanes suffix_jac_scan,
+     rowsum and jac_double_k_add were launched at over those paths, no
+     more than phase 2 held them at;
  15. traces: the card prove (secq256k1 and curve25519) and the verify
      once more each under torch.profiler, which splits card time from
      host time and names the largest kernels (last, so that no timing
@@ -157,6 +164,19 @@ MSM_CU = "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu"
 FS_CU = "ark_bulletproofs_tpu_torch/csrc/fs_kernels.cu"
 GATHER_CU = "ark_bulletproofs_tpu_torch/csrc/gather_kernels.cu"
 TREE_LANES = 128 * 256  # the first step of the P = 128 batch's c * Q tree
+# jac_double_k_add's lane counts on the paths: the on-device Fiat-Shamir
+# IPA's c * Q tree (2 P h lanes, h = n / 2 ... 1: 256 ... 2 for one proof
+# at n = 256, 32,768 ... 256 for P = 128) and its S = MSM + c * Q (2 P),
+# and the v1 Pippenger's adds and bit-Horner steps (k = 1) on G windows
+# of its sets: G C, G S and G c S / 2^j lanes, powers of two, and 3 x
+# 2^13 to 3 x 2^18 for prove_batch's 384 sets (3 phase MSMs of 128
+# proofs; 786,432 lanes at its bit tree's first level). Each held and
+# timed at k = 0 and 1; 1 and 2^20 lanes are held too. Phase 14 checks
+# that no path sends more, and names any lane count a path sent that
+# phase 2 did not time.
+DKA_LANES = sorted([1 << i for i in range(1, 20)]
+                   + [3 << i for i in range(13, 19)])
+DKA_HELD = [1, *DKA_LANES, 1 << 20]
 # The kernels JSON line, one entry per kernel and point model: (entry
 # name, wrapper, model of the paths it counts, source, TPU kernels it
 # replaces). "[te]" entries are the twisted-Edwards instantiations of the
@@ -327,36 +347,57 @@ class Launches:
                    if on_model in (None, m))
 
 
-class ChainLanes:
-    """The most lanes (with the rows and the counted path then, None
-    between paths) each of stages D and F's kernels is launched at in
-    phases 3-13: kernels2's launch helper is replaced by a recorder that
-    reads those launchers' (rows, lanes) arguments and launches as before
-    (the wrappers and their counts stay as they are)."""
+class PathLanes:
+    """The most lanes (with the rows or k, and the counted path then, None
+    between paths) that stages D and F's kernels and jac_double_k_add are
+    launched at in phases 3-13: the launch helpers of kernels2 and kernels
+    are replaced by recorders that read those launchers' arguments and
+    launch as before (the wrappers and their counts stay as they are)."""
 
-    NAMES = ("suffix_jac_scan", "rowsum")
+    def __init__(self, kk, k2, launches: Launches):
+        chain = {L for _, L, _ in CHAIN_SHAPES}
+        # name: (module, (lanes, rows or k) from the launch's arguments,
+        # what the second number is, the lane counts phase 2 times)
+        self.kinds = {
+            "suffix_jac_scan": (k2, lambda a: (a[-1], a[-2]), "rows", chain),
+            "rowsum": (k2, lambda a: (a[-1], a[-2]), "rows", chain),
+            "jac_double_k_add": (kk, lambda a: (a[3], a[4]), "k",
+                                 set(DKA_LANES)),
+        }
+        self.held = {"suffix_jac_scan": max(chain), "rowsum": max(chain),
+                     "jac_double_k_add": max(DKA_HELD)}
+        self.most = {name: (0, 0, None) for name in self.kinds}
+        self.seen = {name: set() for name in self.kinds}
+        for mod in (k2, kk):
+            self._record(mod, launches)
 
-    def __init__(self, k2, launches: Launches):
-        self.most = {name: (0, 0, None) for name in self.NAMES}
-        launch = k2.launch
+    def _record(self, mod, launches: Launches) -> None:
+        launch = mod.launch
+        mine = {n: kind for n, kind in self.kinds.items() if kind[0] is mod}
 
         def record(name, spec, dev, *args):
-            if name in self.most:
-                rows, lanes = args[-2:]
-                if (lanes, rows) > self.most[name][:2]:
-                    self.most[name] = (lanes, rows, launches.current)
+            if name in mine:
+                lanes, other = mine[name][1](args)
+                self.seen[name].add(lanes)
+                if (lanes, other) > self.most[name][:2]:
+                    self.most[name] = (lanes, other, launches.current)
             return launch(name, spec, dev, *args)
 
-        k2.launch = record
+        mod.launch = record
 
     def check(self) -> None:
-        """Print each kernel's most lanes; raise if phase 2 held it at
-        fewer."""
-        held = max(L for _, L, _ in CHAIN_SHAPES)
-        for name, (L, R, path) in self.most.items():
-            print(f"   {name}: at most {L} lanes ({R} rows, path {path}); "
-                  f"phase 2 holds it at up to {held}", flush=True)
-        over = [name for name, (L, _, _) in self.most.items() if L > held]
+        """Print each kernel's most lanes and the lane counts sent that
+        phase 2 did not time; raise if phase 2 held it at fewer."""
+        over = []
+        for name, (L, other, path) in self.most.items():
+            _, _, what, timed = self.kinds[name]
+            held = self.held[name]
+            print(f"   {name}: at most {L} lanes ({what} {other}, path "
+                  f"{path}); phase 2 holds it at up to {held}; lane counts "
+                  f"sent and not timed there: "
+                  f"{sorted(self.seen[name] - timed)}", flush=True)
+            if L > held:
+                over.append(name)
         if over:
             raise AssertionError(f"{over}: a path sent more lanes than "
                                  f"phase 2 holds them at")
@@ -699,44 +740,72 @@ class KernelCheck:
         return torch.where(ident.unsqueeze(-2), 0, P).contiguous(), ident
 
     def run_jac(self, curve, seed: int, timed: bool) -> None:
-        """jac_double_k_add (k = 0, 1, 4) and jac_double bit-equal to their
-        plain versions at the batch tree's 65,536 lanes and the Q table's
-        one: P = row 0 and Q = row 1 of model_points, so the lanes hold
-        doublings (the same point under two Z), P + (-P), O + Q, P + O and
-        O + O."""
+        """jac_double_k_add (k = 0, 1, 4) bit-equal to its plain version at
+        every lane count the paths send and at the crossover's neighbours
+        (DKA_HELD, kk.DKA_GROUP4_MIN_LANES and DKA_ONE_THREAD_MIN_LANES
+        and the lane counts just below them), jac_double
+        at 65,536 and 1 lanes: P = row 0 and Q = row 1 of model_points, so
+        the lanes hold doublings (the same point under two Z), P + (-P),
+        O + Q, P + O and O + O. Timed at k = 0 and 1 at DKA_LANES, each
+        from a CUDA graph, in microseconds a lane's operation beside the
+        bound and the critical path (the group's product levels, or one
+        thread's products); the table keeps the P = 128 tree's first
+        32,768 lanes at k = 0."""
         from ark_bulletproofs_tpu_torch.ops import kernels as kk
         from ark_bulletproofs_tpu_torch.ops.curve import spec_for
 
         spec = spec_for(curve)
+        fe = FE_MULS["jac"]
+        dbl = fe["double"] if spec.is_a_zero else fe["double_a"]
+        # add levels of 5, 4, 3, 2, 2 products: 5 rounds at G = 8, 6 at
+        # G = 4; doubling 4, 3, 1 (and M^2 a round of its own for a != 0)
+        dbl_lv = 3 if spec.is_a_zero else 4
+        g4, one = kk.DKA_GROUP4_MIN_LANES, kk.DKA_ONE_THREAD_MIN_LANES
+        shapes = sorted({*DKA_HELD, g4 - 1, g4, one - 1, one})
         t0 = time.perf_counter()
-        for L in (2 * 128 * 256, 1):
-            T, _ = self.model_points(curve, spec, 2, L, seed + L)
+        for L in shapes:
+            T, ident = self.model_points(curve, spec, 2, L, seed + L)
             P, Q = T[:, 0].contiguous(), T[:, 1].contiguous()
             for k in (0, 1, 4):
                 self.compare("jac_double_k_add",
                              kk.jac_double_k_add(spec, P, Q, k),
                              kk.jac_double_k_add_plain(spec, P, Q, k))
-            self.compare("jac_double", kk.jac_double(spec, P),
-                         kk.jac_double_plain(spec, P))
-        print(f"   {curve.name} jac_double_k_add (k = 0, 1, 4) and "
-              f"jac_double at 65536 and 1 lanes: bit-equal "
+            if L in (1 << 16, 1):
+                self.compare("jac_double", kk.jac_double(spec, P),
+                             kk.jac_double_plain(spec, P))
+            if not timed or L not in DKA_LANES:
+                continue
+            xy = self.affine_rows(curve, spec, 2, L, seed + L)
+            doubling = int(((xy[:, 0] == xy[:, 1]).all(dim=1).all(dim=0)
+                            & ~ident[0] & ~ident[1]).sum())
+            for k in (0, 1):
+                ms = graph_ms(lambda: kk.jac_double_k_add(spec, P, Q, k), 20)
+                muls = L * (fe["add"] + k * dbl) + (doubling * dbl if k == 0
+                                                    else 0)
+                bound = self.bound(3 * 3 * 16 * L * 4, muls * MULS_PER_FE_MUL)
+                if L < one:
+                    G, add_lv = (8, 5) if L < g4 else (4, 6)
+                    path = (f"a group of {G} threads a lane: "
+                            f"{k * dbl_lv + add_lv} product levels, {dbl_lv} "
+                            f"more on a doubling lane")
+                else:
+                    path = (f"one thread a lane: {k * dbl + fe['add']} "
+                            f"products, {dbl} more on a doubling lane")
+                print(f"   {curve.name} jac_double_k_add {L} lanes k = {k}: "
+                      f"kernel {ms:.4f} ms ({ms * 1e3:.2f} us); bound "
+                      f"{bound[0]:.5g} ms ({bound[1]}); critical path "
+                      f"({path})", flush=True)
+                if L == TREE_LANES and k == 0:
+                    self.times["jac_double_k_add"] = (
+                        ms, host_ms(lambda: kk.jac_double_k_add_plain(
+                            spec, P, Q, 0)), *bound)
+        print(f"   {curve.name} jac_double_k_add (k = 0, 1, 4) at {shapes} "
+              f"lanes and jac_double at 65536 and 1 lanes: bit-equal "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         if not timed:
             return
-        fe = FE_MULS["jac"]
-        dbl = fe["double"] if spec.is_a_zero else fe["double_a"]
-        T, ident = self.model_points(curve, spec, 2, TREE_LANES, seed)
-        P, Q = T[:, 0].contiguous(), T[:, 1].contiguous()
-        xy = self.affine_rows(curve, spec, 2, TREE_LANES, seed)
-        doubling = int(((xy[:, 0] == xy[:, 1]).all(dim=1).all(dim=0)
-                        & ~ident[0] & ~ident[1]).sum())
-        m = TREE_LANES
-        self.times["jac_double_k_add"] = (
-            graph_ms(lambda: kk.jac_double_k_add(spec, P, Q, 0), 20),
-            host_ms(lambda: kk.jac_double_k_add_plain(spec, P, Q, 0)),
-            *self.bound(3 * 3 * 16 * m * 4,
-                        (m * fe["add"] + doubling * dbl) * MULS_PER_FE_MUL))
-        P1 = P[..., :1].contiguous()
+        T, _ = self.model_points(curve, spec, 2, 1, seed)
+        P1 = T[:, 0].contiguous()
         self.times["jac_double"] = (
             graph_ms(lambda: kk.jac_double(spec, P1), 100),
             host_ms(lambda: kk.jac_double_plain(spec, P1)),
@@ -791,25 +860,27 @@ class KernelCheck:
                         (m * fe["madd"] + doubling) * MULS_PER_FE_MUL))
 
     @staticmethod
-    def fs_round_muls(curve, spec, P: int) -> int:
-        """Multiply instructions of one fs_round launch over P transcripts:
-        per transcript two Fermat inversions in fq (square-and-multiply
-        over p - 2) with the affine and out-of-Montgomery products, one in
-        fr. Keccak, ChaCha20 and the comparisons do no multiplies and are
-        left out, so this is a lower bound."""
-
-        def inv(p: int) -> int:
-            e = p - 2
-            return e.bit_length() - 1 + bin(e).count("1") - 1
-
-        side = inv(curve.fq.p) + (4 if model(spec) == "te" else 6)
-        return P * (2 * side + inv(curve.fr.p)) * MULS_PER_FE_MUL
+    def fs_round_muls(spec, P: int) -> int:
+        """Multiply instructions of one fs_round launch over P transcripts,
+        counting its field products: per transcript Z_L Z_R, the two
+        products that recover 1 / Z_L and 1 / Z_R, the R^3 product of each
+        of the two inversions (fq, fr), and per side the affine and
+        out-of-Montgomery products (Jacobian 1 / Z^2, 1 / Z^3, X and Y by
+        them, 2 out: 6; TE X / Z, Y / Z, 2 out: 4), 264 instructions each.
+        The safegcd inversions' own word products (92 a batch for the
+        matrix updates, 11 an inner step; 17-19 batches of about 8 steps)
+        depend on the data and are left out, as are Keccak, ChaCha20 and the
+        comparisons, which multiply nothing: a lower bound."""
+        side = 4 if model(spec) == "te" else 6
+        return P * (4 + 2 * side + 1) * MULS_PER_FE_MUL
 
     def run_fs_round(self, curve, seed: int, timed: bool) -> None:
         """fs_round bit-equal to fs_round_plain (affine L and R, the
-        state, u and u^-1, the flags, the positions) for P = 1 and 128
-        transcripts at three positions, the last crossing the STROBE
-        rate; timed at P = 1 (a single proof) and 128 (the batch)."""
+        state, u and u^-1, the flags, the positions) for P = 1, 2, 33 and
+        128 transcripts at three positions, the last crossing the STROBE
+        rate; on a short-Weierstrass curve with L = O (lane 0), R = O
+        (lane 3) and both (lanes 4 and 5) where P reaches them; timed at
+        P = 1 (a single proof) and 128 (the batch)."""
         import torch
 
         from ark_bulletproofs_tpu_torch.ops import field as df
@@ -819,9 +890,12 @@ class KernelCheck:
         spec = spec_for(curve)
         fr = df.spec_for(curve.fr)
         t0 = time.perf_counter()
-        for P in (1, 128):
+        for P in (1, 2, 33, 128):
             S, _ = self.model_points(curve, spec, 1, 2 * P, seed + P)
             S = S[:, 0].contiguous()
+            ident = [] if model(spec) == "te" else [
+                lane for lane in (0, 3, 4, 5) if lane < 2 * P]
+            S[..., ident] = 0
             g = torch.Generator(device=self.dev).manual_seed(seed)
             st = torch.randint(0, 256, (P, 200), generator=g,
                                device=self.dev, dtype=torch.int32)
@@ -832,7 +906,7 @@ class KernelCheck:
                 if got[4:] != want[4:]:
                     raise AssertionError(f"fs_round positions {got[4:]} != "
                                          f"{want[4:]}")
-            if timed:
+            if timed and P in (1, 128):
                 nc = S.shape[0]
                 nbytes = (nc * 16 * 2 * P + 2 * 200 * P + 2 * 16 * 2 * P
                           + 2 * 16 * P + 3 * P) * 4
@@ -842,8 +916,8 @@ class KernelCheck:
                              20),
                     host_ms(lambda: fs.fs_round_plain(spec, fr, S, st, 160,
                                                       150)),
-                    *self.bound(nbytes, self.fs_round_muls(curve, spec, P)))
-        print(f"   {curve.name} fs_round at P = 1 and 128: bit-equal "
+                    *self.bound(nbytes, self.fs_round_muls(spec, P)))
+        print(f"   {curve.name} fs_round at P = 1, 2, 33 and 128: bit-equal "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     def run_mont_mul(self, curve, seed: int, timed: bool) -> None:
@@ -2012,29 +2086,49 @@ def phase_batch_verify_dev(curve, launches: Launches) -> None:
 
 def ptxas_report(log: str) -> list[str]:
     """One line per kernel instantiation of nvcc's `-Xptxas -v` report:
-    kernel, point model, registers, spill stores and loads (bytes)."""
+    kernel, point model, thread group size G, registers, stack frame,
+    spill stores and loads (bytes); and one for each function the kernels
+    call (not inlined) with its stack frame and spills."""
     import re
 
     models = {"TeModel": "te", "RcbModelILb1E": "rcb a=0",
               "RcbModelILb0E": "rcb a", "JacModelILb1E": "jac a=0",
               "JacModelILb0E": "jac a", "kernelIlE": "int64 indices",
               "kernelIiE": "int32 indices"}
-    out, name, spills = [], None, ""
+
+    def short(mangled: str) -> str:
+        m = re.match(r"_Z(\d+)", mangled)
+        if not m:
+            return mangled
+        return mangled[len(m.group(0)):len(m.group(0)) + int(m.group(1))]
+
+    out, entry, label, props, frame = [], None, None, None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)
-            kern = re.search(r"\d+(\w+?_kernel)", name)
-            kind = next((v for k, v in models.items() if k in name), "")
-            name = f"{kern.group(1) if kern else name} {kind}".strip()
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+            entry, frame = m.group(1), ""
+            kind = next((v for k, v in models.items() if k in entry), "")
+            grp = re.search(r"ELi(\d+)EE", entry)
+            if grp:
+                kind += f" G={grp.group(1)}"
+            label = f"{short(entry)} {kind}".strip()
+        m = re.search(r"Function properties for (\S+)", line)
         if m:
-            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            text = (f"stack frame {m.group(1)} B, spill stores {m.group(2)} "
+                    f"B, loads {m.group(3)} B")
+            if props == entry:
+                frame = text
+            else:
+                out.append(f"{short(props or '?')} (called, not inlined): "
+                           f"{text}")
         m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} registers, {spills}")
-            name = None
+        if m and label:
+            out.append(f"{label}: {m.group(1)} registers, {frame}")
+            label = None
     return out
 
 
@@ -2119,7 +2213,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = Launches(wrappers)
-    chain_lanes = ChainLanes(k2, launches)
+    path_lanes = PathLanes(kk, k2, launches)
     with phase("3 msm n=2^20 secq256k1"):
         phase_msm(curves.secq256k1, launches)
     with phase(f"4 shuffle k={SHUFFLE_K} secq256k1"):
@@ -2145,7 +2239,7 @@ def main() -> int:
         phase_batch_verify_dev(curves.secq256k1, launches)
     with phase("14 launches"):
         launches.check()
-        chain_lanes.check()
+        path_lanes.check()
     with phase("15 traces"):
         traced(f"secq256k1 card prove k={SHUFFLE_K}", prove)
         traced(f"secq256k1 verify k={SHUFFLE_K}", verify)

@@ -367,6 +367,116 @@ def test_fs_round_matches_plain_version(curve, P, cuda_dev):
     assert fs.fs_round.launches == before + 2
 
 
+@pytest.mark.parametrize("P", [1, 2, 33, 128])
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_fs_round_with_identity_lanes_and_unit_z(curve, P, cuda_dev):
+    """fs_round (one safegcd inversion in fq for L's and R's Z, one in fr
+    for u) equal to fs_round_plain (Fermat inversions) at P transcripts,
+    at three positions, the last crossing the STROBE rate; on a
+    short-Weierstrass curve with L = O (lane 0), R = O (lane 3) and both
+    (lanes 4, 5) where P reaches them; and a point with Z = 1 (lane
+    2P - 1) and one with Z = p - 1 (lane 2P - 2), each rebuilt from its
+    lane's affine coordinates."""
+    spec = spec_for(curve)
+    fq, fr = spec.fq, df.spec_for(curve.fr)
+    te = is_te(spec)
+    S = _model_points(curve, spec, 1, cuda_dev, seed=P + 40)[:, 0, :, :2 * P]
+    S = S.contiguous()
+    ident = [lane for lane in (0, 3, 4, 5) if lane < 2 * P and not te]
+    for lane in ident:
+        S[:, :, lane] = 0
+    # the affine coordinates in Montgomery form, then X, Y (and T) for Z
+    xy = fs.fs_round_plain(spec, fr, S, torch.zeros(P, 200, dtype=torch.int32,
+                                                    device=cuda_dev), 0, 0)[0]
+    r2 = df.const(fq.r2_limbs, cuda_dev)
+
+    def mm(a, b):
+        return df.mont_mul(fq, a, b).to(torch.int32)
+
+    x, y = mm(xy[0], r2), mm(xy[1], r2)
+    for lane, z in ((2 * P - 1, fq.R % fq.p), (2 * P - 2, fq.p - 1)):
+        if lane < 0 or lane in ident:
+            continue
+        zc = ints_to_limbs([z], cuda_dev).to(torch.int32)[:, 0]
+        xl, yl = x[:, lane:lane + 1], y[:, lane:lane + 1]
+        zl = zc[:, None]
+        if te:
+            col = [mm(xl, zl), mm(yl, zl), mm(mm(xl, yl), zl), zl]
+        else:
+            z2 = mm(zl, zl)
+            col = [mm(xl, z2), mm(yl, mm(z2, zl)), zl]
+        S[:, :, lane:lane + 1] = torch.stack(col)
+    g = torch.Generator(device=cuda_dev).manual_seed(P)
+    st = torch.randint(0, 256, (P, 200), generator=g, device=cuda_dev,
+                       dtype=torch.int32)
+    before = fs.fs_round.launches
+    for pos, pb in ((3, 1), (90, 85), (160, 150)):
+        got = fs.fs_round(spec, fr, S, st, pos, pb)
+        want = fs.fs_round_plain(spec, fr, S, st, pos, pb)
+        assert all(torch.equal(a, b) for a, b in zip(got[:4], want[:4]))
+        assert got[4:] == want[4:]
+        assert [int(got[3][0, b]) for b in range(min(P, 3))] == [
+            int(2 * b in ident) for b in range(min(P, 3))]
+    assert fs.fs_round.launches == before + 3
+
+
+def _jac_operands(curve, spec, lanes, dev, seed):
+    """P, Q (3, 16, lanes) Jacobian points, each with its own random Z,
+    by lane % 6: a random pair, Q = P (a doubling), Q = -P, P = O, Q = O,
+    both O."""
+    fq = spec.fq
+    rng = seeded_rng(seed)
+    X, Y, _ = affine_to_device(curve, [curve.rand(rng) for _ in range(32)],
+                               dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kind = torch.arange(lanes, device=dev) % 6
+    ip = torch.randint(0, 32, (lanes,), generator=g, device=dev)
+    iq = torch.randint(0, 32, (lanes,), generator=g, device=dev)
+    iq = torch.where((kind == 1) | (kind == 2), ip, iq)
+    yq = torch.where(kind == 2, df.neg(fq, Y[:, iq]).to(torch.int32),
+                     Y[:, iq])
+
+    def mm(a, b):
+        return df.mont_mul(fq, a, b).to(torch.int32)
+
+    def jac(x, y, ident):
+        z = torch.randint(0, 1 << 16, (16, lanes), generator=g, device=dev,
+                          dtype=torch.int32)
+        z[15] = 0
+        z[0] |= 1
+        z2 = mm(z, z)
+        P = torch.stack([mm(x, z2), mm(y, mm(z2, z)), z])
+        return torch.where(ident, 0, P).contiguous()
+
+    return (jac(X[:, ip], Y[:, ip], (kind == 3) | (kind == 5)),
+            jac(X[:, iq], yq, (kind == 4) | (kind == 5)))
+
+
+DKA_LANES = [1, 2, 3, 33, 256, kk.DKA_GROUP4_MIN_LANES - 1,
+             kk.DKA_GROUP4_MIN_LANES, kk.DKA_ONE_THREAD_MIN_LANES - 1,
+             kk.DKA_ONE_THREAD_MIN_LANES, 32768]
+
+
+@pytest.mark.parametrize("lanes", DKA_LANES)
+@pytest.mark.parametrize("curve", CURVES[:2], ids=lambda c: c.name)
+def test_jac_double_k_add_on_both_sides_of_the_crossover(curve, lanes,
+                                                        cuda_dev):
+    """jac_double_k_add at k = 0, 1 and 4 (a group of 8 threads a lane,
+    of 4 from kk.DKA_GROUP4_MIN_LANES, one thread from
+    kk.DKA_ONE_THREAD_MIN_LANES) at lane counts of the paths (1-256: the
+    c * Q tree and S of one proof; 32,768: the tree's first step at
+    P = 128) and both crossovers' neighbours, with doubling, cancelling
+    and identity lanes: bit-equal to the plain version, each launch
+    counted once."""
+    spec = spec_for(curve)
+    P, Q = _jac_operands(curve, spec, lanes, cuda_dev, seed=lanes % 991)
+    before = kk.jac_double_k_add.launches
+    for k in (0, 1, 4):
+        assert torch.equal(kk.jac_double_k_add(spec, P, Q, k),
+                           kk.jac_double_k_add_plain(spec, P, Q, k)), k
+    assert kk.jac_double_k_add.launches == before + 3
+
+
 @pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
 def test_fs_ipa_on_card_matches_per_round_route(curve, cuda_dev,
                                                 monkeypatch):

@@ -22,6 +22,7 @@ import torch
 
 from ark_bulletproofs_tpu.ops import msm2 as jm
 from ark_bulletproofs_tpu_torch import curves, engine, msm, seeded_rng
+from ark_bulletproofs_tpu_torch.ops import kernels as kk
 from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 from ark_bulletproofs_tpu_torch.ops import msm2
 from ark_bulletproofs_tpu_torch.ops.curve import (affine_to_device,
@@ -129,13 +130,44 @@ def test_chain_crossover_follows_the_launcher():
                        re.M)
     assert cross == [str(k2.CHAIN_ONE_THREAD_MIN_LANES)]
     assert src.count("if (L >= CHAIN_ONE_THREAD_MIN_LANES)") == 2
-    assert re.findall(r"static constexpr int ADD_GRP = (\d+);", src) == [
+    # RcbModel's and TeModel's (JacModel's, third, is the double-k-add's)
+    assert re.findall(r"static constexpr int ADD_GRP = (\d+);", src)[:2] == [
         "8", "8"]
     big = msm2._Cfg(1 << 20, msm2.window_bits(1 << 20), 1, "cpu")
     assert big.BW * big.c1 == 1408 < k2.CHAIN_ONE_THREAD_MIN_LANES
     batch = msm2._Cfg(256, msm2.window_bits(256), 1024, "cpu")
     assert (batch.c2, batch.BW * batch.c1) == (16, 1_048_576)
     assert k2.CHAIN_ONE_THREAD_MIN_LANES <= batch.BW * batch.c1
+
+
+def test_jac_double_k_add_crossover_follows_the_launcher():
+    """kernels.DKA_GROUP4_MIN_LANES and DKA_ONE_THREAD_MIN_LANES are the
+    lane counts from which csrc/msm_kernels.cu's jac_double_k_add launcher
+    runs a group of 4 threads a lane and one thread a lane
+    (double_k_add_kernel); below them JacModel's group of ADD_GRP = 8
+    threads a lane (double_k_add_group_kernel), on both Jacobian models.
+    The on-device Fiat-Shamir IPA of one proof at n = 256 (its c * Q
+    tree's 2h lanes, h = 128 ... 1, and S's 2) takes the group of 8, the
+    P = 128 batch's tree (256 h lanes) the three mappings."""
+    with open(MSM_CU) as fh:
+        src = fh.read()
+    for name in ("DKA_GROUP4_MIN_LANES", "DKA_ONE_THREAD_MIN_LANES"):
+        got = re.findall(rf"^#define {name} (\d+)$", src, re.M)
+        assert got == [str(getattr(kk, name))], name
+    launcher = src[src.index("static void launch_double_k_add("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert re.findall(r"if \(m >= (\w+)\)", launcher) == [
+        "DKA_ONE_THREAD_MIN_LANES", "DKA_GROUP4_MIN_LANES"]
+    assert "double_k_add_group_kernel<M, 4>" in launcher
+    assert "double_k_add_group_kernel<M, G>" in launcher
+    jac = src[src.index("struct JacModel"):src.index("using RcbA0")]
+    assert re.findall(r"static constexpr int ADD_GRP = (\d+);", jac) == ["8"]
+    body = src[src.index('extern "C" int abtpu_jac_double_k_add'):]
+    body = body[:body.index("\n}\n")]
+    assert body.count("launch_double_k_add<JacModel<") == 2
+    assert "double_k_add_kernel<" not in body
+    assert 2 * 128 < kk.DKA_GROUP4_MIN_LANES < kk.DKA_ONE_THREAD_MIN_LANES
+    assert kk.DKA_ONE_THREAD_MIN_LANES <= 256 * 128
 
 
 def _case(curve, n, seed):
