@@ -86,12 +86,21 @@
 // on-device Fiat-Shamir IPA's table shrink (1024 sets at n = 256) sends
 // stage D 16 rows of 1,048,576.
 //
-// The elementwise Jacobian 2^k P + Q (jac_double_k_add) is the same
-// latency problem one add deep: the on-device Fiat-Shamir IPA sends it 2 to
-// 256 lanes a launch for one proof. Below DKA_ONE_THREAD_MIN_LANES lanes
-// a group of JacModel::ADD_GRP = 8 threads runs each lane (of 4 from
-// DKA_GROUP4_MIN_LANES; double_k_add_group_kernel), from it one thread a
-// lane.
+// The elementwise 2^k P + Q (jac_double_k_add, rcb_double_k_add,
+// te_double_k_add) spans both regimes, so its launcher picks a mapping by
+// the lane count, in bands that are members of the point model (M::DKA_*,
+// measured on the H100 for each model). With few lanes it is the same
+// latency problem one add deep: the on-device Fiat-Shamir IPA sends the
+// Jacobian kernel 2 to 256 lanes a launch for one proof, the TE commit
+// tree and c * Q tree send te_double_k_add as few, and the ragged MSM's
+// chunk sum adds one lane a set. There a group of M::ADD_GRP = 8 threads
+// runs each lane (of 4 from M::DKA_GROUP4_MIN_LANES lanes;
+// double_k_add_group_kernel). With many lanes (stages D and E of the v2
+// MSM: 90,112 lanes at n = 2^20, up to 16,777,216 in the on-device
+// Fiat-Shamir IPA's table shrink) the card is throughput-bound and one
+// thread a lane runs from M::DKA_ONE_THREAD_MIN_LANES: for RCB and TE
+// points double_k_add_wide_kernel (see its note), for Jacobian points
+// double_k_add_kernel.
 //
 // A TE point is 4 x 8 words against 3 x 8: the TE scans write a third
 // more bytes (5.9 GB at the n = 2^20 shape) for the same 11 products a
@@ -122,13 +131,11 @@
 // chain; below it a group of M::ADD_GRP threads (see the note above;
 // ops/kernels2.py mirrors it, tests/test_torch_msm_plan.py ties the two).
 #define CHAIN_ONE_THREAD_MIN_LANES 16384
-// jac_double_k_add: from DKA_ONE_THREAD_MIN_LANES lanes on, one thread
-// runs each lane's 2^k P + Q; below it a group of M::ADD_GRP = 8 threads,
-// or of 4 from DKA_GROUP4_MIN_LANES (see the note at
-// double_k_add_group_kernel; ops/kernels.py mirrors both,
-// tests/test_torch_msm_plan.py ties them).
-#define DKA_GROUP4_MIN_LANES 4096
-#define DKA_ONE_THREAD_MIN_LANES 24576
+// double_k_add_wide_kernel's block, and the blocks an SM must keep
+// resident with the doubling code (k > 0; at k = 0 the model's
+// DKA_MIN_BLOCKS): at most 168 registers a thread.
+#define DKA_THREADS 128
+#define DKA_DBL_MIN_BLOCKS 3
 
 template <bool AZ>
 struct RcbModel {
@@ -151,6 +158,16 @@ struct RcbModel {
   static constexpr int GRP = AZ ? 4 : 8;  // the widest level: 4, or 6
   // An add-only chain (stages D and F): add levels of 6 + 6, or 6 + 4 + 6.
   static constexpr int ADD_GRP = 8;
+  // rcb_double_k_add's bands (launch_double_k_add; ops/kernels.py mirrors
+  // them, tests/test_torch_msm_plan.py ties the two): the same for both
+  // branches on the H100.
+  static constexpr int64_t DKA_GROUP4_MIN_LANES = 8192;
+  static constexpr int64_t DKA_ONE_THREAD_MIN_LANES = 16384;
+  static constexpr bool DKA_WIDE = true;
+  // double_k_add_wide_kernel's blocks an SM keeps resident at k = 0: 3
+  // (at most 168 registers) for a = 0; 5 (at most 102) for a != 0, which
+  // ptxas fits in 96 with no spill.
+  static constexpr int DKA_MIN_BLOCKS = AZ ? 3 : 5;
   template <int G>
   static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
                                            const P& b, const CurveConst& cc) {
@@ -192,6 +209,11 @@ struct TeModel {
   }
   static constexpr int GRP = 8;  // levels of 5, 2 and 4 products
   static constexpr int ADD_GRP = 8;  // the same levels in an add-only chain
+  // te_double_k_add's bands, as RcbModel's.
+  static constexpr int64_t DKA_GROUP4_MIN_LANES = 4096;
+  static constexpr int64_t DKA_ONE_THREAD_MIN_LANES = 16384;
+  static constexpr bool DKA_WIDE = true;
+  static constexpr int DKA_MIN_BLOCKS = 3;
   template <int G>
   static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
                                            const P& b, const CurveConst& cc) {
@@ -237,6 +259,11 @@ struct JacModel {
   static constexpr int GRP = 4;  // doubling levels of 4, 3, 1 (and 1, 1)
   // jac_double_k_add's group: add levels of 5, 4, 3, 2, 2 products.
   static constexpr int ADD_GRP = 8;
+  // jac_double_k_add's bands, as RcbModel's; its one-thread band runs
+  // double_k_add_kernel.
+  static constexpr int64_t DKA_GROUP4_MIN_LANES = 4096;
+  static constexpr int64_t DKA_ONE_THREAD_MIN_LANES = 24576;
+  static constexpr bool DKA_WIDE = false;
   template <int G>
   static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
                                            const P& b, const CurveConst& cc) {
@@ -364,7 +391,8 @@ __global__ void __launch_bounds__(HG_THREADS, 1)
   if (gr.g == 0) M::store(out, 1, 0, L, lane, acc);
 }
 
-// out = 2^k * P + Q elementwise; P, Q, out: (NC, 1, 16, m).
+// out = 2^k * P + Q elementwise; P, Q, out: (NC, 1, 16, m). One thread a
+// lane: jac_double_k_add's one-thread band.
 template <class M>
 __global__ void __launch_bounds__(THREADS)
     double_k_add_kernel(const int32_t* __restrict__ P,
@@ -379,20 +407,55 @@ __global__ void __launch_bounds__(THREADS)
   M::store(out, 1, 0, m, lane, acc);
 }
 
+// The throughput band of rcb_double_k_add and te_double_k_add: one thread
+// a lane, from M::DKA_ONE_THREAD_MIN_LANES lanes (90,112 at the n = 2^20
+// MSM's stages D and E, up to 16,777,216). The card is bound there by the
+// instructions of the products (12 a lane on RCB a = 0, 11 on TE, about
+// 800 SASS instructions each), once enough warps run to hide each
+// product's latency. The parent's kernel, double_k_add_kernel with the k
+// loop and no minimum of resident blocks, took 0.0875 ms at 90,112 lanes
+// on RCB a = 0 (96 registers, a spill): 704 blocks against 660 resident,
+// so a second wave of 44 blocks nearly doubled the launch. Here DBL =
+// false, k = 0, the main path's only k, leaves out the doubling code, and
+// __launch_bounds__ keeps M::DKA_MIN_BLOCKS blocks resident with no spill
+// (ptxas: 147-156 registers at 3 blocks, 96 at 5): 0.0458 ms there. On
+// RCB a = 0 and TE, 4 and 5 blocks (128 and 96 registers) spill on most
+// instantiations, gain at most 3% anywhere and lose up to 16% at 90,112
+// lanes; zorro's add fits 5 blocks without a spill and runs up to 1.38
+// times faster from 262,144 lanes. A grid of resident blocks striding
+// over the lanes was slower at k = 0 at every lane count measured (up to
+// 1.9 times) than one block per 128 lanes (PERF.md, bench_kernels.py).
+template <class M, bool DBL>
+__global__ void __launch_bounds__(DKA_THREADS,
+                                  DBL ? DKA_DBL_MIN_BLOCKS : M::DKA_MIN_BLOCKS)
+    double_k_add_wide_kernel(const int32_t* __restrict__ P,
+                             const int32_t* __restrict__ Q,
+                             int32_t* __restrict__ out, int64_t m, int32_t k,
+                             CurveConst cc) {
+  size_t lane = (size_t)blockIdx.x * DKA_THREADS + threadIdx.x;
+  if (lane >= (size_t)m) return;
+  typename M::P acc = M::load(P, 1, 0, m, lane);
+  if (DBL)
+    for (int32_t i = 0; i < k; ++i) acc = M::dbl(acc, cc);
+  M::store(out, 1, 0, m, lane, M::add(acc, M::load(Q, 1, 0, m, lane), cc));
+}
+
 // double_k_add_kernel with a group of G threads a lane (group.cuh): every
 // thread holds the point, the products of each level of the k doublings
-// and of the add are dealt out, thread 0 stores. Used for Jacobian points
-// (jac_double_k_add) below DKA_ONE_THREAD_MIN_LANES lanes: the on-device
-// Fiat-Shamir IPA's c * Q tree and S = MSM + c * Q send 2 to 256 lanes a
-// launch for one proof, the v1 Pippenger its adds and bit-Horner steps,
-// where one thread a lane leaves the card idle and waits on 16 dependent
-// products an add (24 on a doubling lane) plus 8 (10) a doubling. A group
-// of 8 waits on the add's 5 product levels and a doubling's 3 (4 for
-// a != 0): on the H100 2 to 2,048 lanes took 5.8-9.2 us a launch against
-// one thread's 25-35 us. From 4,096 lanes the group's repeated field
-// adds cost throughput and a group of 4 (6 add levels) is faster; from
-// 24,576 one thread a lane is at k = 1, and from 32,768 at k = 0 as
-// well (PERF.md).
+// and of the add are dealt out, thread 0 stores. Used below
+// M::DKA_ONE_THREAD_MIN_LANES lanes: the on-device Fiat-Shamir IPA's
+// c * Q tree and S = MSM + c * Q send 2 to 256 lanes a launch for one
+// proof, the v1 Pippenger its adds and bit-Horner steps, the TE commit
+// tree and the ragged MSM's chunk sum a few, where one thread a lane
+// leaves the card idle and waits on every product of the law in turn
+// (16 a Jacobian add, 12 RCB a = 0, 14 zorro, 11 HWCD). A group of 8
+// waits on the law's product levels instead (Jacobian 5, RCB a = 0 2,
+// zorro and HWCD 3; a doubling 3, 2, 3, 3): on the H100 1 to 2,048
+// lanes took 5.8-9.2 us a launch against one thread's 25-35 us on
+// Jacobian points, and 4.4-6.2 us against the parent one-thread kernel's
+// 16-25 us on RCB and TE points. From M::DKA_GROUP4_MIN_LANES the group's
+// repeated field adds cost throughput and a group of 4 is faster
+// (PERF.md).
 template <class M, int G>
 __global__ void __launch_bounds__(HG_THREADS, 1)
     double_k_add_group_kernel(const int32_t* __restrict__ P,
@@ -570,32 +633,6 @@ extern "C" int abtpu_rowsum(const void* in, void* out, int64_t K, int64_t L,
   return (int)cudaGetLastError();
 }
 
-extern "C" int abtpu_rcb_double_k_add(const void* P, const void* Q, void* out,
-                                      int64_t m, int32_t k, const void* words,
-                                      void* stream) {
-  CurveConst cc = load_cc(words);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (cc.te) return (int)cudaErrorInvalidValue;
-  if (cc.a_zero)
-    double_k_add_kernel<RcbA0><<<blocks_for(m), THREADS, 0, s>>>(
-        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
-  else
-    double_k_add_kernel<RcbA><<<blocks_for(m), THREADS, 0, s>>>(
-        (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int abtpu_te_double_k_add(const void* P, const void* Q, void* out,
-                                     int64_t m, int32_t k, const void* words,
-                                     void* stream) {
-  CurveConst cc = load_cc(words);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!cc.te) return (int)cudaErrorInvalidValue;
-  double_k_add_kernel<TeModel><<<blocks_for(m), THREADS, 0, s>>>(
-      (const int32_t*)P, (const int32_t*)Q, (int32_t*)out, m, k, cc);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int abtpu_te_double(const void* P, void* out, int64_t m,
                                const void* words, void* stream) {
   CurveConst cc = load_cc(words);
@@ -607,8 +644,9 @@ extern "C" int abtpu_te_double(const void* P, void* out, int64_t m,
 }
 
 // 2^k P + Q: a group of M::ADD_GRP threads a lane below
-// DKA_GROUP4_MIN_LANES lanes, of 4 below DKA_ONE_THREAD_MIN_LANES, one
-// thread a lane from it.
+// M::DKA_GROUP4_MIN_LANES lanes, of 4 below M::DKA_ONE_THREAD_MIN_LANES,
+// one thread a lane from it (double_k_add_wide_kernel, or for Jacobian
+// points double_k_add_kernel).
 template <class M>
 static void launch_double_k_add(const void* P, const void* Q, void* out,
                                 int64_t m, int32_t k, const CurveConst& cc,
@@ -618,15 +656,50 @@ static void launch_double_k_add(const void* P, const void* Q, void* out,
   const int32_t* p = (const int32_t*)P;
   const int32_t* q = (const int32_t*)Q;
   int32_t* o = (int32_t*)out;
-  if (m >= DKA_ONE_THREAD_MIN_LANES)
-    double_k_add_kernel<M><<<blocks_for(m), THREADS, 0, s>>>(p, q, o, m, k,
-                                                             cc);
-  else if (m >= DKA_GROUP4_MIN_LANES)
+  if (m >= M::DKA_ONE_THREAD_MIN_LANES) {
+    if constexpr (!M::DKA_WIDE)
+      double_k_add_kernel<M><<<blocks_for(m), THREADS, 0, s>>>(p, q, o, m, k,
+                                                               cc);
+    else if (k == 0)
+      double_k_add_wide_kernel<M, false>
+          <<<(unsigned)((m + DKA_THREADS - 1) / DKA_THREADS), DKA_THREADS, 0,
+             s>>>(p, q, o, m, k, cc);
+    else
+      double_k_add_wide_kernel<M, true>
+          <<<(unsigned)((m + DKA_THREADS - 1) / DKA_THREADS), DKA_THREADS, 0,
+             s>>>(p, q, o, m, k, cc);
+  } else if (m >= M::DKA_GROUP4_MIN_LANES) {
     double_k_add_group_kernel<M, 4><<<group_blocks(m, 4), HG_THREADS, 0, s>>>(
         p, q, o, m, k, cc);
-  else
+  } else {
     double_k_add_group_kernel<M, G><<<group_blocks(m, G), HG_THREADS, 0, s>>>(
         p, q, o, m, k, cc);
+  }
+}
+
+// 2^k P + Q on RCB projective points (k = 0: rcb_add_tiled's complete add).
+extern "C" int abtpu_rcb_double_k_add(const void* P, const void* Q, void* out,
+                                      int64_t m, int32_t k, const void* words,
+                                      void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cc.te) return (int)cudaErrorInvalidValue;
+  if (cc.a_zero)
+    launch_double_k_add<RcbA0>(P, Q, out, m, k, cc, s);
+  else
+    launch_double_k_add<RcbA>(P, Q, out, m, k, cc, s);
+  return (int)cudaGetLastError();
+}
+
+// 2^k P + Q on twisted-Edwards extended points (k = 0: te_add_tiled's).
+extern "C" int abtpu_te_double_k_add(const void* P, const void* Q, void* out,
+                                     int64_t m, int32_t k, const void* words,
+                                     void* stream) {
+  CurveConst cc = load_cc(words);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!cc.te) return (int)cudaErrorInvalidValue;
+  launch_double_k_add<TeModel>(P, Q, out, m, k, cc, s);
+  return (int)cudaGetLastError();
 }
 
 // 2^k P + Q on Jacobian points (k = 0: sw_add_tiled's complete add).

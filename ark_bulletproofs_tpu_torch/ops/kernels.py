@@ -8,6 +8,9 @@
   te_double_k_add  <- ::te_double_k_add_tiled and, with k = 0,
       ::te_add_tiled: the same steps on a twisted-Edwards curve, and the
       device Pedersen batch's halving tree (ops/prove.py);
+      both: a group of 8 threads a lane (csrc/group.cuh), of 4 from the
+      model's first band edge (DKA_BANDS), one thread a lane from its
+      second (a throughput kernel without the doubling code at k = 0);
   te_double        <- ::te_double_tiled: the 2^i B tables of that batch
       and of the on-device Fiat-Shamir IPA's Q terms (ops/ipa.py);
   rcb_double       <- ::rcb_double_tiled: complete RCB doubling (Alg 9
@@ -16,9 +19,7 @@
   jac_double_k_add <- ::sw_add_tiled (k = 0) and ::sw_double_k_add_tiled:
       Jacobian points (csrc/jac.cuh), the on-device Fiat-Shamir IPA's
       c * Q tree and S = MSM + c * Q on short-Weierstrass curves, and the
-      v1 Pippenger's adds; a group of 8 threads a lane (csrc/group.cuh),
-      of 4 from DKA_GROUP4_MIN_LANES lanes, one thread a lane from
-      DKA_ONE_THREAD_MIN_LANES;
+      v1 Pippenger's adds; bands as above (DKA_BANDS["jac"]);
   jac_double       <- ::sw_double_tiled: that IPA's 2^i Q table;
   jac_madd         <- ::sw_madd_tiled: Jacobian P + affine Q, the row scan
       of the v1 Pippenger (ops/msm.py) on short-Weierstrass curves;
@@ -88,11 +89,21 @@ def launch(name: str, spec, dev: torch.device, *args) -> None:
     _build.check(err, name)
 
 
-# csrc/msm_kernels.cu's lane counts from which jac_double_k_add runs a
-# group of 4 threads a lane instead of 8, and one thread a lane (the
-# H100's crossovers, PERF.md; tests/test_torch_msm_plan.py ties them).
-DKA_GROUP4_MIN_LANES = 4096
-DKA_ONE_THREAD_MIN_LANES = 24576
+# csrc/msm_kernels.cu's bands of the double-k-add launchers, a pair per
+# point model (M::DKA_GROUP4_MIN_LANES, M::DKA_ONE_THREAD_MIN_LANES): the
+# lane counts from which a group of 4 threads a lane runs instead of 8,
+# and one thread a lane (the H100's crossovers, PERF.md;
+# tests/test_torch_msm_plan.py ties them to the models).
+DKA_BANDS = {"jac": (4096, 24576), "rcb a=0": (8192, 16384),
+             "rcb a": (8192, 16384), "te": (4096, 16384)}
+
+
+def dka_model(spec) -> str:
+    """The DKA_BANDS key of rcb_double_k_add or te_double_k_add on
+    `spec`'s curve."""
+    if is_te(spec):
+        return "te"
+    return "rcb a=0" if spec.is_a_zero else "rcb a"
 
 # Lanes per call of the plain versions on a CPU: lanes are independent,
 # and slices of this width keep the int64 temporaries of a stacked group

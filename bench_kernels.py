@@ -67,20 +67,63 @@ CHAIN_VARIANTS = {
 CHAIN_SHAPES = [(64, 1408), (64, 22), (16, 1024), (16, 64), (1, 64),
                 (16, 8192), (16, 65536), (16, 1048576), (16, 4096),
                 (16, 16384), (16, 32768), (16, 131072)]
-# msm_kernels.cu's text substitutions of each variant of jac_double_k_add
-DKA = "#define DKA_ONE_THREAD_MIN_LANES 24576"
-DKA4 = "#define DKA_GROUP4_MIN_LANES 4096"
-NEVER = " 0x7fffffffffffffffLL"
-DKA_GROUP = [(DKA, DKA.rsplit(" ", 1)[0] + NEVER),
-             (DKA4, DKA4.rsplit(" ", 1)[0] + NEVER)]
-JAC_ADD_GRP = ("products.\n  static constexpr int ADD_GRP = 8;",
-               "products.\n  static constexpr int ADD_GRP = 4;")
-JAC_VARIANTS = {
-    "jac group 8": ("msm_kernels.cu", DKA_GROUP),
-    "jac group 4": ("msm_kernels.cu", [*DKA_GROUP, JAC_ADD_GRP]),
-    "jac one thread": ("msm_kernels.cu",
-                       [(DKA, "#define DKA_ONE_THREAD_MIN_LANES 1")]),
+# msm_kernels.cu's text substitutions of each mapping of the double-k-add
+# launchers (launch_double_k_add), at every lane count; one library serves
+# the Jacobian, RCB and TE launchers. "one thread" is the band's kernel
+# (double_k_add_wide_kernel on RCB and TE, double_k_add_kernel on
+# Jacobian points), "parent one thread" double_k_add_kernel on all three.
+ONE = "if (m >= M::DKA_ONE_THREAD_MIN_LANES) {"
+FOUR = "} else if (m >= M::DKA_GROUP4_MIN_LANES) {"
+WIDE = "static constexpr bool DKA_WIDE = true;"
+DKA_VARIANTS = {
+    "dka group 8": ("msm_kernels.cu", [(ONE, "if (false) {"),
+                                       (FOUR, "} else if (false) {")]),
+    "dka group 4": ("msm_kernels.cu", [(ONE, "if (false) {"),
+                                       (FOUR, "} else if (true) {")]),
+    "dka one thread": ("msm_kernels.cu", [(ONE, "if (true) {")]),
+    "dka parent one thread": ("msm_kernels.cu", [
+        (ONE, "if (true) {"),
+        (WIDE, "static constexpr bool DKA_WIDE = false;")]),
 }
+JAC_VARIANTS = {name: DKA_VARIANTS[name]
+                for name in ("dka group 8", "dka group 4", "dka one thread")}
+RCB_TE_VARIANTS = dict(DKA_VARIANTS)
+# double_k_add_wide_kernel under other launch bounds on every model
+# (blocks an SM keeps resident: 3, 4 or 5, at k = 0 and k > 0; or no
+# minimum, as the parent's one-thread kernel), and over a grid of the
+# blocks the card keeps resident, each striding over the lanes, instead of
+# one block per 128 lanes
+BOUNDS = ("__launch_bounds__(DKA_THREADS,\n"
+          "                                  DBL ? DKA_DBL_MIN_BLOCKS : "
+          "M::DKA_MIN_BLOCKS)")
+MIN_BLOCKS = ("static constexpr int DKA_MIN_BLOCKS = AZ ? 3 : 5;",
+              "static constexpr int DKA_MIN_BLOCKS = 3;",
+              "#define DKA_DBL_MIN_BLOCKS 3")
+WIDE_VARIANTS = {
+    f"wide {n} blocks": ("msm_kernels.cu", [
+        (a, a[:a.rindex("=") + 2] + f"{n};" if "=" in a else a[:-1] + str(n))
+        for a in MIN_BLOCKS]) for n in (3, 4, 5)}
+WIDE_VARIANTS["wide no minimum"] = ("msm_kernels.cu", [
+    (BOUNDS, "__launch_bounds__(DKA_THREADS)")])
+ONE_LANE = """  size_t lane = (size_t)blockIdx.x * DKA_THREADS + threadIdx.x;
+  if (lane >= (size_t)m) return;
+  typename M::P acc = M::load(P, 1, 0, m, lane);
+  if (DBL)
+    for (int32_t i = 0; i < k; ++i) acc = M::dbl(acc, cc);
+  M::store(out, 1, 0, m, lane, M::add(acc, M::load(Q, 1, 0, m, lane), cc));"""
+STRIDE = """  for (size_t lane = (size_t)blockIdx.x * DKA_THREADS + threadIdx.x;
+       lane < (size_t)m; lane += (size_t)gridDim.x * DKA_THREADS) {
+    typename M::P acc = M::load(P, 1, 0, m, lane);
+    if (DBL)
+      for (int32_t i = 0; i < k; ++i) acc = M::dbl(acc, cc);
+    M::store(out, 1, 0, m, lane, M::add(acc, M::load(Q, 1, 0, m, lane), cc));
+  }"""
+GRID = "<<<(unsigned)((m + DKA_THREADS - 1) / DKA_THREADS), DKA_THREADS, 0,"
+RESIDENT = ("<<<(unsigned)((m + DKA_THREADS - 1) / DKA_THREADS < 132 * "
+            "M::DKA_MIN_BLOCKS ? (m + DKA_THREADS - 1) / DKA_THREADS : 132 * "
+            "M::DKA_MIN_BLOCKS), DKA_THREADS, 0,")
+WIDE_VARIANTS["wide resident grid"] = ("msm_kernels.cu", [
+    (ONE_LANE, STRIDE), (GRID, RESIDENT)])
 # fs_round with the inverse of f mod 2^32 by Newton's iteration in each
 # divstep (the first form of csrc/fs.cuh) instead of the 5-bit step
 FIVE_BIT = """    const int limit = min(min(eta + 1, i), 5);
@@ -249,23 +292,6 @@ def chain_launchers(path: str):
     return scan, rowsum
 
 
-def jac_launcher(path: str):
-    """jac_double_k_add of the kernel library at `path`, taking (spec, P,
-    Q, k) as the wrapper does."""
-    import ctypes
-
-    import torch
-
-    fn = launcher(ctypes.CDLL(path), "jac_double_k_add")
-
-    def run(spec, P, Q, k):
-        out = torch.empty_like(P)
-        fn(spec, P.data_ptr(), Q.data_ptr(), out.data_ptr(), P.shape[-1], k)
-        return out
-
-    return run
-
-
 def jac_compare(res: dict, variants: dict, dev) -> None:
     """jac_double_k_add, committed and each variant, at k = 0 and 1 at
     chip_smoke.DKA_LANES on secq256k1 and zorro (model_points: doubling,
@@ -300,6 +326,74 @@ def jac_compare(res: dict, variants: dict, dev) -> None:
                                   for name, t in times.items()), flush=True)
             del T, P, Q
         torch.cuda.empty_cache()
+
+
+def dka_launchers(path: str) -> dict:
+    """{name: run} of the three double-k-add launchers of the kernel
+    library at `path`, each taking (spec, P, Q, k) as the wrappers do."""
+    import ctypes
+
+    import torch
+
+    lib = ctypes.CDLL(path)
+
+    def wrap(name):
+        fn = launcher(lib, name)
+
+        def run(spec, P, Q, k):
+            out = torch.empty_like(P)
+            fn(spec, P.data_ptr(), Q.data_ptr(), out.data_ptr(), P.shape[-1],
+               k)
+            return out
+        return run
+
+    return {name: wrap(name) for name in ("jac_double_k_add",
+                                          "rcb_double_k_add",
+                                          "te_double_k_add")}
+
+
+def rcb_te_compare(res: dict, variants: dict, dev, lanes,
+                   key: str = "rcb_te") -> None:
+    """rcb_double_k_add and te_double_k_add, committed and each variant's
+    launcher, at k = 0 and 1 at `lanes` on secq256k1, zorro and curve25519
+    (chip_smoke's model_points in RCB projective or TE extended
+    coordinates: doubling, P + (-P) and identity lanes): bit-equal, then
+    ms from CUDA graphs in turns into res[key]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import kernels as kk
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    check = cs.KernelCheck(dev, cs.Bound(1980))
+    res[key] = {}
+    for curve in (curves.secq256k1, curves.zorro, curves.curve25519):
+        spec = spec_for(curve)
+        name = "te_double_k_add" if cs.model(spec) == "te" else (
+            "rcb_double_k_add")
+        runs = {"committed": getattr(kk, name),
+                **{v: runs[name] for v, runs in variants.items()}}
+        for L in lanes:
+            T, _ = check.model_points(curve, spec, 2, L, L, rcb=True)
+            P, Q = T[:, 0].contiguous(), T[:, 1].contiguous()
+            del T
+            for k in (0, 1):
+                want = runs["committed"](spec, P, Q, k)
+                for v, run in runs.items():
+                    if not torch.equal(run(spec, P, Q, k), want):
+                        res["failures"].append(f"{name} {curve.name} {L} "
+                                               f"lanes k = {k}: {v} differs")
+                del want
+                reps = 20 if L <= 1 << 20 else 3
+                times = in_turns(runs, lambda run: run(spec, P, Q, k), reps)
+                tag = f"{curve.name} {L} lanes k={k}"
+                res[key][tag] = times
+                print(f"  {name} {tag} (ms, mean of 2): " + "; ".join(
+                    f"{v} {statistics.mean(t):.4f}"
+                    for v, t in times.items()), flush=True)
+            del P, Q
+            torch.cuda.empty_cache()
 
 
 def fs_launcher(path: str):
@@ -500,32 +594,37 @@ def main() -> int:
 
     t0 = time.perf_counter()
     procs = build_variants(os.path.join(_build.BUILD_DIR, "bench"),
-                           {**CHAIN_VARIANTS, **JAC_VARIANTS, **FS_VARIANTS})
+                           {**CHAIN_VARIANTS, **DKA_VARIANTS,
+                            **WIDE_VARIANTS, **FS_VARIANTS})
     _build.lib()
     res["build_s"] = time.perf_counter() - t0
     ptx = [line for line in cs.ptxas_report(_build.build_log or "")
            if re.match(r"(suffix_|rowsum|horner|mont_mul|double_k_add|fs_)",
                        line)]
-    chains, jacs, fss = {}, {}, {}
+    chains, dkas, fss = {}, {}, {}
     for name, (p, lib) in procs.items():
         log = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         ptx += [f"{name}: {line}" for line in cs.ptxas_report(log)
-                if re.match(r"(suffix_jac|rowsum|double_k_add\w* jac|fs_)",
-                            line)]
+                if re.match(r"(suffix_jac|rowsum|double_k_add|fs_)", line)]
         if name in CHAIN_VARIANTS:
             chains[name] = chain_launchers(lib)
-        elif name in JAC_VARIANTS:
-            jacs[name] = jac_launcher(lib)
-        else:
+        elif name in FS_VARIANTS:
             fss[name] = fs_launcher(lib)
+        else:
+            dkas[name] = dka_launchers(lib)
     res["ptxas"] = ptx
     for line in ptx:
         print(f"  ptxas {line}", flush=True)
     res["op_cycles"] = op_cycles(os.path.join(_build.BUILD_DIR, "bench"))
     fs_compare(res, fss, dev)
-    jac_compare(res, jacs, dev)
+    jac_compare(res, {name: dkas[name]["jac_double_k_add"]
+                      for name in JAC_VARIANTS}, dev)
+    rcb_te_compare(res, {name: dkas[name] for name in RCB_TE_VARIANTS}, dev,
+                   cs.RT_LANES)
+    rcb_te_compare(res, {name: dkas[name] for name in WIDE_VARIANTS}, dev,
+                   [L for L in cs.RT_LANES if L >= 1 << 14], "wide")
     chain_compare(res, chains, dev)
     res["sass_mont_mul"] = sass_mix(_build.library_path(), "mont_mul_kernel")
     print(f"  SASS mont_mul_kernel: {res['sass_mont_mul']}", flush=True)

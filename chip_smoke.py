@@ -23,6 +23,11 @@ Phases, each printed with its seconds:
      and one thread a lane), each timed at k = 0 and 1 on secq256k1 (in
      microseconds, beside the bound and the critical path), and
      jac_double at the batch tree's 65,536 lanes and the Q table's one;
+     rcb_double_k_add (secq256k1, zorro) and te_double_k_add (curve25519)
+     at k = 0, 1 and 4 at every lane count the paths send (RT_LANES: 1 to
+     2^24 lanes, compared by slices of 2^20) and both sides of each
+     model's band edges, timed at k = 0 (TE also 1) on secq256k1 and
+     curve25519 in microseconds beside the bound and the critical path;
      fs_round at P = 1, 2, 33 and 128 transcripts on the three curves,
      with L = O, R = O and both on secq256k1 and zorro; the mixed adds of
      the v1 Pippenger, jac_madd (secq256k1, zorro) and te_madd
@@ -108,8 +113,9 @@ Phases, each printed with its seconds:
      to 0 just before it and read just after; each of its kernels
      launched (the window Horner on every MSM path), and the v1 paths'
      double-k-add kernel at k > 0; and the most lanes suffix_jac_scan,
-     rowsum and jac_double_k_add were launched at over those paths, no
-     more than phase 2 held them at;
+     rowsum and the three double-k-add kernels were launched at over
+     those paths, no more than phase 2 held them at, with every lane
+     count sent;
  15. traces: the card prove (secq256k1 and curve25519) and the verify
      once more each under torch.profiler, which splits card time from
      host time and names the largest kernels (last, so that no timing
@@ -177,6 +183,34 @@ TREE_LANES = 128 * 256  # the first step of the P = 128 batch's c * Q tree
 DKA_LANES = sorted([1 << i for i in range(1, 20)]
                    + [3 << i for i in range(13, 19)])
 DKA_HELD = [1, *DKA_LANES, 1 << 20]
+# rcb_double_k_add's and te_double_k_add's lane counts (k = 0 on every
+# path but the TE v1 Pippenger's bit Horner, k = 1 at 128 lanes): the
+# ragged MSM's chunk sum (B lanes, 1 for one set), the TE commit and
+# c * Q trees (2 to 256 lanes a proof, up to 524,288 for a k = 1024
+# shuffle's commitments), the v2 MSM's stage D and E adds (BW C and BW S
+# lanes: 90,112 at n = 2^20, 26,624 at n = 2^16, 1,024 to 32,768 at
+# n = 256 to 4096 for one set, 131,072 and 2,097,152 at n = 256 for 128
+# sets, 4,194,304 in prove_batch, 16,777,216 for the on-device
+# Fiat-Shamir IPA's 1024-set table shrink; 1,664, 3,328, 24,576, 53,248
+# and 98,304 for other plans), and powers of two up to 2^22. Each held at
+# k = 0, 1 and 4 and timed at k = 0 (TE also at k = 1); the models' band
+# edges and their neighbours are held too. Phase 14 checks that no path
+# sends more, and names any lane count a path sent that phase 2 did not
+# time.
+RT_LANES = sorted({1 << i for i in range(23)} | {1 << 24}
+                  | {1664, 3328, 24_576, 26_624, 53_248, 90_112, 98_304})
+# Lanes a comparison with the plain version takes at once (its int64
+# temporaries at 16,777,216 lanes would not fit on the card).
+HOLD_SLICE = 1 << 20
+# Product latencies on a double-k-add lane's critical path, per model:
+# one thread runs every product of the add and of a doubling; a group of G
+# threads waits on their levels (csrc/rcb.cuh, te.cuh: ceil(N / G) a level
+# of N products; a and 3b by double-and-add where small cost no round).
+DKA_PATH = {  # model: {"one": (add, double), G: (add, double)}
+    "rcb a=0": {"one": (12, 8), 8: (2, 2), 4: (4, 2)},
+    "rcb a": {"one": (14, 13), 8: (3, 3), 4: (5, 5)},
+    "te": {"one": (11, 11), 8: (3, 3), 4: (4, 4)},
+}
 # The kernels JSON line, one entry per kernel and point model: (entry
 # name, wrapper, model of the paths it counts, source, TPU kernels it
 # replaces). "[te]" entries are the twisted-Edwards instantiations of the
@@ -349,10 +383,12 @@ class Launches:
 
 class PathLanes:
     """The most lanes (with the rows or k, and the counted path then, None
-    between paths) that stages D and F's kernels and jac_double_k_add are
-    launched at in phases 3-13: the launch helpers of kernels2 and kernels
-    are replaced by recorders that read those launchers' arguments and
-    launch as before (the wrappers and their counts stay as they are)."""
+    between paths) that stages D and F's kernels and the three
+    double-k-add kernels are launched at in phases 3-13, and every lane
+    count sent (at k > 0 apart): the launch helpers of kernels2 and
+    kernels are replaced by recorders that read those launchers'
+    arguments and launch as before (the wrappers and their counts stay
+    as they are)."""
 
     def __init__(self, kk, k2, launches: Launches):
         chain = {L for _, L, _ in CHAIN_SHAPES}
@@ -363,11 +399,18 @@ class PathLanes:
             "rowsum": (k2, lambda a: (a[-1], a[-2]), "rows", chain),
             "jac_double_k_add": (kk, lambda a: (a[3], a[4]), "k",
                                  set(DKA_LANES)),
+            "rcb_double_k_add": (kk, lambda a: (a[3], a[4]), "k",
+                                 set(RT_LANES)),
+            "te_double_k_add": (kk, lambda a: (a[3], a[4]), "k",
+                                set(RT_LANES)),
         }
         self.held = {"suffix_jac_scan": max(chain), "rowsum": max(chain),
-                     "jac_double_k_add": max(DKA_HELD)}
+                     "jac_double_k_add": max(DKA_HELD),
+                     "rcb_double_k_add": max(RT_LANES),
+                     "te_double_k_add": max(RT_LANES)}
         self.most = {name: (0, 0, None) for name in self.kinds}
         self.seen = {name: set() for name in self.kinds}
+        self.seen_k = {name: set() for name in self.kinds}  # at k > 0
         for mod in (k2, kk):
             self._record(mod, launches)
 
@@ -379,6 +422,8 @@ class PathLanes:
             if name in mine:
                 lanes, other = mine[name][1](args)
                 self.seen[name].add(lanes)
+                if mine[name][2] == "k" and other > 0:
+                    self.seen_k[name].add(lanes)
                 if (lanes, other) > self.most[name][:2]:
                     self.most[name] = (lanes, other, launches.current)
             return launch(name, spec, dev, *args)
@@ -392,10 +437,13 @@ class PathLanes:
         for name, (L, other, path) in self.most.items():
             _, _, what, timed = self.kinds[name]
             held = self.held[name]
+            at_k = (f"; at k > 0: {sorted(self.seen_k[name])}"
+                    if what == "k" else "")
             print(f"   {name}: at most {L} lanes ({what} {other}, path "
                   f"{path}); phase 2 holds it at up to {held}; lane counts "
                   f"sent and not timed there: "
-                  f"{sorted(self.seen[name] - timed)}", flush=True)
+                  f"{sorted(self.seen[name] - timed)}; all sent: "
+                  f"{sorted(self.seen[name])}{at_k}", flush=True)
             if L > held:
                 over.append(name)
         if over:
@@ -683,42 +731,33 @@ class KernelCheck:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     def time_main_shapes(self, curve, spec, seed: int) -> None:
-        """The other kernels at their n = 2^20 main-path shapes: stage E
-        bucket add (22 * 4096 lanes); te_double at the commit table's 2
-        lanes (ops/prove.py::_commit_table)."""
+        """te_double at its main-path shape, the commit table's 2 lanes
+        (ops/prove.py::_commit_table)."""
         from ark_bulletproofs_tpu_torch.ops import kernels as kk
-        from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 
-        te = model(spec) == "te"
-        nc = 4 if te else 3
         fe = FE_MULS[model(spec)]
-        add = fe["add"] * MULS_PER_FE_MUL
-        xy = self.affine_rows(curve, spec, 8, 22 * 4096, seed + 1)
-        U = k2.suffix_madd_scan(spec, xy)
-        P, Q = U[:, 0].contiguous(), U[:, 1].contiguous()
-        m = P.shape[-1]
-        dka = kk.te_double_k_add if te else kk.rcb_double_k_add
-        self.times[dka.__name__] = (
-            graph_ms(lambda: dka(spec, P, Q, 0), 20),
-            host_ms(lambda: kk.double_k_add_plain(spec, P, Q, 0)),
-            *self.bound(3 * nc * 16 * m * 4, m * add))
-        if te:
-            P2 = P[..., :2].contiguous()
+        if model(spec) == "te":
+            T, _ = self.model_points(curve, spec, 1, 2, seed + 1)
+            P2 = T[:, 0].contiguous()
             self.times["te_double"] = (
                 graph_ms(lambda: kk.te_double(spec, P2), 100),
                 host_ms(lambda: kk.te_double_plain(spec, P2)),
                 *self.bound(2 * 4 * 16 * 2 * 4,
                             2 * fe["double"] * MULS_PER_FE_MUL))
 
-    def model_points(self, curve, spec, R: int, L: int, seed: int):
+    def model_points(self, curve, spec, R: int, L: int, seed: int,
+                     rcb: bool = False):
         """(NC, R, 16, L) points in the on-device Fiat-Shamir IPA's model
         coordinates from affine_rows, each with a random Z: Jacobian (x
         Z^2, y Z^3, Z), its identity lanes (y = 0 there) as (0, 0, 0); or
-        TE extended (x Z, y Z, x y Z, Z), the y = 0 lanes made (0, 1).
-        Also returns the (R, L) identity mask."""
+        TE extended (x Z, y Z, x y Z, Z), the y = 0 lanes made (0, 1); or
+        with `rcb` on a short-Weierstrass curve RCB projective (x Z, y Z,
+        Z), the identity (0, R, 0). Also returns the (R, L) identity
+        mask."""
         import torch
 
         from ark_bulletproofs_tpu_torch.ops import field as df
+        from ark_bulletproofs_tpu_torch.ops import proj
 
         fq = spec.fq
         xy = self.affine_rows(curve, spec, R, L, seed)
@@ -735,15 +774,92 @@ class KernelCheck:
             y = torch.where(ident.unsqueeze(-2), one, xy[1])
             return torch.stack([mm(x, z), mm(y, z), mm(mm(x, y), z), z]
                                ).contiguous(), ident
+        if rcb:
+            P = torch.stack([mm(xy[0], z), mm(xy[1], z), z])
+            zero = proj.point_zero(spec, L, self.dev).to(torch.int32)
+            return torch.where(ident.unsqueeze(-2), zero[:, None],
+                               P).contiguous(), ident
         z2 = mm(z, z)
         P = torch.stack([mm(xy[0], z2), mm(xy[1], mm(z2, z)), z])
         return torch.where(ident.unsqueeze(-2), 0, P).contiguous(), ident
 
+    def hold_by_slices(self, name: str, got, plain, *points) -> None:
+        """Compare a kernel's output with its plain version over
+        HOLD_SLICE lanes at a time (the kernel ran on all lanes at once)."""
+        L = got.shape[-1]
+        for o in range(0, L, HOLD_SLICE):
+            sl = slice(o, min(o + HOLD_SLICE, L))
+            self.compare(name, got[..., sl].contiguous(),
+                         plain(*(P[..., sl].contiguous() for P in points)))
+
+    def run_rcb_te(self, curve, seed: int, timed: bool) -> None:
+        """rcb_double_k_add or te_double_k_add (by the curve's model) at
+        k = 0, 1 and 4 bit-equal to double_k_add_plain at every lane count
+        of RT_LANES and at the model's band edges and their neighbours
+        (kk.DKA_BANDS), by slices of HOLD_SLICE lanes: P = row 0 and Q =
+        row 1 of model_points (RCB projective or TE extended, random Z), so
+        the lanes hold doublings (one point under two Z), P + (-P), O + Q,
+        P + O, O + O and on curve25519 (0, 1). Timed at k = 0 (TE also at
+        k = 1, the v1 bit Horner's) at RT_LANES from a CUDA graph, in
+        microseconds beside the bound and the critical path; the table
+        keeps the n = 2^20 MSM's stage D and E add, 90,112 lanes at
+        k = 0."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
+        te = model(spec) == "te"
+        nc = 4 if te else 3
+        dka = kk.te_double_k_add if te else kk.rcb_double_k_add
+        key = kk.dka_model(spec)
+        g4, one = kk.DKA_BANDS[key]
+        paths = DKA_PATH[key]
+        fe = FE_MULS[model(spec)]
+        shapes = sorted({*RT_LANES, g4 - 1, g4, one - 1, one})
+        t0 = time.perf_counter()
+        for L in shapes:
+            T, _ = self.model_points(curve, spec, 2, L, seed + L, rcb=True)
+            P, Q = T[:, 0].contiguous(), T[:, 1].contiguous()
+            del T
+            for k in (0, 1, 4):
+                self.hold_by_slices(
+                    dka.__name__, dka(spec, P, Q, k),
+                    lambda p, q: kk.double_k_add_plain(spec, p, q, k), P, Q)
+            if timed and L in RT_LANES:
+                reps = 20 if L <= 1 << 20 else 3
+                for k in ((0, 1) if te else (0,)):
+                    ms = graph_ms(lambda: dka(spec, P, Q, k), reps)
+                    bound = self.bound(3 * nc * 16 * L * 4, L * (
+                        fe["add"] + k * fe["double"]) * MULS_PER_FE_MUL)
+                    if L >= one:
+                        add, dbl = paths["one"]
+                        path = f"one thread a lane: {k * dbl + add} products"
+                    else:
+                        G = 8 if L < g4 else 4
+                        add, dbl = paths[G]
+                        path = (f"a group of {G} threads a lane: "
+                                f"{k * dbl + add} product levels")
+                    print(f"   {curve.name} {dka.__name__} {L} lanes k = {k}: "
+                          f"kernel {ms:.4f} ms ({ms * 1e3:.2f} us); bound "
+                          f"{bound[0]:.5g} ms ({bound[1]}); critical path "
+                          f"({path})", flush=True)
+                    if L == L_PLAN and k == 0:
+                        self.times[dka.__name__] = (ms, host_ms(
+                            lambda: kk.double_k_add_plain(spec, P, Q, 0)),
+                            *bound)
+            del P, Q
+            torch.cuda.empty_cache()
+        print(f"   {curve.name} {dka.__name__} (k = 0, 1, 4) at {shapes} "
+              f"lanes: bit-equal ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
     def run_jac(self, curve, seed: int, timed: bool) -> None:
         """jac_double_k_add (k = 0, 1, 4) bit-equal to its plain version at
         every lane count the paths send and at the crossover's neighbours
-        (DKA_HELD, kk.DKA_GROUP4_MIN_LANES and DKA_ONE_THREAD_MIN_LANES
-        and the lane counts just below them), jac_double
+        (DKA_HELD, kk.DKA_BANDS["jac"] and the lane counts just below
+        them), jac_double
         at 65,536 and 1 lanes: P = row 0 and Q = row 1 of model_points, so
         the lanes hold doublings (the same point under two Z), P + (-P),
         O + Q, P + O and O + O. Timed at k = 0 and 1 at DKA_LANES, each
@@ -760,7 +876,7 @@ class KernelCheck:
         # add levels of 5, 4, 3, 2, 2 products: 5 rounds at G = 8, 6 at
         # G = 4; doubling 4, 3, 1 (and M^2 a round of its own for a != 0)
         dbl_lv = 3 if spec.is_a_zero else 4
-        g4, one = kk.DKA_GROUP4_MIN_LANES, kk.DKA_ONE_THREAD_MIN_LANES
+        g4, one = kk.DKA_BANDS["jac"]
         shapes = sorted({*DKA_HELD, g4 - 1, g4, one - 1, one})
         t0 = time.perf_counter()
         for L in shapes:
@@ -2108,9 +2224,12 @@ def ptxas_report(log: str) -> list[str]:
         if m:
             entry, frame = m.group(1), ""
             kind = next((v for k, v in models.items() if k in entry), "")
-            grp = re.search(r"ELi(\d+)EE", entry)
+            grp = re.search(r"Li(\d+)EEv", entry)
             if grp:
                 kind += f" G={grp.group(1)}"
+            dbl = re.search(r"Lb([01])EEv", entry)
+            if dbl and "wide" in entry:
+                kind += " k>0" if dbl.group(1) == "1" else " k=0"
             label = f"{short(entry)} {kind}".strip()
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -2195,6 +2314,9 @@ def main() -> int:
         check.run_chains(curves.curve25519, seed=21, timed=True)
         check.run_mont_mul(curves.secq256k1, seed=3, timed=True)
         check.run_mont_mul(curves.zorro, seed=4, timed=False)
+        check.run_rcb_te(curves.secq256k1, seed=22, timed=True)
+        check.run_rcb_te(curves.zorro, seed=23, timed=False)
+        check.run_rcb_te(curves.curve25519, seed=24, timed=True)
         check.run_jac(curves.secq256k1, seed=6, timed=True)
         check.run_jac(curves.zorro, seed=7, timed=False)
         check.run_madd(curves.secq256k1, seed=11, timed=True)

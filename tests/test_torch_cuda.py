@@ -452,9 +452,9 @@ def _jac_operands(curve, spec, lanes, dev, seed):
             jac(X[:, iq], yq, (kind == 4) | (kind == 5)))
 
 
-DKA_LANES = [1, 2, 3, 33, 256, kk.DKA_GROUP4_MIN_LANES - 1,
-             kk.DKA_GROUP4_MIN_LANES, kk.DKA_ONE_THREAD_MIN_LANES - 1,
-             kk.DKA_ONE_THREAD_MIN_LANES, 32768]
+DKA_LANES = [1, 2, 3, 33, 256, kk.DKA_BANDS["jac"][0] - 1,
+             kk.DKA_BANDS["jac"][0], kk.DKA_BANDS["jac"][1] - 1,
+             kk.DKA_BANDS["jac"][1], 32768]
 
 
 @pytest.mark.parametrize("lanes", DKA_LANES)
@@ -462,8 +462,8 @@ DKA_LANES = [1, 2, 3, 33, 256, kk.DKA_GROUP4_MIN_LANES - 1,
 def test_jac_double_k_add_on_both_sides_of_the_crossover(curve, lanes,
                                                         cuda_dev):
     """jac_double_k_add at k = 0, 1 and 4 (a group of 8 threads a lane,
-    of 4 from kk.DKA_GROUP4_MIN_LANES, one thread from
-    kk.DKA_ONE_THREAD_MIN_LANES) at lane counts of the paths (1-256: the
+    of 4 from kk.DKA_BANDS["jac"][0], one thread from its [1]) at lane
+    counts of the paths (1-256: the
     c * Q tree and S of one proof; 32,768: the tree's first step at
     P = 128) and both crossovers' neighbours, with doubling, cancelling
     and identity lanes: bit-equal to the plain version, each launch
@@ -475,6 +475,91 @@ def test_jac_double_k_add_on_both_sides_of_the_crossover(curve, lanes,
         assert torch.equal(kk.jac_double_k_add(spec, P, Q, k),
                            kk.jac_double_k_add_plain(spec, P, Q, k)), k
     assert kk.jac_double_k_add.launches == before + 3
+
+
+def _proj_operands(curve, spec, lanes, dev, seed):
+    """P, Q (NC, 16, lanes) RCB projective (x Z, y Z, Z) or TE extended
+    (x Z, y Z, x y Z, Z) points, each with its own random Z, by lane % 6:
+    a random pair, Q = P (a doubling), Q = -P, P = O, Q = O, both O (RCB
+    (0 : R : 0); TE (0 : Z : 0 : Z))."""
+    fq = spec.fq
+    te = is_te(spec)
+    rng = seeded_rng(seed)
+    X, Y, _ = affine_to_device(curve, [curve.rand(rng) for _ in range(32)],
+                               dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kind = torch.arange(lanes, device=dev) % 6
+    ip = torch.randint(0, 32, (lanes,), generator=g, device=dev)
+    iq = torch.randint(0, 32, (lanes,), generator=g, device=dev)
+    iq = torch.where((kind == 1) | (kind == 2), ip, iq)
+    xq, yq = X[:, iq], Y[:, iq]
+    if te:
+        xq = torch.where(kind == 2, df.neg(fq, xq).to(torch.int32), xq)
+    else:
+        yq = torch.where(kind == 2, df.neg(fq, yq).to(torch.int32), yq)
+    one = df.const(fq.r_limbs, dev).to(torch.int32)
+    zero = proj.point_zero(spec, lanes, dev).to(torch.int32)
+
+    def mm(a, b):
+        return df.mont_mul(fq, a, b).to(torch.int32)
+
+    def point(x, y, ident):
+        z = torch.randint(0, 1 << 16, (16, lanes), generator=g, device=dev,
+                          dtype=torch.int32)
+        z[15] = 0
+        z[0] |= 1
+        if te:  # the identity as (0, 1) under a random Z
+            x = torch.where(ident, 0, x)
+            y = torch.where(ident, one, y)
+            return torch.stack([mm(x, z), mm(y, z), mm(mm(x, y), z),
+                                z]).contiguous()
+        P = torch.stack([mm(x, z), mm(y, z), z])
+        return torch.where(ident, zero, P).contiguous()
+
+    return (point(X[:, ip], Y[:, ip], (kind == 3) | (kind == 5)),
+            point(xq, yq, (kind == 4) | (kind == 5)))
+
+
+def _band_lanes(spec, which):
+    g4, one = kk.DKA_BANDS[kk.dka_model(spec)]
+    return {"g4-1": g4 - 1, "g4": g4, "one-1": one - 1, "one": one,
+            "largest": 1 << 24}.get(which, which)
+
+
+# the lane counts of test_rcb_te_double_k_add_on_both_sides_of_the_bands:
+# few lanes (1-33: the ragged MSM's chunk sum, the TE trees of one proof),
+# each band edge and the count below it, the n = 2^20 MSM's stage D and E
+# add (90,112), and on secq256k1 the most lanes a path sends (16,777,216:
+# stage D of the on-device Fiat-Shamir IPA's 1024-set table shrink)
+RT_CASES = [(curve, lanes) for curve in CURVES
+            for lanes in (1, 2, 3, 33, "g4-1", "g4", "one-1", "one", 90112)]
+RT_CASES.append((curves.secq256k1, "largest"))
+
+
+@pytest.mark.parametrize("curve,lanes", RT_CASES,
+                         ids=[f"{c.name}-{n}" for c, n in RT_CASES])
+def test_rcb_te_double_k_add_on_both_sides_of_the_bands(curve, lanes,
+                                                        cuda_dev):
+    """rcb_double_k_add (secq256k1, zorro) and te_double_k_add
+    (curve25519) at k = 0, 1 and 4 (a group of 8 threads a lane, of 4
+    from the model's first band edge, one thread from its second:
+    kk.DKA_BANDS) with doubling, cancelling and identity lanes: bit-equal
+    to double_k_add_plain (compared by slices of 2^20 lanes), each launch
+    counted once."""
+    spec = spec_for(curve)
+    L = _band_lanes(spec, lanes)
+    dka = kk.te_double_k_add if is_te(spec) else kk.rcb_double_k_add
+    P, Q = _proj_operands(curve, spec, L, cuda_dev, seed=L % 989)
+    before = dka.launches
+    for k in (0, 1, 4):
+        got = dka(spec, P, Q, k)
+        for o in range(0, L, 1 << 20):
+            sl = slice(o, min(o + (1 << 20), L))
+            assert torch.equal(got[..., sl], kk.double_k_add_plain(
+                spec, P[..., sl].contiguous(), Q[..., sl].contiguous(),
+                k)), (k, o)
+        del got
+    assert dka.launches == before + 3
 
 
 @pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)

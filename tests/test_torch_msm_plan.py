@@ -140,34 +140,116 @@ def test_chain_crossover_follows_the_launcher():
     assert k2.CHAIN_ONE_THREAD_MIN_LANES <= batch.BW * batch.c1
 
 
+def _models(src):
+    """{model: the text of its struct} of csrc/msm_kernels.cu's point
+    models."""
+    out = {}
+    for name in ("RcbModel", "TeModel", "JacModel"):
+        body = src[src.index(f"struct {name}"):]
+        out[name] = body[:body.index("\n};\n")]
+    return out
+
+
+def _dka_bands(src):
+    """{kk.DKA_BANDS key: (DKA_GROUP4_MIN_LANES, DKA_ONE_THREAD_MIN_LANES)}
+    read from the models of csrc/msm_kernels.cu (RcbModel's a number for
+    both branches, or AZ ? a = 0 : a != 0)."""
+    out = {}
+    for name, body in _models(src).items():
+        vals = [re.search(rf"static constexpr int64_t {c} =\s*([^;]+);",
+                          body).group(1).strip()
+                for c in ("DKA_GROUP4_MIN_LANES", "DKA_ONE_THREAD_MIN_LANES")]
+        if name == "RcbModel":
+            pairs = [re.fullmatch(r"AZ \? (\d+) : (\d+)", v).groups()
+                     if v.startswith("AZ") else (v, v) for v in vals]
+            out["rcb a=0"] = tuple(int(p[0]) for p in pairs)
+            out["rcb a"] = tuple(int(p[1]) for p in pairs)
+        else:
+            out["te" if name == "TeModel" else "jac"] = tuple(map(int, vals))
+    return out
+
+
+def _launcher(src):
+    launcher = src[src.index("static void launch_double_k_add("):]
+    return launcher[:launcher.index("\n}\n")]
+
+
+def _extern(src, name):
+    body = src[src.index(f'extern "C" int abtpu_{name}('):]
+    return body[:body.index("\n}\n")]
+
+
 def test_jac_double_k_add_crossover_follows_the_launcher():
-    """kernels.DKA_GROUP4_MIN_LANES and DKA_ONE_THREAD_MIN_LANES are the
-    lane counts from which csrc/msm_kernels.cu's jac_double_k_add launcher
-    runs a group of 4 threads a lane and one thread a lane
-    (double_k_add_kernel); below them JacModel's group of ADD_GRP = 8
+    """kernels.DKA_BANDS["jac"] holds JacModel's DKA_GROUP4_MIN_LANES and
+    DKA_ONE_THREAD_MIN_LANES, the lane counts from which
+    csrc/msm_kernels.cu's double-k-add launcher runs a group of 4 threads
+    a lane and one thread a lane (for Jacobian points
+    double_k_add_kernel); below them JacModel's group of ADD_GRP = 8
     threads a lane (double_k_add_group_kernel), on both Jacobian models.
     The on-device Fiat-Shamir IPA of one proof at n = 256 (its c * Q
     tree's 2h lanes, h = 128 ... 1, and S's 2) takes the group of 8, the
     P = 128 batch's tree (256 h lanes) the three mappings."""
     with open(MSM_CU) as fh:
         src = fh.read()
-    for name in ("DKA_GROUP4_MIN_LANES", "DKA_ONE_THREAD_MIN_LANES"):
-        got = re.findall(rf"^#define {name} (\d+)$", src, re.M)
-        assert got == [str(getattr(kk, name))], name
-    launcher = src[src.index("static void launch_double_k_add("):]
-    launcher = launcher[:launcher.index("\n}\n")]
-    assert re.findall(r"if \(m >= (\w+)\)", launcher) == [
+    g4, one = kk.DKA_BANDS["jac"]
+    assert _dka_bands(src)["jac"] == (g4, one)
+    launcher = _launcher(src)
+    assert re.findall(r"if \(m >= M::(\w+)\)", launcher) == [
         "DKA_ONE_THREAD_MIN_LANES", "DKA_GROUP4_MIN_LANES"]
     assert "double_k_add_group_kernel<M, 4>" in launcher
     assert "double_k_add_group_kernel<M, G>" in launcher
-    jac = src[src.index("struct JacModel"):src.index("using RcbA0")]
+    assert "if constexpr (!M::DKA_WIDE)\n      double_k_add_kernel<M>" in (
+        launcher)
+    jac = _models(src)["JacModel"]
     assert re.findall(r"static constexpr int ADD_GRP = (\d+);", jac) == ["8"]
-    body = src[src.index('extern "C" int abtpu_jac_double_k_add'):]
-    body = body[:body.index("\n}\n")]
+    assert "static constexpr bool DKA_WIDE = false;" in jac
+    body = _extern(src, "jac_double_k_add")
     assert body.count("launch_double_k_add<JacModel<") == 2
     assert "double_k_add_kernel<" not in body
-    assert 2 * 128 < kk.DKA_GROUP4_MIN_LANES < kk.DKA_ONE_THREAD_MIN_LANES
-    assert kk.DKA_ONE_THREAD_MIN_LANES <= 256 * 128
+    assert 2 * 128 < g4 < one
+    assert one <= 256 * 128
+
+
+def test_rcb_te_double_k_add_bands_follow_the_launcher():
+    """kernels.DKA_BANDS holds the per-model bands of csrc/msm_kernels.cu
+    (RcbModel a = 0 and a != 0, TeModel, JacModel), and the RCB and TE
+    launchers go through launch_double_k_add for their models: a group of
+    8 threads a lane below the first edge, of 4 below the second, one
+    thread a lane from it on the throughput kernel (DKA_WIDE; k = 0 on
+    its instantiation without the doubling code, whose launch bounds keep
+    at least 3 blocks an SM resident). The plans put the
+    n = 2^20 MSM's stage D and E adds (BW C and BW S = 90,112 lanes) in
+    the one-thread band, and one proof's TE trees (the commit tree's 256
+    ... 1 lanes, the c * Q tree's 2h for h = 128 ... 1) in a group band."""
+    with open(MSM_CU) as fh:
+        src = fh.read()
+    bands = _dka_bands(src)
+    assert bands == kk.DKA_BANDS
+    models = _models(src)
+    for name in ("RcbModel", "TeModel"):
+        assert "static constexpr bool DKA_WIDE = true;" in models[name]
+        blocks = re.search(r"static constexpr int DKA_MIN_BLOCKS = ([^;]+);",
+                           models[name]).group(1)
+        assert min(map(int, re.findall(r"\d+", blocks))) >= 3, name
+        assert re.findall(r"static constexpr int ADD_GRP = (\d+);",
+                          models[name]) == ["8"]
+    launcher = _launcher(src)
+    assert re.findall(r"double_k_add_wide_kernel<M, (\w+)>", launcher) == [
+        "false", "true"]
+    assert "else if (k == 0)\n      double_k_add_wide_kernel<M, false>" in (
+        launcher)
+    rcb = _extern(src, "rcb_double_k_add")
+    assert re.findall(r"launch_double_k_add<(\w+)>", rcb) == ["RcbA0",
+                                                               "RcbA"]
+    te = _extern(src, "te_double_k_add")
+    assert re.findall(r"launch_double_k_add<(\w+)>", te) == ["TeModel"]
+    assert "<<<" not in rcb + te
+    big = msm2._Cfg(1 << 20, msm2.window_bits(1 << 20), 1, "cpu")
+    assert big.BW * big.C == big.BW * big.S == 90_112
+    for key in ("rcb a=0", "rcb a", "te"):
+        g4, one = bands[key]
+        assert 256 < one <= 90_112, key
+        assert 1 <= g4 <= one, key
 
 
 def _case(curve, n, seed):
