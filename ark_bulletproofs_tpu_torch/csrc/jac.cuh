@@ -22,10 +22,10 @@
 //
 // Cost: 8 field products a doubling (10 for a != 0), 16 an add and 12 a
 // mixed add (8 or 10 more on a doubling lane), against RCB's 8, 12 and
-// 11. Callers: the IPA's Q-term tree (ops/ipa.py::_mul_point_dev) and the
-// v1 Pippenger (ops/msm.py::msm_impl: the mixed add in its row scan, the
-// add in its carries and trees, the double-k-add in its Horner steps);
-// no scan kernel is built on this model.
+// 11. Callers: the IPA's Q-term tree and 2^i Q table (ops/ipa.py::
+// _mul_point_dev, _q_doubles: the doubling chain) and the v1 Pippenger
+// (ops/msm.py::msm_impl: the mixed add in its row scan, the add in its
+// carries and trees, the double-k-add in its Horner steps).
 #pragma once
 #include "rcb.cuh"
 
@@ -212,6 +212,50 @@ __device__ __forceinline__ Pt jac_add_grp(Grp<G>& gr, const Pt& P,
   if (x_eq && y_eq && finite) R = jac_double_grp<AZ>(gr, P, cc);
   if (x_eq && !y_eq && finite) R.Z = fe_zero();
   if (p_inf) R = Q;
+  if (q_inf) R = P;
+  return R;
+}
+
+// jac_madd dealt out over a thread group, for the v1 row scan
+// (madd_scan_kernel). Levels: Z1^2, qy Z1 | U2, S2 | HH, I, rr^2,
+// (Z1 + H)^2 | J, V | S1 J, rr (V - X3): 5 levels of at most 4 products,
+// so a group of 4 waits on 5 product latencies against one thread's 12.
+// The selects of jac_madd follow in its order; its doubling lanes take
+// jac_double_grp. The values are those of jac_madd.
+template <bool AZ, int G>
+__device__ __forceinline__ Pt jac_madd_grp(Grp<G>& gr, const Pt& P,
+                                           const Fe& qx, const Fe& qy,
+                                           bool q_inf, const CurveConst& cc) {
+  bool p_inf = fe_is_zero(P.Z);
+  Fe m[2];  // Z1Z1, qy Z1
+  grp_mul<2>(gr, m, {P.Z, qy}, {P.Z, P.Z}, cc);
+  Fe n[2];  // U2, S2
+  grp_mul<2>(gr, n, {qx, m[1]}, {m[0], m[0]}, cc);
+  Fe H = fe_sub(n[0], P.X, cc);
+  Fe rr0 = fe_sub(n[1], P.Y, cc);
+  bool x_eq = fe_is_zero(H);
+  bool y_eq = fe_is_zero(rr0);
+  Fe rr = fe_add(rr0, rr0, cc);
+  Fe twoH = fe_add(H, H, cc);
+  Fe zph = fe_add(P.Z, H, cc);
+  Fe q[4];  // HH, I, rr^2, (Z1 + H)^2
+  grp_mul<4>(gr, q, {H, twoH, rr, zph}, {H, twoH, rr, zph}, cc);
+  Fe s[2];  // J, V
+  grp_mul<2>(gr, s, {H, P.X}, {q[1], q[1]}, cc);
+  Pt R;
+  R.X = fe_sub(q[2], fe_add(s[0], fe_add(s[1], s[1], cc), cc), cc);
+  Fe u[2];  // S1 J, rr (V - X3)
+  grp_mul<2>(gr, u, {P.Y, rr}, {s[0], fe_sub(s[1], R.X, cc)}, cc);
+  R.Y = fe_sub(u[1], fe_add(u[0], u[0], cc), cc);
+  R.Z = fe_sub(q[3], fe_add(m[0], q[0], cc), cc);
+  bool finite = !p_inf && !q_inf;
+  if (x_eq && y_eq && finite) R = jac_double_grp<AZ>(gr, P, cc);
+  if (x_eq && !y_eq && finite) R.Z = fe_zero();
+  if (p_inf) {
+    R.X = qx;
+    R.Y = qy;
+    R.Z = q_inf ? fe_zero() : fe_from(cc.one);
+  }
   if (q_inf) R = P;
   return R;
 }

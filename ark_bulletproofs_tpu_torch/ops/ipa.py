@@ -341,19 +341,20 @@ class IpaBatchProver:
 
 
 def _q_doubles(curve, Q, device) -> torch.Tensor:
-    """(NC, 16, 256) int32 model coordinates of 2^i Q, i < 256: 255
-    doubling launches (`jac_double`, or `te_double` on a twisted-Edwards
-    curve), the JAX package's 256-step scan."""
+    """(NC, 16, 256) int32 model coordinates of 2^i Q, i < 256, the JAX
+    package's 256-step scan: one `jac_double` launch of 255 steps, or 255
+    `te_double` launches on a twisted-Edwards curve."""
     spec = spec_for(curve)
     f = curve.fq
     x, y = Q
     coords = [x, y, x * y % f.p, 1] if is_te(spec) else [x, y, 1]
     P = ints_to_limbs([v * f.R % f.p for v in coords], device)
     P = P.T.reshape(len(coords), N_LIMBS, 1).contiguous()
-    dbl = kk.te_double if is_te(spec) else kk.jac_double
+    if not is_te(spec):
+        return kk.jac_double(spec, P, 255).reshape(3, N_LIMBS, 256)
     rows = [P]
     for _ in range(255):
-        P = dbl(spec, P)
+        P = kk.te_double(spec, P)
         rows.append(P)
     return torch.cat(rows, dim=-1)
 

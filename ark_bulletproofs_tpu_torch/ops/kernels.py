@@ -1,4 +1,5 @@
-"""Elementwise group-law kernels (CUDA, csrc/msm_kernels.cu).
+"""Elementwise group-law kernels (CUDA, csrc/msm_kernels.cu and, on Jacobian
+points, csrc/jac_kernels.cu).
 
   rcb_double_k_add <- ark_bulletproofs_tpu/ops/kernels.py::
       rcb_double_k_add_tiled (the JAX v2 MSM's stage-G Horner step; the
@@ -20,16 +21,22 @@
       Jacobian points (csrc/jac.cuh), the on-device Fiat-Shamir IPA's
       c * Q tree and S = MSM + c * Q on short-Weierstrass curves, and the
       v1 Pippenger's adds; bands as above (DKA_BANDS["jac"]);
-  jac_double       <- ::sw_double_tiled: that IPA's 2^i Q table;
-  jac_madd         <- ::sw_madd_tiled: Jacobian P + affine Q, the row scan
-      of the v1 Pippenger (ops/msm.py) on short-Weierstrass curves;
-  te_madd          <- ::te_madd_tiled's elementwise launcher: the same on
-      a twisted-Edwards curve.
+  jac_double       <- ::sw_double_tiled: 2P, or with `steps` a chain of
+      doublings in one launch, that IPA's 2^i Q table (the JAX package's
+      255-step scan; a group of 4 threads a lane);
+  jac_madd         <- ::sw_madd_tiled: Jacobian P + affine Q, or over R
+      rows of Q their suffix sums in one launch: the row scan of the v1
+      Pippenger (ops/msm.py; the JAX package's lax.scan of the kernel) on
+      short-Weierstrass curves (a group of 4 threads a lane, of 2 from
+      MADD_BANDS["jac"][0] lanes, one thread a lane from its [1]);
+  te_madd          <- ::te_madd_tiled's elementwise launcher: the same
+      mixed add on a twisted-Edwards curve, one launch a row of the scan
+      (`madd_scan`).
 
 The v1 Pippenger and the on-device Fiat-Shamir IPA keep their points in
 the model coordinates of the JAX package's group law (Jacobian on a
 short-Weierstrass curve, extended on a twisted-Edwards one):
-`add_mixed` and `model_double_k_add` pick the Jacobian or TE kernel by
+`madd_scan` and `model_double_k_add` pick the Jacobian or TE kernel by
 the spec's type.
 
 `k` is a runtime argument, so one kernel serves both the Horner step and
@@ -89,13 +96,21 @@ def launch(name: str, spec, dev: torch.device, *args) -> None:
     _build.check(err, name)
 
 
-# csrc/msm_kernels.cu's bands of the double-k-add launchers, a pair per
-# point model (M::DKA_GROUP4_MIN_LANES, M::DKA_ONE_THREAD_MIN_LANES): the
-# lane counts from which a group of 4 threads a lane runs instead of 8,
-# and one thread a lane (the H100's crossovers, PERF.md;
+# The bands of the double-k-add launcher (csrc/point_kernels.cuh), a pair
+# per point model (M::DKA_GROUP4_MIN_LANES, M::DKA_ONE_THREAD_MIN_LANES):
+# the lane counts from which a group of 4 threads a lane runs instead of
+# 8, and one thread a lane (the H100's crossovers, PERF.md;
 # tests/test_torch_msm_plan.py ties them to the models).
 DKA_BANDS = {"jac": (4096, 24576), "rcb a=0": (8192, 16384),
              "rcb a": (8192, 16384), "te": (4096, 16384)}
+
+
+# The bands of csrc/jac_kernels.cu's row scan (JacModel::
+# MADD_GROUP2_MIN_LANES, MADD_ONE_THREAD_MIN_LANES: the lane counts from
+# which a group of 2 threads a lane runs instead of 4, and one thread a
+# lane), measured on the H100 (PERF.md; the same test ties them to the
+# model).
+MADD_BANDS = {"jac": (8192, 65536)}
 
 
 def dka_model(spec) -> str:
@@ -209,8 +224,18 @@ def rcb_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
     return _by_lanes(lambda p: proj._rcb_double(spec, p), P)
 
 
-def jac_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
-    return _by_lanes(lambda p: _sw_double(spec, p), P)
+def jac_double_plain(spec, P: torch.Tensor, steps: int = 1) -> torch.Tensor:
+    """The plain version of `jac_double`: `steps` loops of
+    ops/curve.py::_sw_double, 2P for one step, else the rows P, 2P, ...,
+    2^steps P stacked as (3, 16, steps + 1, m)."""
+
+    def f(p):
+        rows = [p.long()]
+        for _ in range(steps):
+            rows.append(_sw_double(spec, rows[-1]))
+        return rows[1] if steps == 1 else torch.stack(rows, dim=-2)
+
+    return _by_lanes(f, P)
 
 
 def _double(wrapper, plain, spec, P):
@@ -233,11 +258,28 @@ def te_double(spec, P: torch.Tensor) -> torch.Tensor:
     return _double(te_double, te_double_plain, spec, P)
 
 
-def jac_double(spec, P: torch.Tensor) -> torch.Tensor:
+def jac_double(spec, P: torch.Tensor, steps: int = 1) -> torch.Tensor:
     """2P lane-wise on Jacobian short-Weierstrass points; P: (3, 16, m)
-    int32."""
+    int32. With steps = s > 1, the s + 1 rows P, 2P, ..., 2^s P of every
+    lane from one launch, as (3, 16, s + 1, m): at m = 1 the (3, 16,
+    s + 1) table of the on-device Fiat-Shamir IPA without a copy."""
     _check_model("jac_double", spec, te=False)
-    return _double(jac_double, jac_double_plain, spec, P)
+    m = P.shape[-1]
+    check_tensor(P, (3, N_LIMBS, m), "jac_double P")
+    if not 1 <= steps < (1 << 31) - 1:
+        raise ValueError(f"jac_double: steps={steps} out of range")
+    if P.device.type == "cpu":
+        return jac_double_plain(spec, P, steps)
+    if m == 0:
+        raise ValueError("jac_double: empty input")
+    keep = int(steps > 1)
+    out = torch.empty((3, N_LIMBS, m) if steps == 1 else
+                      (3, N_LIMBS, steps + 1, m), dtype=torch.int32,
+                      device=P.device)
+    launch("jac_double", spec, P.device, P.data_ptr(), out.data_ptr(), m,
+           steps, keep)
+    jac_double.launches += 1
+    return out
 
 
 def rcb_double(spec, P: torch.Tensor) -> torch.Tensor:
@@ -249,7 +291,16 @@ def rcb_double(spec, P: torch.Tensor) -> torch.Tensor:
 
 def jac_madd_plain(spec, P: torch.Tensor, Qx: torch.Tensor,
                    Qy: torch.Tensor, q_inf: torch.Tensor) -> torch.Tensor:
-    """The plain version of `jac_madd` (ops/curve.py::_sw_add_mixed)."""
+    """The plain version of `jac_madd` (ops/curve.py::_sw_add_mixed), over
+    the rows of (R, 16, m) Qx and Qy from the last up."""
+    if Qx.dim() == 3:
+        out = torch.empty((3, *Qx.shape), dtype=torch.int32,
+                          device=P.device)
+        acc = P
+        for r in range(Qx.shape[0] - 1, -1, -1):
+            acc = jac_madd_plain(spec, acc, Qx[r], Qy[r], q_inf[r])
+            out[:, r] = acc
+        return out
     return _by_lanes(lambda p, x, y, i: _sw_add_mixed(spec, p, x, y, i),
                      P, Qx, Qy, q_inf)
 
@@ -261,35 +312,43 @@ def te_madd_plain(spec, P: torch.Tensor, Qx: torch.Tensor,
                      P, Qx, Qy, q_inf)
 
 
-def _madd(wrapper, plain, spec, P, Qx, Qy, q_inf):
-    name = wrapper.__name__
+def _check_madd(name: str, spec, P, Qx, Qy, q_inf, rows: tuple) -> None:
+    """Raise unless P is (NC, 16, m), Qx and Qy (*rows, 16, m) int32 and
+    q_inf a contiguous (*rows, m) bool tensor, all on one device."""
     m = P.shape[-1]
     check_tensor(P, (n_coords(spec), N_LIMBS, m), f"{name} P")
-    check_tensor(Qx, (N_LIMBS, m), f"{name} Qx")
-    check_tensor(Qy, (N_LIMBS, m), f"{name} Qy")
-    if q_inf.dtype != torch.bool or tuple(q_inf.shape) != (m,):
-        raise ValueError(f"{name} q_inf: expected a bool ({m},) tensor")
+    check_tensor(Qx, (*rows, N_LIMBS, m), f"{name} Qx")
+    check_tensor(Qy, (*rows, N_LIMBS, m), f"{name} Qy")
+    if q_inf.dtype != torch.bool or tuple(q_inf.shape) != (*rows, m):
+        raise ValueError(f"{name} q_inf: expected a bool {(*rows, m)} "
+                         f"tensor")
     if not q_inf.is_contiguous():
         raise ValueError(f"{name} q_inf: tensor must be contiguous")
-    dev = same_device(P, Qx, Qy, q_inf)
-    if dev.type == "cpu":
-        return plain(spec, P, Qx, Qy, q_inf)
-    if m == 0:
-        raise ValueError(f"{name}: empty input")
-    out = torch.empty_like(P)
-    launch(name, spec, dev, P.data_ptr(), Qx.data_ptr(), Qy.data_ptr(),
-           q_inf.data_ptr(), out.data_ptr(), m)
-    wrapper.launches += 1
-    return out
+    same_device(P, Qx, Qy, q_inf)
 
 
 def jac_madd(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
              q_inf: torch.Tensor) -> torch.Tensor:
     """Complete P + affine (Qx, Qy) lane-wise on Jacobian short-Weierstrass
     points; P: (3, 16, m) int32, Qx, Qy: (16, m) int32 Montgomery, q_inf:
-    (m,) bool (those lanes add the identity)."""
+    (m,) bool (those lanes add the identity). With R rows, Qx, Qy: (R, 16,
+    m) and q_inf (R, m), the row scan in one launch: (3, R, 16, m) with
+    out[:, r] = P + sum_{j >= r} Q_j, added from row R - 1 down to 0."""
     _check_model("jac_madd", spec, te=False)
-    return _madd(jac_madd, jac_madd_plain, spec, P, Qx, Qy, q_inf)
+    R = Qx.shape[0] if Qx.dim() == 3 else None
+    rows = () if R is None else (R,)
+    _check_madd("jac_madd", spec, P, Qx, Qy, q_inf, rows)
+    m = P.shape[-1]
+    if P.device.type == "cpu":
+        return jac_madd_plain(spec, P, Qx, Qy, q_inf)
+    if m == 0 or R == 0:
+        raise ValueError("jac_madd: empty input")
+    out = torch.empty((3, *rows, N_LIMBS, m), dtype=torch.int32,
+                      device=P.device)
+    launch("jac_madd", spec, P.device, P.data_ptr(), Qx.data_ptr(),
+           Qy.data_ptr(), q_inf.data_ptr(), out.data_ptr(), R or 1, m)
+    jac_madd.launches += 1
+    return out
 
 
 def te_madd(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
@@ -297,7 +356,17 @@ def te_madd(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
     """Complete P + affine (Qx, Qy) lane-wise on twisted-Edwards extended
     points; P: (4, 16, m) int32; q_inf lanes pass P through."""
     _check_model("te_madd", spec, te=True)
-    return _madd(te_madd, te_madd_plain, spec, P, Qx, Qy, q_inf)
+    _check_madd("te_madd", spec, P, Qx, Qy, q_inf, ())
+    m = P.shape[-1]
+    if P.device.type == "cpu":
+        return te_madd_plain(spec, P, Qx, Qy, q_inf)
+    if m == 0:
+        raise ValueError("te_madd: empty input")
+    out = torch.empty_like(P)
+    launch("te_madd", spec, P.device, P.data_ptr(), Qx.data_ptr(),
+           Qy.data_ptr(), q_inf.data_ptr(), out.data_ptr(), m)
+    te_madd.launches += 1
+    return out
 
 
 rcb_double_k_add.launches = rcb_double_k_add.doubling_launches = 0
@@ -342,10 +411,17 @@ def model_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
     return jac_double_k_add(spec, P, Q, k)
 
 
-def add_mixed(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
+def madd_scan(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
               q_inf: torch.Tensor) -> torch.Tensor:
-    """P + affine Q in the model coordinates: `jac_madd`, or `te_madd` on a
-    twisted-Edwards curve."""
-    if is_te(spec):
-        return te_madd(spec, P, Qx, Qy, q_inf)
-    return jac_madd(spec, P, Qx, Qy, q_inf)
+    """The suffix sums P + sum_{j >= r} Q_j of (R, 16, m) affine rows, from
+    the last row up, in the model coordinates: (NC, R, 16, m). One
+    `jac_madd` launch on a short-Weierstrass curve; on a twisted-Edwards
+    curve one `te_madd` launch a row."""
+    if not is_te(spec):
+        return jac_madd(spec, P, Qx, Qy, q_inf)
+    out = torch.empty((4, *Qx.shape), dtype=torch.int32, device=P.device)
+    acc = P
+    for r in range(Qx.shape[0] - 1, -1, -1):
+        acc = te_madd(spec, acc, Qx[r], Qy[r], q_inf[r])
+        out[:, r] = acc
+    return out

@@ -9,10 +9,11 @@ the v2 MSM's widths. Its contract, per window of c bits:
      order, as `jnp.argsort`), the points gathered in sorted order into R
      rows of C columns (R = min(n, 32)), an optional base_map composed
      into the gather;
-  2. a row scan of mixed adds (`kernels.add_mixed`: `jac_madd`, or
-     `te_madd` on a twisted-Edwards curve) gives each column's suffix
-     sums, and a Hillis-Steele suffix over the C column totals (log2 C
-     adds) their carries;
+  2. a row scan of mixed adds (`kernels.madd_scan`: one `jac_madd`
+     launch over the R rows, or one `te_madd` launch a row on a
+     twisted-Edwards curve) gives each column's suffix sums, and a
+     Hillis-Steele suffix over the C column totals (log2 C adds) their
+     carries;
   3. telescoping: the window sum  sum_j j B_j  is  sum_i delta_i T_i  over
      the S <= 2^c segment starts i of the sorted digits (delta_i the digit
      step, T_i the suffix sum there, found by a top-k of the starts in
@@ -32,8 +33,9 @@ twisted-Edwards one; every other add and double-k-add is one launch of
 What the JAX version did only for the TPU is dropped: it scanned over
 groups of G = min(B W, 8) windows to bound VMEM and compile size. Here
 all B W windows run in one pass (B W C lanes in the row scan), split only
-when G n would pass V1_MAX_WINDOW_TERMS, so an MSM is about R + log2 C +
-1 + log2 S + c + 1 launches whatever B is. Windows are independent, so
+when G n would pass V1_MAX_WINDOW_TERMS, so an MSM is about 1 + log2 C +
+1 + log2 S + c + 1 launches whatever B is (R more on a twisted-Edwards
+curve, whose row scan is one launch a row). Windows are independent, so
 every window's coordinates are those of the JAX version.
 
 The host-facing functions take affine int points and int scalars and
@@ -146,12 +148,8 @@ def _window_sums(spec, c: int, X, Y, inf, scal, base_map,
     cY = Y[:, idx].permute(1, 0, 2).contiguous()
     cI = inf[idx].contiguous()  # (R, G C)
 
-    local = torch.empty(nc, R, N_LIMBS, G * C, dtype=torch.int32,
-                        device=dev)
-    acc = _ident(spec, G * C, dev)
-    for r in range(R - 1, -1, -1):
-        acc = kk.add_mixed(spec, acc, cX[r], cY[r], cI[r])
-        local[:, r] = acc
+    local = kk.madd_scan(spec, _ident(spec, G * C, dev), cX, cY, cI)
+    acc = local[:, 0]  # the column totals
     del cX, cY, cI
 
     # exclusive suffix of the column totals

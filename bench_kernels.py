@@ -22,14 +22,30 @@ turns (committed, variants, variants reversed, committed) on the three
 point models at CHAIN_SHAPES, the paths' shapes and the crossover's
 neighbours.
 
-The Jacobian jac_double_k_add the same way (JAC_VARIANTS: a group of 8
-or 4 threads a lane at every lane count, one thread a lane at every lane
-count) at k = 0 and 1 on secq256k1 and zorro at every lane count the
+The Jacobian jac_double_k_add the same way (JAC_VARIANTS, built from
+csrc/jac_kernels.cu: a group of 8 or 4 threads a lane at every lane
+count, one thread a lane at every lane count) at k = 0 and 1 on secq256k1 and zorro at every lane count the
 paths send (chip_smoke.DKA_LANES, 2 to 786,432), against the committed
 launcher's choice; and fs_round at P = 1 and 128 on the three curves
 against a build whose safegcd divstep inverts f mod 2^32 by Newton's
 iteration (FS_VARIANTS), beside one thread's SM cycles for a Keccak
 permutation, a field product and a field inverse (OP_PROBE).
+
+The v1 row scan (jac_madd over R rows in one launch) the same way
+(SCAN_VARIANTS, built from csrc/jac_kernels.cu: a group of 8, 4 or 2
+threads a lane at every lane count, one thread a lane at every lane count
+under launch bounds of 1 to 4 resident blocks) at 32 rows of every lane
+count of chip_smoke.SCAN_LANES and at the small rounds' row counts; and
+the Q-table chain (jac_double with 255 steps, a group of 4 threads a
+lane) at 1 to 65,536 lanes, on secq256k1 and zorro. With --parent DIR (a
+checkout of the parent commit, e.g. unpacked by `git archive` into the
+git-ignored chipwork/), the parent's kernels are built too and its forms
+timed in the same turns: R one-row jac_madd launches each followed by the
+copy into the scan's output, as its v1 Pippenger ran them, and 255
+one-step jac_double launches and their torch.stack, as its Q table.
+
+--parts picks the comparisons to run (default all): ops (one thread's
+cycles), fs, jac, rcb_te, wide, chains, scan, chain, msm.
 
 The last line is a JSON object of every number; --out also writes it to
 FILE. Needs one card; exits 1 without.
@@ -67,27 +83,26 @@ CHAIN_VARIANTS = {
 CHAIN_SHAPES = [(64, 1408), (64, 22), (16, 1024), (16, 64), (1, 64),
                 (16, 8192), (16, 65536), (16, 1048576), (16, 4096),
                 (16, 16384), (16, 32768), (16, 131072)]
-# msm_kernels.cu's text substitutions of each mapping of the double-k-add
-# launchers (launch_double_k_add), at every lane count; one library serves
-# the Jacobian, RCB and TE launchers. "one thread" is the band's kernel
+# The text substitutions of each mapping of the double-k-add launcher
+# (point_kernels.cuh's launch_double_k_add), at every lane count, built
+# from jac_kernels.cu for the Jacobian launcher and from msm_kernels.cu
+# for the RCB and TE ones. "one thread" is the band's kernel
 # (double_k_add_wide_kernel on RCB and TE, double_k_add_kernel on
-# Jacobian points), "parent one thread" double_k_add_kernel on all three.
+# Jacobian points), "parent one thread" double_k_add_kernel on RCB and TE.
 ONE = "if (m >= M::DKA_ONE_THREAD_MIN_LANES) {"
 FOUR = "} else if (m >= M::DKA_GROUP4_MIN_LANES) {"
 WIDE = "static constexpr bool DKA_WIDE = true;"
-DKA_VARIANTS = {
-    "dka group 8": ("msm_kernels.cu", [(ONE, "if (false) {"),
-                                       (FOUR, "} else if (false) {")]),
-    "dka group 4": ("msm_kernels.cu", [(ONE, "if (false) {"),
-                                       (FOUR, "} else if (true) {")]),
-    "dka one thread": ("msm_kernels.cu", [(ONE, "if (true) {")]),
-    "dka parent one thread": ("msm_kernels.cu", [
-        (ONE, "if (true) {"),
-        (WIDE, "static constexpr bool DKA_WIDE = false;")]),
+DKA_SUBS = {
+    "group 8": [(ONE, "if (false) {"), (FOUR, "} else if (false) {")],
+    "group 4": [(ONE, "if (false) {"), (FOUR, "} else if (true) {")],
+    "one thread": [(ONE, "if (true) {")],
 }
-JAC_VARIANTS = {name: DKA_VARIANTS[name]
-                for name in ("dka group 8", "dka group 4", "dka one thread")}
-RCB_TE_VARIANTS = dict(DKA_VARIANTS)
+JAC_VARIANTS = {f"jac {name}": ("jac_kernels.cu", subs)
+                for name, subs in DKA_SUBS.items()}
+RCB_TE_VARIANTS = {f"dka {name}": ("msm_kernels.cu", subs)
+                   for name, subs in DKA_SUBS.items()}
+RCB_TE_VARIANTS["dka parent one thread"] = ("msm_kernels.cu", [
+    (ONE, "if (true) {"), (WIDE, "static constexpr bool DKA_WIDE = false;")])
 # double_k_add_wide_kernel under other launch bounds on every model
 # (blocks an SM keeps resident: 3, 4 or 5, at k = 0 and k > 0; or no
 # minimum, as the parent's one-thread kernel), and over a grid of the
@@ -124,6 +139,37 @@ RESIDENT = ("<<<(unsigned)((m + DKA_THREADS - 1) / DKA_THREADS < 132 * "
             "M::DKA_MIN_BLOCKS), DKA_THREADS, 0,")
 WIDE_VARIANTS["wide resident grid"] = ("msm_kernels.cu", [
     (ONE_LANE, STRIDE), (GRID, RESIDENT)])
+# jac_madd's row scan (launch_madd_scan) under each mapping at every lane
+# count: a group of 8, 4 or 2 threads a lane, or one thread a lane under
+# launch bounds that keep 1 (no minimum), 2, 3 or 4 blocks an SM resident
+MADD_ONE = "static constexpr int64_t MADD_ONE_THREAD_MIN_LANES = "
+MADD_GRP = "static constexpr int MADD_GRP = "
+MADD_G2 = "static constexpr int64_t MADD_GROUP2_MIN_LANES = "
+MADD_BLOCKS = "static constexpr int MADD_MIN_BLOCKS = "
+
+
+def _member(prefix: str, value: str) -> tuple:
+    """A substitution of JacModel's member `prefix`... = value;, whatever
+    its committed value (read from csrc/jac_kernels.cu)."""
+    with open(os.path.join(CSRC, "jac_kernels.cu")) as fh:
+        text = fh.read()
+    line = text[text.index(prefix):]
+    return (line[:line.index(";") + 1], f"{prefix}{value};")
+
+
+SCAN_VARIANTS = {
+    f"scan group {G}": ("jac_kernels.cu", [
+        _member(MADD_GRP, str(G)), _member(MADD_G2, "0x7fffffffffffffffLL"),
+        _member(MADD_ONE, "0x7fffffffffffffffLL")]) for G in (8, 4, 2)}
+SCAN_VARIANTS.update({
+    **{f"scan one thread {n} blocks": ("jac_kernels.cu", [
+        _member(MADD_ONE, "0"), _member(MADD_BLOCKS, str(n))])
+       for n in (1, 2, 3, 4)}})
+# (rows, lanes) of the scan comparison: 32 rows at every lane count the
+# paths send (chip_smoke.SCAN_LANES), and the per-round route's small
+# rounds (n rows of 8,192 lanes) and prove_batch's one-term MSMs
+SCAN_EXTRA = [(16, 8192), (8, 8192), (2, 8192), (1, 8192), (1, 24576)]
+CHAIN_LANES = [1, 2, 8, 64, 512, 2048, 4096, 8192, 16384, 32768, 65536]
 # fs_round with the inverse of f mod 2^32 by Newton's iteration in each
 # divstep (the first form of csrc/fs.cuh) instead of the 5-bit step
 FIVE_BIT = """    const int limit = min(min(eta + 1, i), 5);
@@ -329,8 +375,9 @@ def jac_compare(res: dict, variants: dict, dev) -> None:
 
 
 def dka_launchers(path: str) -> dict:
-    """{name: run} of the three double-k-add launchers of the kernel
-    library at `path`, each taking (spec, P, Q, k) as the wrappers do."""
+    """{name: run} of the double-k-add launchers of the kernel library at
+    `path` (jac_kernels.cu's, or msm_kernels.cu's two), each taking (spec,
+    P, Q, k) as the wrappers do."""
     import ctypes
 
     import torch
@@ -349,7 +396,8 @@ def dka_launchers(path: str) -> dict:
 
     return {name: wrap(name) for name in ("jac_double_k_add",
                                           "rcb_double_k_add",
-                                          "te_double_k_add")}
+                                          "te_double_k_add")
+            if hasattr(lib, f"abtpu_{name}")}
 
 
 def rcb_te_compare(res: dict, variants: dict, dev, lanes,
@@ -568,10 +616,172 @@ def chain_compare(res: dict, variants: dict, dev) -> None:
             torch.cuda.empty_cache()
 
 
+def scan_launcher(path: str):
+    """jac_madd over rows of the kernel library at `path`, taking the
+    wrapper's arguments."""
+    import ctypes
+
+    import torch
+
+    lib = ctypes.CDLL(path)
+    madd_fn = launcher(lib, "jac_madd")
+
+    def scan(spec, P, qx, qy, qi):
+        R, _, m = qx.shape
+        out = torch.empty((3, R, 16, m), dtype=torch.int32, device=P.device)
+        madd_fn(spec, P.data_ptr(), qx.data_ptr(), qy.data_ptr(),
+                qi.data_ptr(), out.data_ptr(), R, m)
+        return out
+
+    return scan
+
+
+def parent_launchers(parent: str, build_dir: str) -> tuple:
+    """The parent commit's forms of the scan and the chain, built from its
+    csrc/msm_kernels.cu: R launches of its one-row jac_madd kernel, each
+    followed by the copy into the scan's output (its ops/msm.py), and
+    `steps` launches of its one-step jac_double kernel and one stack of
+    the rows (its ops/ipa.py::_q_doubles, here over any lane count)."""
+    import ctypes
+
+    import torch
+
+    from ark_bulletproofs_tpu_torch.ops import _build
+
+    src = os.path.join(parent, "ark_bulletproofs_tpu_torch", "csrc")
+    d = os.path.join(build_dir, "parent")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(src, d, ignore=shutil.ignore_patterns("host"))
+    lib_path = os.path.join(d, "lib.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    lib_path, os.path.join(d, "msm_kernels.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    madd_fn, dbl_fn = lib.abtpu_jac_madd, lib.abtpu_jac_double
+    madd_fn.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp]
+    dbl_fn.argtypes = [vp, vp, i64, vp, vp]
+    madd_fn.restype = dbl_fn.restype = ctypes.c_int
+
+    def words(spec):
+        return _build.curve_words(spec).ctypes.data_as(vp)
+
+    def stream():
+        return vp(torch.cuda.current_stream().cuda_stream)
+
+    def scan(spec, P, qx, qy, qi):
+        R, _, m = qx.shape
+        local = torch.empty((3, R, 16, m), dtype=torch.int32,
+                            device=P.device)
+        acc = P
+        for r in range(R - 1, -1, -1):
+            out = torch.empty_like(P)
+            _build.check(madd_fn(acc.data_ptr(), qx[r].data_ptr(),
+                                 qy[r].data_ptr(), qi[r].data_ptr(),
+                                 out.data_ptr(), m, words(spec), stream()),
+                         "parent jac_madd")
+            acc = out
+            local[:, r] = acc
+        return local
+
+    def chain(spec, P, steps):
+        rows = [P]
+        for _ in range(steps):
+            out = torch.empty_like(P)
+            _build.check(dbl_fn(rows[-1].data_ptr(), out.data_ptr(),
+                                P.shape[-1], words(spec), stream()),
+                         "parent jac_double")
+            rows.append(out)
+        return torch.stack(rows, dim=-2)
+
+    return scan, chain
+
+
+def scan_compare(res: dict, variants: dict, dev) -> None:
+    """jac_madd's row scan, committed and each variant (and the parent's R
+    launches), at 32 rows of chip_smoke.SCAN_LANES and at SCAN_EXTRA on
+    secq256k1 and zorro (chip_smoke's scan_operands: doubling,
+    cancelling and identity lanes): bit-equal, then ms from CUDA graphs
+    in turns into res["scan"]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import kernels as kk
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    runs = {"committed": kk.jac_madd, **variants}
+    check = cs.KernelCheck(dev, cs.Bound(1980))
+    res["scan"] = {}
+    shapes = [(32, L) for L in cs.SCAN_LANES] + SCAN_EXTRA
+    for curve in (curves.secq256k1, curves.zorro):
+        spec = spec_for(curve)
+        for R, L in shapes:
+            ops = check.scan_operands(curve, spec, R, L, R + L)
+            want = kk.jac_madd(spec, *ops)
+            for name, run in runs.items():
+                if not torch.equal(run(spec, *ops), want):
+                    res["failures"].append(f"scan {curve.name} {R} x {L}: "
+                                           f"{name} differs")
+            times = in_turns(runs, lambda run: run(spec, *ops), 5)
+            key = f"{curve.name} {R} x {L}"
+            res["scan"][key] = times
+            print(f"  jac_madd scan {key} (ms, mean of 2): " + "; ".join(
+                f"{name} {statistics.mean(t):.4f}"
+                for name, t in times.items()), flush=True)
+            del ops, want
+        torch.cuda.empty_cache()
+
+
+def chain_steps_compare(res: dict, variants: dict, dev) -> None:
+    """jac_double's 255-step chain, committed (and the parent's 255
+    launches), at CHAIN_LANES on secq256k1 and zorro (row 0
+    of model_points, every seventh lane the identity): bit-equal, then ms
+    from CUDA graphs in turns into res["chain"]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import kernels as kk
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    runs = {"committed": kk.jac_double, **variants}
+    check = cs.KernelCheck(dev, cs.Bound(1980))
+    res["chain"] = {}
+    for curve in (curves.secq256k1, curves.zorro):
+        spec = spec_for(curve)
+        for L in CHAIN_LANES:
+            T, _ = check.model_points(curve, spec, 1, L, L)
+            P = T[:, 0].contiguous()
+            P[..., ::7] = 0
+            want = kk.jac_double(spec, P, 255)
+            for name, run in runs.items():
+                if not torch.equal(run(spec, P, 255), want):
+                    res["failures"].append(f"chain {curve.name} {L} lanes: "
+                                           f"{name} differs")
+            times = in_turns(runs, lambda run: run(spec, P, 255), 2)
+            key = f"{curve.name} 255 x {L}"
+            res["chain"][key] = times
+            print(f"  jac_double chain {key} (ms, mean of 2): " + "; ".join(
+                f"{name} {statistics.mean(t):.4f}"
+                for name, t in times.items()), flush=True)
+            del T, P, want
+        torch.cuda.empty_cache()
+
+
+PARTS = ("ops", "fs", "jac", "rcb_te", "wide", "chains", "scan", "chain",
+         "msm")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out")
+    ap.add_argument("--parts", default=",".join(PARTS))
+    ap.add_argument("--parent")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
+    if parts - set(PARTS):
+        ap.error(f"--parts: not among {PARTS}: {sorted(parts - set(PARTS))}")
     sys.path.insert(0, HERE)
     import torch
 
@@ -593,45 +803,71 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    procs = build_variants(os.path.join(_build.BUILD_DIR, "bench"),
-                           {**CHAIN_VARIANTS, **DKA_VARIANTS,
-                            **WIDE_VARIANTS, **FS_VARIANTS})
+    wanted = {}
+    for part, variants in (("chains", CHAIN_VARIANTS), ("jac", JAC_VARIANTS),
+                           ("rcb_te", RCB_TE_VARIANTS),
+                           ("wide", WIDE_VARIANTS), ("fs", FS_VARIANTS),
+                           ("scan", SCAN_VARIANTS)):
+        if part in parts:
+            wanted.update(variants)
+    bench_dir = os.path.join(_build.BUILD_DIR, "bench")
+    procs = build_variants(bench_dir, wanted)
+    parent = (parent_launchers(args.parent, bench_dir) if args.parent
+              and parts & {"scan", "chain"} else None)
     _build.lib()
     res["build_s"] = time.perf_counter() - t0
     ptx = [line for line in cs.ptxas_report(_build.build_log or "")
-           if re.match(r"(suffix_|rowsum|horner|mont_mul|double_k_add|fs_)",
-                       line)]
-    chains, dkas, fss = {}, {}, {}
+           if re.match(r"(suffix_|rowsum|horner|mont_mul|double_k_add|fs_|"
+                       r"madd_scan|double_chain)", line)]
+    chains, dkas, fss, scans = {}, {}, {}, {}
     for name, (p, lib) in procs.items():
         log = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         ptx += [f"{name}: {line}" for line in cs.ptxas_report(log)
-                if re.match(r"(suffix_jac|rowsum|double_k_add|fs_)", line)]
+                if re.match(r"(suffix_jac|rowsum|double_k_add|fs_|madd_scan|"
+                            r"double_chain)", line)]
         if name in CHAIN_VARIANTS:
             chains[name] = chain_launchers(lib)
         elif name in FS_VARIANTS:
             fss[name] = fs_launcher(lib)
+        elif name in SCAN_VARIANTS:
+            scans[name] = scan_launcher(lib)
         else:
             dkas[name] = dka_launchers(lib)
     res["ptxas"] = ptx
     for line in ptx:
         print(f"  ptxas {line}", flush=True)
-    res["op_cycles"] = op_cycles(os.path.join(_build.BUILD_DIR, "bench"))
-    fs_compare(res, fss, dev)
-    jac_compare(res, {name: dkas[name]["jac_double_k_add"]
-                      for name in JAC_VARIANTS}, dev)
-    rcb_te_compare(res, {name: dkas[name] for name in RCB_TE_VARIANTS}, dev,
-                   cs.RT_LANES)
-    rcb_te_compare(res, {name: dkas[name] for name in WIDE_VARIANTS}, dev,
-                   [L for L in cs.RT_LANES if L >= 1 << 14], "wide")
-    chain_compare(res, chains, dev)
-    res["sass_mont_mul"] = sass_mix(_build.library_path(), "mont_mul_kernel")
-    print(f"  SASS mont_mul_kernel: {res['sass_mont_mul']}", flush=True)
+    if "ops" in parts:
+        res["op_cycles"] = op_cycles(bench_dir)
+    if "fs" in parts:
+        fs_compare(res, fss, dev)
+    if "jac" in parts:
+        jac_compare(res, {name: dkas[name]["jac_double_k_add"]
+                          for name in JAC_VARIANTS}, dev)
+    if "rcb_te" in parts:
+        rcb_te_compare(res, {name: dkas[name] for name in RCB_TE_VARIANTS},
+                       dev, cs.RT_LANES)
+    if "wide" in parts:
+        rcb_te_compare(res, {name: dkas[name] for name in WIDE_VARIANTS},
+                       dev, [L for L in cs.RT_LANES if L >= 1 << 14], "wide")
+    if "chains" in parts:
+        chain_compare(res, chains, dev)
+    if "scan" in parts:
+        extra = {"parent": parent[0]} if parent else {}
+        scan_compare(res, {**scans, **extra}, dev)
+    if "chain" in parts:
+        chain_steps_compare(res, {"parent": parent[1]} if parent else {},
+                            dev)
+    if "ops" in parts:
+        res["sass_mont_mul"] = sass_mix(_build.library_path(),
+                                        "mont_mul_kernel")
+        print(f"  SASS mont_mul_kernel: {res['sass_mont_mul']}", flush=True)
 
     # the v2 MSM at n = 2^20: median of 5, and its stage split
     res["msm"] = {}
-    for curve in (curves.secq256k1, curves.curve25519):
+    for curve in ((curves.secq256k1, curves.curve25519) if "msm" in parts
+                  else ()):
         spec = spec_for(curve)
         pts = GeneratorsChain(curve, b"chip_smoke msm").take(1 << 13)
         X, Y, inf = affine_to_device(curve, pts, dev)

@@ -21,18 +21,25 @@ Phases, each printed with its seconds:
      paths send (DKA_HELD: 1 to 2^20 lanes, and both sides of the lane
      counts from which it runs a group of 4 threads a lane instead of 8,
      and one thread a lane), each timed at k = 0 and 1 on secq256k1 (in
-     microseconds, beside the bound and the critical path), and
-     jac_double at the batch tree's 65,536 lanes and the Q table's one;
+     microseconds, beside the bound and the critical path); jac_double's
+     chain (secq256k1, zorro) at steps 1, 2 and 255 of 1, 2, 3 and 65,536
+     lanes, timed at the Q table's 255 steps of one lane beside the bound
+     and the critical path;
      rcb_double_k_add (secq256k1, zorro) and te_double_k_add (curve25519)
      at k = 0, 1 and 4 at every lane count the paths send (RT_LANES: 1 to
      2^24 lanes, compared by slices of 2^20) and both sides of each
      model's band edges, timed at k = 0 (TE also 1) on secq256k1 and
      curve25519 in microseconds beside the bound and the critical path;
      fs_round at P = 1, 2, 33 and 128 transcripts on the three curves,
-     with L = O, R = O and both on secq256k1 and zorro; the mixed adds of
-     the v1 Pippenger, jac_madd (secq256k1, zorro) and te_madd
-     (curve25519), at 65,536 and 1 lanes with P = O, Q = O, P = Q and
-     P = -Q lanes (te_double_k_add also at k = 1 and 4); mont_mul
+     with L = O, R = O and both on secq256k1 and zorro; the v1
+     Pippenger's row scan, jac_madd over 1 to 32 rows (secq256k1, zorro),
+     at every (rows, lanes) a path sends (SCAN_ROWS x SCAN_LANES: up to
+     32 x 131,072) and both sides of its band edge, one launch a shape,
+     with doubling, cancelling, P = O and q_inf lanes, its one-row form,
+     timed at 32 x 32,768 and 32 x 512 beside the bound and the critical
+     path; te_madd (curve25519), one launch a row of the TE scan, at
+     65,536 and 1 lanes with P = O, Q = O, P = Q and P = -Q lanes
+     (te_double_k_add also at k = 1 and 4); mont_mul
      on two fr fields at 1,000, 6 x 2048 and 9 x 2048 lanes, with a
      (16, 1) operand and with 0, 1 and p - 1 lanes, and at the prover's
      (6, 4, 9) x 16 x 2048 row shapes; the window Horner, horner_windows
@@ -55,8 +62,9 @@ Phases, each printed with its seconds:
      MSM on secq256k1 and on curve25519; mont_mul at the k = 1024 fold's
      6 x 2048 lanes; te_double at the commit table's 2 lanes;
      jac_double_k_add at the P = 128 batch tree's first 32,768 lanes,
-     jac_double at one lane, fs_round at P = 1 and 128, jac_madd and
-     te_madd at the create_batch row scan's 32,768 lanes, horner_windows
+     jac_double's chain at 255 steps of one lane, fs_round at P = 1 and
+     128, jac_madd's scan at create_batch's 32 rows of 32,768 lanes and
+     te_madd at its 32,768 lanes, horner_windows
      at the stage-G shape and against its loop (also in microseconds a
      group operation of the chain), jac_horner_windows at the v1 shape,
      rcb_double at 65,536 lanes, row_gather at both shapes beside
@@ -104,7 +112,8 @@ Phases, each printed with its seconds:
      Pippenger) equal to the native host Pippenger; then v1 against v2 at
      the shapes the router gives v1 (one set n = 256 and 512; base_map
      B = 2 at n = 16, 32, 64; B = 256 at n = 64), equal sums, both timed,
-     with the kernel launches of one call of each;
+     with the kernel launches of one call of each (and of v1's, its
+     jac_madd launches: one row scan a window pass);
  13. batch_verify 64 x k=128: 64 shuffles proved with prove_batch, the
      batch verified with the g/h scalars made and summed on the card
      (padded_n = 256) and with the host assembly, a tampered proof
@@ -115,7 +124,8 @@ Phases, each printed with its seconds:
      double-k-add kernel at k > 0; and the most lanes suffix_jac_scan,
      rowsum and the three double-k-add kernels were launched at over
      those paths, no more than phase 2 held them at, with every lane
-     count sent;
+     count sent; and every (rows, lanes) of jac_madd and (steps, lanes) of
+     jac_double a path sent, each among the shapes phase 2 held;
  15. traces: the card prove (secq256k1 and curve25519) and the verify
      once more each under torch.profiler, which splits card time from
      host time and names the largest kernels (last, so that no timing
@@ -167,6 +177,7 @@ CHAIN_SHAPES = [(64, 22 * 64, "n = 2^20: stage D level A, stage F pass 1"),
                 (1, 64, "n = 256: pass 2"),
                 (16, 1024 * 64 * 16, "the most lanes a path sends")]
 MSM_CU = "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu"
+JAC_CU = "ark_bulletproofs_tpu_torch/csrc/jac_kernels.cu"
 FS_CU = "ark_bulletproofs_tpu_torch/csrc/fs_kernels.cu"
 GATHER_CU = "ark_bulletproofs_tpu_torch/csrc/gather_kernels.cu"
 TREE_LANES = 128 * 256  # the first step of the P = 128 batch's c * Q tree
@@ -202,6 +213,26 @@ RT_LANES = sorted({1 << i for i in range(23)} | {1 << 24}
 # Lanes a comparison with the plain version takes at once (its int64
 # temporaries at 16,777,216 lanes would not fit on the card).
 HOLD_SLICE = 1 << 20
+# jac_madd's (rows, lanes) on the paths: the v1 Pippenger's row scan is R
+# = min(n, 32) rows of G C lanes (G windows of a pass, C = n / R columns):
+# 32 x 512 and 32 x 1,024 for one set at n = 256 and 512, n rows of 128
+# for base_map B = 2 at n = 16 and 32 (32 x 256 at 64), 32 x 32,768 for
+# create_batch P = 128 and base_map B = 256, R rows of 8,192 for its
+# per-round route's small rounds, 24,576 (n = 1) to 98,304 (n = 128) for
+# prove_batch's 384 sets, and up to 131,072 at V1_MAX_WINDOW_TERMS
+# (2^22 / 32). Held on every row count a power of two up to 32 at these
+# lane counts (rows below 32 up to 32,768 lanes) and at the band edges
+# (kk.MADD_BANDS) and the lanes below them, in one launch a shape against
+# one plain scan a row count over the widest lanes (lanes are
+# independent); phase 14 checks that every (rows, lanes) a path sent was
+# held here.
+SCAN_LANES = sorted({1 << i for i in range(18)} | {3 << i for i in
+                                                   range(13, 16)})
+SCAN_ROWS = (1, 2, 4, 8, 16, 32)
+# jac_double's chain: 255 steps of one lane (the on-device Fiat-Shamir
+# IPA's Q table), held at steps 1, 2 and 255 of these lane counts.
+CHAIN_STEPS = (1, 2, 255)
+CHAIN_LANES = (1, 2, 3, 1 << 16)
 # Product latencies on a double-k-add lane's critical path, per model:
 # one thread runs every product of the add and of a doubling; a group of G
 # threads waits on their levels (csrc/rcb.cuh, te.cuh: ceil(N / G) a level
@@ -240,12 +271,12 @@ ENTRIES = [
      "ark_bulletproofs_tpu/ops/kernels.py:780"),
     ("te_double", "te_double", "te", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:794"),
-    ("jac_double_k_add", "jac_double_k_add", "sw", MSM_CU,
+    ("jac_double_k_add", "jac_double_k_add", "sw", JAC_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:359, "
      "ark_bulletproofs_tpu/ops/kernels.py:385"),
-    ("jac_double", "jac_double", "sw", MSM_CU,
+    ("jac_double", "jac_double", "sw", JAC_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:413"),
-    ("jac_madd", "jac_madd", "sw", MSM_CU,
+    ("jac_madd", "jac_madd", "sw", JAC_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:327"),
     ("te_madd", "te_madd", "te", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:822"),
@@ -253,7 +284,7 @@ ENTRIES = [
      "ark_bulletproofs_tpu/ops/kernels2.py:347"),
     ("horner_windows[te]", "horner_windows", "te", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels2.py:347"),
-    ("jac_horner_windows", "jac_horner_windows", "sw", MSM_CU,
+    ("jac_horner_windows", "jac_horner_windows", "sw", JAC_CU,
      "ark_bulletproofs_tpu/ops/kernels2.py:347"),
     # no path, as in the JAX package (only its proj.double reaches it)
     ("rcb_double", "rcb_double", "sw", MSM_CU,
@@ -385,12 +416,18 @@ class PathLanes:
     """The most lanes (with the rows or k, and the counted path then, None
     between paths) that stages D and F's kernels and the three
     double-k-add kernels are launched at in phases 3-13, and every lane
-    count sent (at k > 0 apart): the launch helpers of kernels2 and
-    kernels are replaced by recorders that read those launchers'
-    arguments and launch as before (the wrappers and their counts stay
-    as they are)."""
+    count sent (at k > 0 apart); and every (rows, lanes) of jac_madd and
+    (steps, lanes) of jac_double, each with the first path that sent it,
+    which must be among the shapes phase 2 held (`held`, KernelCheck's).
+    The launch helpers of kernels2 and kernels are replaced by recorders
+    that read those launchers' arguments and launch as before (the
+    wrappers and their counts stay as they are)."""
 
-    def __init__(self, kk, k2, launches: Launches):
+    # name: (what the first number is, (it, lanes) from the arguments)
+    SHAPES = {"jac_madd": ("rows", lambda a: (a[5], a[6])),
+              "jac_double": ("steps", lambda a: (a[3], a[2]))}
+
+    def __init__(self, kk, k2, launches: Launches, held: dict):
         chain = {L for _, L, _ in CHAIN_SHAPES}
         # name: (module, (lanes, rows or k) from the launch's arguments,
         # what the second number is, the lane counts phase 2 times)
@@ -408,17 +445,22 @@ class PathLanes:
                      "jac_double_k_add": max(DKA_HELD),
                      "rcb_double_k_add": max(RT_LANES),
                      "te_double_k_add": max(RT_LANES)}
+        self.shapes_held = held
+        self.sent = {name: {} for name in self.SHAPES}  # shape: path
         self.most = {name: (0, 0, None) for name in self.kinds}
         self.seen = {name: set() for name in self.kinds}
         self.seen_k = {name: set() for name in self.kinds}  # at k > 0
         for mod in (k2, kk):
-            self._record(mod, launches)
+            self._record(mod, launches, shapes=mod is kk)
 
-    def _record(self, mod, launches: Launches) -> None:
+    def _record(self, mod, launches: Launches, shapes: bool) -> None:
         launch = mod.launch
         mine = {n: kind for n, kind in self.kinds.items() if kind[0] is mod}
 
         def record(name, spec, dev, *args):
+            if shapes and name in self.SHAPES:
+                shape = self.SHAPES[name][1](args)
+                self.sent[name].setdefault(shape, launches.current)
             if name in mine:
                 lanes, other = mine[name][1](args)
                 self.seen[name].add(lanes)
@@ -446,9 +488,17 @@ class PathLanes:
                   f"{sorted(self.seen[name])}{at_k}", flush=True)
             if L > held:
                 over.append(name)
+        for name, (what, _) in self.SHAPES.items():
+            sent = self.sent[name]
+            missed = sorted(set(sent) - self.shapes_held[name])
+            print(f"   {name}: ({what}, lanes) sent: "
+                  f"{ {k: sent[k] for k in sorted(sent)} }; not held in "
+                  f"phase 2: {missed}", flush=True)
+            if missed:
+                over.append(f"{name} at {missed}")
         if over:
-            raise AssertionError(f"{over}: a path sent more lanes than "
-                                 f"phase 2 holds them at")
+            raise AssertionError(f"{over}: a path sent more lanes, or other "
+                                 f"shapes, than phase 2 holds them at")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -538,6 +588,7 @@ class KernelCheck:
         self.dev = dev
         self.bound = bound
         self.err = {e[0]: 0 for e in ENTRIES}
+        self.held = {}  # kernel: the shapes held, where a path's must be
         self.times = {}
         self.library_ms = {}
         self.wrapper_ms = None
@@ -859,8 +910,7 @@ class KernelCheck:
         """jac_double_k_add (k = 0, 1, 4) bit-equal to its plain version at
         every lane count the paths send and at the crossover's neighbours
         (DKA_HELD, kk.DKA_BANDS["jac"] and the lane counts just below
-        them), jac_double
-        at 65,536 and 1 lanes: P = row 0 and Q = row 1 of model_points, so
+        them): P = row 0 and Q = row 1 of model_points, so
         the lanes hold doublings (the same point under two Z), P + (-P),
         O + Q, P + O and O + O. Timed at k = 0 and 1 at DKA_LANES, each
         from a CUDA graph, in microseconds a lane's operation beside the
@@ -886,9 +936,6 @@ class KernelCheck:
                 self.compare("jac_double_k_add",
                              kk.jac_double_k_add(spec, P, Q, k),
                              kk.jac_double_k_add_plain(spec, P, Q, k))
-            if L in (1 << 16, 1):
-                self.compare("jac_double", kk.jac_double(spec, P),
-                             kk.jac_double_plain(spec, P))
             if not timed or L not in DKA_LANES:
                 continue
             xy = self.affine_rows(curve, spec, 2, L, seed + L)
@@ -916,64 +963,213 @@ class KernelCheck:
                         ms, host_ms(lambda: kk.jac_double_k_add_plain(
                             spec, P, Q, 0)), *bound)
         print(f"   {curve.name} jac_double_k_add (k = 0, 1, 4) at {shapes} "
-              f"lanes and jac_double at 65536 and 1 lanes: bit-equal "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        if not timed:
-            return
-        T, _ = self.model_points(curve, spec, 2, 1, seed)
-        P1 = T[:, 0].contiguous()
-        self.times["jac_double"] = (
-            graph_ms(lambda: kk.jac_double(spec, P1), 100),
-            host_ms(lambda: kk.jac_double_plain(spec, P1)),
-            *self.bound(2 * 3 * 16 * 4, dbl * MULS_PER_FE_MUL))
+              f"lanes: bit-equal ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
 
-    def run_madd(self, curve, seed: int, timed: bool) -> None:
-        """The v1 Pippenger's mixed add (jac_madd, or te_madd on a
-        twisted-Edwards curve) bit-equal to its plain version at 65,536 and
-        1 lanes: P = row 0 of model_points, Q the affine row 1 of
-        affine_rows, so the lanes hold P = Q (doubling), P = -Q, P = O and
-        Q = O (y = 0 rows); timed at the create_batch row scan's 32,768
-        lanes (n = 64: 256 sets x 64 windows x 2 columns)."""
+    def scan_operands(self, curve, spec, R: int, L: int, seed: int):
+        """jac_madd's row-scan operands: P (3, 16, L) Jacobian with a
+        random Z, rows qx, qy (R, 16, L) of affine points from a pool of
+        256 chain points and their negatives, q_inf (R, L); by lane % 6 (so
+        that every prefix of the lanes holds each kind): 0 random; 1 P = O
+        and Q_{R-2} = Q_{R-1} (a doubling at the second add); 2 P = O and
+        Q_{R-2} = -Q_{R-1} (a cancellation, then adds from O); 3 Q_{R-1}
+        = P (a doubling at the first add); 4 Q_{R-1} = -P; 5 about 40% of
+        the rows the identity (y = 0, q_inf), P = O on every other such
+        lane (O + O)."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
+        from ark_bulletproofs_tpu_torch.ops import field as df
+        from ark_bulletproofs_tpu_torch.ops.curve import affine_to_device
+
+        fq = spec.fq
+        pts = GeneratorsChain(curve, b"chip_smoke pool").take(256)
+        X, Y, _ = affine_to_device(curve, pts, self.dev)
+        pool = torch.stack([X, Y])
+        pool = torch.cat([pool, neg(spec, pool)], dim=2)  # (2, 16, 512)
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        lane = torch.arange(L, device=self.dev)
+        kind = lane % 6
+        idx = torch.randint(0, 512, (R, L), generator=g, device=self.dev)
+        ip = torch.randint(0, 512, (L,), generator=g, device=self.dev)
+        if R >= 2:
+            idx[R - 2] = torch.where(kind == 1, idx[R - 1], idx[R - 2])
+            idx[R - 2] = torch.where(kind == 2, (idx[R - 1] + 256) % 512,
+                                     idx[R - 2])
+        idx[R - 1] = torch.where(kind == 3, ip, idx[R - 1])
+        idx[R - 1] = torch.where(kind == 4, (ip + 256) % 512, idx[R - 1])
+        xy = pool[:, :, idx].permute(0, 2, 1, 3).contiguous()
+        q_inf = ((kind == 5) & (torch.rand((R, L), generator=g,
+                                           device=self.dev) < 0.4))
+        xy.masked_fill_(q_inf.unsqueeze(1), 0)
+        z = torch.randint(0, 1 << 16, (16, L), generator=g, device=self.dev,
+                          dtype=torch.int32)
+        z[15] = 0  # below p
+        z[0] |= 1  # not zero
+        mm = lambda a, b: df.mont_mul(fq, a, b).to(torch.int32)  # noqa
+        z2 = mm(z, z)
+        P = torch.stack([mm(pool[0][:, ip], z2),
+                         mm(pool[1][:, ip], mm(z2, z)), z])
+        p_inf = (kind == 1) | (kind == 2) | ((kind == 5) & (lane // 6 % 2
+                                                             == 1))
+        P = torch.where(p_inf, 0, P).contiguous()
+        return P, xy[0].contiguous(), xy[1].contiguous(), q_inf.contiguous()
+
+    def run_madd_scan(self, curve, seed: int, timed: bool) -> None:
+        """jac_madd's row scan, one launch a (rows, lanes), bit-equal to
+        its plain version at every row count of SCAN_ROWS and lane count of
+        SCAN_LANES (up to 32,768 lanes below 32 rows) and at the band edges
+        (kk.MADD_BANDS) and the lanes below them, on scan_operands: the
+        kernel runs on the first L lanes of one operand set per row count,
+        the plain scan once on all of them. Timed at create_batch's
+        32 x 32,768 (the table's shape) and one set's 32 x 512 (n = 256),
+        beside the bound and the critical path."""
         import torch
 
         from ark_bulletproofs_tpu_torch.ops import kernels as kk
         from ark_bulletproofs_tpu_torch.ops.curve import spec_for
 
         spec = spec_for(curve)
-        te = model(spec) == "te"
-        name = "te_madd" if te else "jac_madd"
-        plain = kk.te_madd_plain if te else kk.jac_madd_plain
+        g2, one = kk.MADD_BANDS["jac"]
+        fe = FE_MULS["jac"]
+        dbl = fe["double"] if spec.is_a_zero else fe["double_a"]
+        dbl_lv = 3 if spec.is_a_zero else 4
+        t0 = time.perf_counter()
+        shapes = []
+        for R in SCAN_ROWS:
+            top = 1 << 17 if R == 32 else 1 << 15
+            lanes = sorted({L for L in SCAN_LANES if L <= top}
+                           | {L for L in (g2 - 1, g2, one - 1, one)
+                              if L <= top})
+            P, qx, qy, qi = self.scan_operands(curve, spec, R, max(lanes),
+                                               seed + R)
+            want = kk.jac_madd_plain(spec, P, qx, qy, qi)
+            for L in lanes:
+                ops = [t[..., :L].contiguous() for t in (P, qx, qy, qi)]
+                self.compare("jac_madd", kk.jac_madd(spec, *ops),
+                             want[..., :L])
+                self.held.setdefault("jac_madd", set()).add((R, L))
+                if R == 1:  # the one-row form
+                    self.compare("jac_madd", kk.jac_madd(
+                        spec, ops[0], *(t[0] for t in ops[1:])),
+                        want[:, 0, :, :L])
+                if not timed or (R, L) not in ((32, TREE_LANES), (32, 512)):
+                    continue
+                ms = graph_ms(lambda: kk.jac_madd(spec, *ops), 5)
+                # the lanes that double (kinds 3, and 1 from two rows)
+                doubling = sum(1 for j in range(L)
+                               if j % 6 == 3 or (j % 6 == 1 and R > 1))
+                bound = self.bound(
+                    (3 * 64 + R * (2 * 64 + 1) + 3 * R * 64) * L,
+                    (R * L * fe["madd"] + doubling * dbl) * MULS_PER_FE_MUL)
+                if L >= one:
+                    path = (f"one thread a lane: {R} x {fe['madd']} "
+                            f"products")
+                else:  # levels of 2, 2, 4, 2, 2 products
+                    G, levels = (4, 5) if L < g2 else (2, 6)
+                    path = (f"a group of {G} threads a lane: {R} x "
+                            f"{levels} product levels")
+                print(f"   {curve.name} jac_madd scan {R} x {L}: kernel "
+                      f"{ms:.4f} ms ({ms * 1e3 / R:.2f} us a row); bound "
+                      f"{bound[0]:.5g} ms ({bound[1]}); critical path "
+                      f"({path}, {dbl_lv} levels or {dbl} products more on "
+                      f"a doubling lane)", flush=True)
+                if L == TREE_LANES:
+                    self.times["jac_madd"] = (ms, host_ms(
+                        lambda: kk.jac_madd_plain(spec, *ops)), *bound)
+            shapes += [(R, L) for L in lanes]
+            del P, qx, qy, qi, want
+            torch.cuda.empty_cache()
+        print(f"   {curve.name} jac_madd row scan at {len(shapes)} (rows, "
+              f"lanes) from {shapes[0]} to {shapes[-1]}: bit-equal "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def run_double_chain(self, curve, seed: int, timed: bool) -> None:
+        """jac_double's chain (a group of 4 threads a lane) bit-equal to
+        its plain version at CHAIN_STEPS x CHAIN_LANES, on row 0 of
+        model_points with every seventh lane the identity: the kernel on
+        the first L lanes, the plain 255-step chain once on all of them
+        (steps s: its rows up to s). Timed at the Q table's 255 x 1 beside
+        the bound and the critical path."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
+        fe = FE_MULS["jac"]
+        dbl = fe["double"] if spec.is_a_zero else fe["double_a"]
+        dbl_lv = 3 if spec.is_a_zero else 4
+        t0 = time.perf_counter()
+        lanes = CHAIN_LANES
+        T, _ = self.model_points(curve, spec, 1, max(lanes), seed)
+        P = T[:, 0].contiguous()
+        P[..., ::7] = 0
+        want = kk.jac_double_plain(spec, P, max(CHAIN_STEPS))
+        for L in lanes:
+            P1 = P[..., :L].contiguous()
+            for steps in CHAIN_STEPS:
+                self.compare("jac_double", kk.jac_double(spec, P1, steps),
+                             want[:, :, 1, :L] if steps == 1 else
+                             want[:, :, :steps + 1, :L])
+                self.held.setdefault("jac_double", set()).add((steps, L))
+        print(f"   {curve.name} jac_double chain at steps {CHAIN_STEPS} x "
+              f"lanes {lanes}: bit-equal ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        del want, T
+        if not timed:
+            return
+        P1 = P[..., 1:2].contiguous()
+        steps = max(CHAIN_STEPS)
+        ms = graph_ms(lambda: kk.jac_double(spec, P1, steps), 5)
+        bound = self.bound((3 + 3 * (steps + 1)) * 64,
+                           steps * dbl * MULS_PER_FE_MUL)
+        print(f"   {curve.name} jac_double chain {steps} x 1: kernel "
+              f"{ms:.4f} ms ({ms * 1e3 / steps:.2f} us a doubling); bound "
+              f"{bound[0]:.5g} ms ({bound[1]}); critical path (a group of "
+              f"4 threads: {steps} x {dbl_lv} product levels; one thread "
+              f"{steps} x {dbl} products)", flush=True)
+        if spec.is_a_zero:
+            self.times["jac_double"] = (ms, host_ms(
+                lambda: kk.jac_double_plain(spec, P1, steps)), *bound)
+
+    def run_te_madd(self, curve, seed: int, timed: bool) -> None:
+        """te_madd (one launch a row of the TE v1 Pippenger's scan)
+        bit-equal to its plain version at 65,536 and 1 lanes: P = row 0 of
+        model_points, Q the affine row 1 of affine_rows, so the lanes hold
+        P = Q (doubling), P = -Q, P = O and Q = O (y = 0 rows); timed at the
+        create_batch row scan's 32,768 lanes (n = 64: 256 sets x 64
+        windows x 2 columns)."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
         t0 = time.perf_counter()
 
         def operands(L: int, seed: int):
             T, ident = self.model_points(curve, spec, 2, L, seed)
             xy = self.affine_rows(curve, spec, 2, L, seed)
             return (T[:, 0].contiguous(), xy[0, 1].contiguous(),
-                    xy[1, 1].contiguous(), ident[1].contiguous(), xy, ident)
+                    xy[1, 1].contiguous(), ident[1].contiguous())
 
         for L in (2 * 128 * 256, 1):
-            P, qx, qy, q_inf, _, _ = operands(L, seed + L)
-            self.compare(name, kk.add_mixed(spec, P, qx, qy, q_inf),
-                         plain(spec, P, qx, qy, q_inf))
+            ops = operands(L, seed + L)
+            self.compare("te_madd", kk.te_madd(spec, *ops),
+                         kk.te_madd_plain(spec, *ops))
         torch.cuda.synchronize()
-        print(f"   {curve.name} {name} at 65536 and 1 lanes: bit-equal "
+        print(f"   {curve.name} te_madd at 65536 and 1 lanes: bit-equal "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         if not timed:
             return
         m = TREE_LANES
-        P, qx, qy, q_inf, xy, ident = operands(m, seed)
-        fe = FE_MULS["te" if te else "jac"]
-        doubling = 0
-        if not te:  # the lanes that take jac_double (P = Q, both finite)
-            doubling = int(((xy[:, 0] == xy[:, 1]).all(dim=1).all(dim=0)
-                            & ~ident[0] & ~ident[1]).sum())
-            doubling *= fe["double"] if spec.is_a_zero else fe["double_a"]
-        nc = 4 if te else 3
-        self.times[name] = (
-            graph_ms(lambda: kk.add_mixed(spec, P, qx, qy, q_inf), 20),
-            host_ms(lambda: plain(spec, P, qx, qy, q_inf)),
-            *self.bound((2 * nc * 16 * 4 + 2 * 16 * 4 + 1) * m,
-                        (m * fe["madd"] + doubling) * MULS_PER_FE_MUL))
+        ops = operands(m, seed)
+        self.times["te_madd"] = (
+            graph_ms(lambda: kk.te_madd(spec, *ops), 20),
+            host_ms(lambda: kk.te_madd_plain(spec, *ops)),
+            *self.bound((2 * 4 * 16 * 4 + 2 * 16 * 4 + 1) * m,
+                        m * FE_MULS["te"]["madd"] * MULS_PER_FE_MUL))
 
     @staticmethod
     def fs_round_muls(spec, P: int) -> int:
@@ -996,7 +1192,10 @@ class KernelCheck:
         128 transcripts at three positions, the last crossing the STROBE
         rate; on a short-Weierstrass curve with L = O (lane 0), R = O
         (lane 3) and both (lanes 4 and 5) where P reaches them; timed at
-        P = 1 (a single proof) and 128 (the batch)."""
+        P = 1 (a single proof) and 128 (the batch). Transcripts are
+        independent, so each P runs the kernel on the first P of 128
+        transcripts and is held against the first P of one plain call on
+        all 128."""
         import torch
 
         from ark_bulletproofs_tpu_torch.ops import field as df
@@ -1006,33 +1205,38 @@ class KernelCheck:
         spec = spec_for(curve)
         fr = df.spec_for(curve.fr)
         t0 = time.perf_counter()
-        for P in (1, 2, 33, 128):
-            S, _ = self.model_points(curve, spec, 1, 2 * P, seed + P)
-            S = S[:, 0].contiguous()
-            ident = [] if model(spec) == "te" else [
-                lane for lane in (0, 3, 4, 5) if lane < 2 * P]
-            S[..., ident] = 0
-            g = torch.Generator(device=self.dev).manual_seed(seed)
-            st = torch.randint(0, 256, (P, 200), generator=g,
+        top = 128
+        S_all, _ = self.model_points(curve, spec, 1, 2 * top, seed)
+        S_all = S_all[:, 0].contiguous()
+        if model(spec) != "te":
+            S_all[..., [0, 3, 4, 5]] = 0
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        st_all = torch.randint(0, 256, (top, 200), generator=g,
                                device=self.dev, dtype=torch.int32)
-            for pos, pb in ((3, 1), (90, 85), (160, 150)):
+        for pos, pb in ((3, 1), (90, 85), (160, 150)):
+            want = fs.fs_round_plain(spec, fr, S_all, st_all, pos, pb)
+            for P in (1, 2, 33, top):
+                S = S_all[..., :2 * P].contiguous()
+                st = st_all[:P].contiguous()
                 got = fs.fs_round(spec, fr, S, st, pos, pb)
-                want = fs.fs_round_plain(spec, fr, S, st, pos, pb)
-                self.compare("fs_round", got[:4], want[:4])
+                self.compare("fs_round", got[:4], (
+                    want[0][..., :2 * P], want[1][..., :P], want[2][:P],
+                    want[3][..., :P]))
                 if got[4:] != want[4:]:
                     raise AssertionError(f"fs_round positions {got[4:]} != "
                                          f"{want[4:]}")
-            if timed and P in (1, 128):
-                nc = S.shape[0]
-                nbytes = (nc * 16 * 2 * P + 2 * 200 * P + 2 * 16 * 2 * P
-                          + 2 * 16 * P + 3 * P) * 4
-                key = "fs_round" if P == 1 else "fs_round P=128"
-                self.times[key] = (
-                    graph_ms(lambda: fs.fs_round(spec, fr, S, st, 160, 150),
-                             20),
-                    host_ms(lambda: fs.fs_round_plain(spec, fr, S, st, 160,
-                                                      150)),
-                    *self.bound(nbytes, self.fs_round_muls(spec, P)))
+        for P in ((1, top) if timed else ()):
+            S = S_all[..., :2 * P].contiguous()
+            st = st_all[:P].contiguous()
+            nc = S.shape[0]
+            nbytes = (nc * 16 * 2 * P + 2 * 200 * P + 2 * 16 * 2 * P
+                      + 2 * 16 * P + 3 * P) * 4
+            key = "fs_round" if P == 1 else "fs_round P=128"
+            self.times[key] = (
+                graph_ms(lambda: fs.fs_round(spec, fr, S, st, 160, 150), 20),
+                host_ms(lambda: fs.fs_round_plain(spec, fr, S, st, 160,
+                                                  150)),
+                *self.bound(nbytes, self.fs_round_muls(spec, P)))
         print(f"   {curve.name} fs_round at P = 1, 2, 33 and 128: bit-equal "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -2091,11 +2295,15 @@ def phase_v1(curve, launches: Launches) -> None:
             "v2": lambda: pm.msm_v2(spec, Xs, Ys, Is, scal, bm),
         }
         out, ms, count = {}, {}, {}
+        madd = launches.wrappers["jac_madd"]
         for eng in ("v1", "v2", "v2", "v1"):
             before = sum(w.launches for w in launches.wrappers.values())
+            madd0 = madd.launches
             out[eng] = runs[eng]()
             count[eng] = (sum(w.launches for w in launches.wrappers.values())
                           - before)
+            if eng == "v1":
+                count["scan"] = madd.launches - madd0
             ms.setdefault(eng, []).extend(
                 host_ms(runs[eng]) for _ in range(3))
         if (point_batch_to_host(curve, out["v1"])
@@ -2103,8 +2311,9 @@ def phase_v1(curve, launches: Launches) -> None:
             raise AssertionError(f"v1 and v2 differ: {kind} B={B} n={n}")
         print(f"   {kind} B={B} n={n}: v1 {statistics.median(ms['v1']):.3f}"
               f" ms, v2 {statistics.median(ms['v2']):.3f} ms (medians of "
-              f"6), equal sums; kernel launches a call: v1 {count['v1']}, "
-              f"v2 {count['v2']}; router: "
+              f"6), equal sums; kernel launches a call: v1 {count['v1']} "
+              f"({count['scan']} of them jac_madd: its row scans), v2 "
+              f"{count['v2']}; router: "
               f"{'v2' if pm.uses_v2(n, B > 1 or mapped, mapped) else 'v1'}",
               flush=True)
 
@@ -2319,9 +2528,11 @@ def main() -> int:
         check.run_rcb_te(curves.curve25519, seed=24, timed=True)
         check.run_jac(curves.secq256k1, seed=6, timed=True)
         check.run_jac(curves.zorro, seed=7, timed=False)
-        check.run_madd(curves.secq256k1, seed=11, timed=True)
-        check.run_madd(curves.zorro, seed=12, timed=False)
-        check.run_madd(curves.curve25519, seed=13, timed=True)
+        check.run_madd_scan(curves.secq256k1, seed=11, timed=True)
+        check.run_madd_scan(curves.zorro, seed=12, timed=False)
+        check.run_double_chain(curves.secq256k1, seed=25, timed=True)
+        check.run_double_chain(curves.zorro, seed=26, timed=True)
+        check.run_te_madd(curves.curve25519, seed=13, timed=True)
         check.run_fs_round(curves.secq256k1, seed=8, timed=True)
         check.run_fs_round(curves.zorro, seed=9, timed=False)
         check.run_fs_round(curves.curve25519, seed=10, timed=False)
@@ -2335,7 +2546,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = Launches(wrappers)
-    path_lanes = PathLanes(kk, k2, launches)
+    path_lanes = PathLanes(kk, k2, launches, check.held)
     with phase("3 msm n=2^20 secq256k1"):
         phase_msm(curves.secq256k1, launches)
     with phase(f"4 shuffle k={SHUFFLE_K} secq256k1"):

@@ -624,7 +624,7 @@ def test_madd_kernels_match_plain_versions(curve, cuda_dev):
     wrapper = kk.te_madd if is_te(spec) else kk.jac_madd
     plain = kk.te_madd_plain if is_te(spec) else kk.jac_madd_plain
     before = wrapper.launches
-    got = kk.add_mixed(spec, P, qx, qy, q_inf)
+    got = wrapper(spec, P, qx, qy, q_inf)
     assert got.is_cuda and got.dtype == torch.int32
     assert torch.equal(got, plain(spec, P, qx, qy, q_inf))
     assert wrapper.launches == before + 1
@@ -948,3 +948,119 @@ def test_chain_kernels_on_both_sides_of_the_crossover(curve, lanes,
     Fiat-Shamir IPA's table shrink at n = 2^16): bit-equal to the plain
     versions."""
     _check_chains(curve, 16, lanes, cuda_dev, seed=lanes % 997)
+
+
+def _scan_operands(curve, spec, R, lanes, dev, seed):
+    """jac_madd's row-scan operands: P (3, 16, lanes) Jacobian with a
+    random Z, rows qx, qy (R, 16, lanes) affine, q_inf (R, lanes); by
+    lane % 6: random; P = O and Q_{R-2} = Q_{R-1} (a doubling at the
+    second add); P = O and Q_{R-2} = -Q_{R-1} (a cancellation); Q_{R-1}
+    = P (a doubling at the first add); Q_{R-1} = -P; about 40% of the rows
+    the identity, P = O on every other such lane."""
+    fq = spec.fq
+    rng = seeded_rng(seed)
+    X, Y, _ = affine_to_device(curve, [curve.rand(rng) for _ in range(32)],
+                               dev)
+    pool = torch.cat([torch.stack([X, Y]), _neg(spec, torch.stack([X, Y]))],
+                     dim=2)  # (2, 16, 64)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lane = torch.arange(lanes, device=dev)
+    kind = lane % 6
+    idx = torch.randint(0, 64, (R, lanes), generator=g, device=dev)
+    ip = torch.randint(0, 64, (lanes,), generator=g, device=dev)
+    if R >= 2:
+        idx[R - 2] = torch.where(kind == 1, idx[R - 1], idx[R - 2])
+        idx[R - 2] = torch.where(kind == 2, (idx[R - 1] + 32) % 64,
+                                 idx[R - 2])
+    idx[R - 1] = torch.where(kind == 3, ip, idx[R - 1])
+    idx[R - 1] = torch.where(kind == 4, (ip + 32) % 64, idx[R - 1])
+    xy = pool[:, :, idx].permute(0, 2, 1, 3).contiguous()
+    q_inf = (kind == 5) & (torch.rand((R, lanes), generator=g, device=dev)
+                           < 0.4)
+    xy.masked_fill_(q_inf.unsqueeze(1), 0)
+    z = torch.randint(0, 1 << 16, (16, lanes), generator=g, device=dev,
+                      dtype=torch.int32)
+    z[15] = 0
+    z[0] |= 1
+
+    def mm(a, b):
+        return df.mont_mul(fq, a, b).to(torch.int32)
+
+    z2 = mm(z, z)
+    P = torch.stack([mm(pool[0][:, ip], z2), mm(pool[1][:, ip], mm(z2, z)),
+                     z])
+    p_inf = (kind == 1) | (kind == 2) | ((kind == 5) & (lane // 6 % 2 == 1))
+    P = torch.where(p_inf, 0, P).contiguous()
+    return P, xy[0].contiguous(), xy[1].contiguous(), q_inf.contiguous()
+
+
+_WIDEST = {}
+
+
+def _widest(key, make):
+    """The operands and plain result of the widest case of a (curve,
+    rows or steps), made once: lanes are independent, so each narrower
+    case runs the kernel on a prefix of its lanes."""
+    if key not in _WIDEST:
+        _WIDEST.clear()
+        _WIDEST[key] = make()
+    return _WIDEST[key]
+
+
+SCAN_TEST_LANES = [1, 3, 128, 512, kk.MADD_BANDS["jac"][0] - 1,
+                   kk.MADD_BANDS["jac"][0], 32768,
+                   kk.MADD_BANDS["jac"][1] - 1, kk.MADD_BANDS["jac"][1],
+                   131072]
+
+
+@pytest.mark.parametrize("lanes", SCAN_TEST_LANES)
+@pytest.mark.parametrize("rows", [1, 2, 16, 32])
+@pytest.mark.parametrize("curve", CURVES[:2], ids=lambda c: c.name)
+def test_jac_madd_scan_on_both_sides_of_the_bands(curve, rows, lanes,
+                                                cuda_dev):
+    """jac_madd's row scan (a group of 4 threads a lane, of 2 from
+    kk.MADD_BANDS["jac"][0] lanes, one thread from its [1]) with doubling,
+    cancelling and identity lanes: bit-equal to its plain version (the
+    rows of one plain scan over the widest lanes), one launch counted."""
+    spec = spec_for(curve)
+
+    def make():
+        ops = _scan_operands(curve, spec, rows, max(SCAN_TEST_LANES),
+                             cuda_dev, seed=rows)
+        return ops, kk.jac_madd_plain(spec, *ops)
+
+    ops, want = _widest((curve.name, "scan", rows), make)
+    ops = [t[..., :lanes].contiguous() for t in ops]
+    before = kk.jac_madd.launches
+    got = kk.jac_madd(spec, *ops)
+    assert kk.jac_madd.launches == before + 1
+    assert got.shape == (3, rows, 16, lanes)
+    assert torch.equal(got, want[..., :lanes])
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 65536])
+@pytest.mark.parametrize("steps", [1, 2, 255])
+@pytest.mark.parametrize("curve", CURVES[:2], ids=lambda c: c.name)
+def test_jac_double_chain_matches_plain_version(curve, steps, lanes,
+                                                cuda_dev):
+    """jac_double's chain (a group of 4 threads a lane at every lane
+    count) with identity lanes: bit-equal to the rows of one plain
+    255-step chain over the widest lanes, one launch counted; steps = 1
+    gives 2P as (3, 16, lanes)."""
+    spec = spec_for(curve)
+
+    def make():
+        P = _model_points(curve, spec, 1, cuda_dev, seed=31)[:, 0]
+        P = P.repeat(1, 1, 66)[..., :65536].contiguous()
+        P[..., ::7] = 0
+        return P, kk.jac_double_plain(spec, P, 255)
+
+    P, want = _widest((curve.name, "chain"), make)
+    P = P[..., :lanes].contiguous()
+    before = kk.jac_double.launches
+    got = kk.jac_double(spec, P, steps)
+    assert kk.jac_double.launches == before + 1
+    if steps == 1:
+        assert torch.equal(got, want[:, :, 1, :lanes])
+    else:
+        assert torch.equal(got, want[:, :, :steps + 1, :lanes])

@@ -32,8 +32,19 @@ from ark_bulletproofs_tpu_torch.ops.curve import (affine_to_device,
 torch.set_num_threads(1)
 
 CURVES = [curves.secq256k1, curves.zorro, curves.curve25519]
-MSM_CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "ark_bulletproofs_tpu_torch", "csrc", "msm_kernels.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "ark_bulletproofs_tpu_torch", "csrc")
+
+
+def _src() -> str:
+    """The text of the group-law sources: csrc/msm_kernels.cu (RCB and TE
+    points), csrc/point_kernels.cuh (the templates both instantiate) and
+    csrc/jac_kernels.cu (Jacobian points), in that order."""
+    out = []
+    for name in ("msm_kernels.cu", "point_kernels.cuh", "jac_kernels.cu"):
+        with open(os.path.join(CSRC, name)) as fh:
+            out.append(fh.read())
+    return "\n".join(out)
 FILL = msm2.fill_lanes("cpu")
 
 
@@ -106,8 +117,7 @@ def test_fill_lanes_follow_the_scan_launch_bounds():
     """The plan's SCAN_THREADS and SCAN_MIN_BLOCKS are the scan kernel's
     block size and __launch_bounds__ minimum in csrc/msm_kernels.cu, and
     off the card the plan assumes the H100's 132 SMs."""
-    with open(MSM_CU) as fh:
-        src = fh.read()
+    src = _src()
     defs = dict(re.findall(r"^#define (SCAN_\w+) (\d+)$", src, re.M))
     assert defs == {"SCAN_THREADS": str(msm2.SCAN_THREADS),
                     "SCAN_MIN_BLOCKS": str(msm2.SCAN_MIN_BLOCKS)}
@@ -124,8 +134,7 @@ def test_chain_crossover_follows_the_launcher():
     and 22 M1 lanes) below it and stage D level A of 1024 sets at n = 256
     (16 rows of 1,048,576 lanes: the on-device Fiat-Shamir IPA's table
     shrink, ops/ipa.py SHRINK_SETS) above it."""
-    with open(MSM_CU) as fh:
-        src = fh.read()
+    src = _src()
     cross = re.findall(r"^#define CHAIN_ONE_THREAD_MIN_LANES (\d+)$", src,
                        re.M)
     assert cross == [str(k2.CHAIN_ONE_THREAD_MIN_LANES)]
@@ -141,7 +150,7 @@ def test_chain_crossover_follows_the_launcher():
 
 
 def _models(src):
-    """{model: the text of its struct} of csrc/msm_kernels.cu's point
+    """{model: the text of its struct} of the group-law sources' point
     models."""
     out = {}
     for name in ("RcbModel", "TeModel", "JacModel"):
@@ -152,7 +161,7 @@ def _models(src):
 
 def _dka_bands(src):
     """{kk.DKA_BANDS key: (DKA_GROUP4_MIN_LANES, DKA_ONE_THREAD_MIN_LANES)}
-    read from the models of csrc/msm_kernels.cu (RcbModel's a number for
+    read from the point models (RcbModel's a number for
     both branches, or AZ ? a = 0 : a != 0)."""
     out = {}
     for name, body in _models(src).items():
@@ -182,15 +191,14 @@ def _extern(src, name):
 def test_jac_double_k_add_crossover_follows_the_launcher():
     """kernels.DKA_BANDS["jac"] holds JacModel's DKA_GROUP4_MIN_LANES and
     DKA_ONE_THREAD_MIN_LANES, the lane counts from which
-    csrc/msm_kernels.cu's double-k-add launcher runs a group of 4 threads
+    csrc/point_kernels.cuh's double-k-add launcher runs a group of 4 threads
     a lane and one thread a lane (for Jacobian points
     double_k_add_kernel); below them JacModel's group of ADD_GRP = 8
     threads a lane (double_k_add_group_kernel), on both Jacobian models.
     The on-device Fiat-Shamir IPA of one proof at n = 256 (its c * Q
     tree's 2h lanes, h = 128 ... 1, and S's 2) takes the group of 8, the
     P = 128 batch's tree (256 h lanes) the three mappings."""
-    with open(MSM_CU) as fh:
-        src = fh.read()
+    src = _src()
     g4, one = kk.DKA_BANDS["jac"]
     assert _dka_bands(src)["jac"] == (g4, one)
     launcher = _launcher(src)
@@ -211,7 +219,7 @@ def test_jac_double_k_add_crossover_follows_the_launcher():
 
 
 def test_rcb_te_double_k_add_bands_follow_the_launcher():
-    """kernels.DKA_BANDS holds the per-model bands of csrc/msm_kernels.cu
+    """kernels.DKA_BANDS holds the per-model bands of the point models
     (RcbModel a = 0 and a != 0, TeModel, JacModel), and the RCB and TE
     launchers go through launch_double_k_add for their models: a group of
     8 threads a lane below the first edge, of 4 below the second, one
@@ -221,8 +229,7 @@ def test_rcb_te_double_k_add_bands_follow_the_launcher():
     n = 2^20 MSM's stage D and E adds (BW C and BW S = 90,112 lanes) in
     the one-thread band, and one proof's TE trees (the commit tree's 256
     ... 1 lanes, the c * Q tree's 2h for h = 128 ... 1) in a group band."""
-    with open(MSM_CU) as fh:
-        src = fh.read()
+    src = _src()
     bands = _dka_bands(src)
     assert bands == kk.DKA_BANDS
     models = _models(src)
@@ -250,6 +257,52 @@ def test_rcb_te_double_k_add_bands_follow_the_launcher():
         g4, one = bands[key]
         assert 256 < one <= 90_112, key
         assert 1 <= g4 <= one, key
+
+
+def _member(body, name):
+    return int(re.search(rf"static constexpr int(?:64_t)? {name} = (\d+);",
+                         body).group(1))
+
+
+def test_jac_madd_scan_and_double_chain_bands_follow_the_launcher():
+    """kernels.MADD_BANDS["jac"] holds JacModel's MADD_GROUP2_MIN_LANES and
+    MADD_ONE_THREAD_MIN_LANES: csrc/jac_kernels.cu's row-scan launcher
+    runs one thread a lane from the second edge, a group of 2 threads a
+    lane from the first, a group of MADD_GRP = 4 below it; its chain
+    launcher runs a group of GRP = 4 threads a lane at every lane count.
+    Both extern launchers go through them for both Jacobian models and
+    launch nothing themselves. A group of 4 holds a level of the mixed add
+    (at most 4 products: madd-2007-bl's HH, I, rr^2, (Z1 + H)^2) and of
+    the doubling in one round; one set's scan (32 x 512 at n = 256) is in
+    the band of a group of 4."""
+    src = _src()
+    jac = _models(src)["JacModel"]
+    assert (_member(jac, "MADD_GROUP2_MIN_LANES"),
+            _member(jac, "MADD_ONE_THREAD_MIN_LANES")) == kk.MADD_BANDS["jac"]
+    assert _member(jac, "MADD_GRP") == 4
+    assert _member(jac, "GRP") == 4
+    blocks = re.search(r"static constexpr int MADD_MIN_BLOCKS = ([^;]+);",
+                       jac).group(1)
+    assert min(map(int, re.findall(r"\d+", blocks))) >= 1
+    for launcher, edges, group, kernel, sizes in (
+            ("launch_madd_scan", ["MADD_ONE_THREAD_MIN_LANES",
+                                  "MADD_GROUP2_MIN_LANES"], "MADD_GRP",
+             "madd_scan_kernel", ["1", "2", "G"]),
+            ("launch_double_chain", [], "GRP", "double_chain_kernel",
+             ["G"])):
+        body = src[src.index(f"static void {launcher}("):]
+        body = body[:body.index("\n}\n")]
+        assert f"constexpr int G = M::{group};" in body
+        assert re.findall(r"if \(m >= M::(\w+)\)", body) == edges
+        assert re.findall(rf"{kernel}<M, (\w+)>", body) == sizes
+    for name, launcher in (("jac_madd", "launch_madd_scan"),
+                           ("jac_double", "launch_double_chain")):
+        body = _extern(src, name)
+        assert re.findall(rf"{launcher}<(JacModel<\w+>)>", body) == [
+            "JacModel<true>", "JacModel<false>"], name
+        assert "<<<" not in body
+    g2, one = kk.MADD_BANDS["jac"]
+    assert 32 * 16 < g2 <= one
 
 
 def _case(curve, n, seed):
