@@ -15,8 +15,8 @@
 //                        on Jacobian points
 //
 // JacModel<AZ> (a = 0: secq256k1; general a: zorro) instantiates
-// point_kernels.cuh's double-k-add and Horner, and this file's row scan
-// and doubling chain. The launchers follow msm_kernels.cu's conventions:
+// point_kernels.cuh's double-k-add, Horner and doubling chain, and this
+// file's row scan. The launchers follow msm_kernels.cu's conventions:
 // extern "C", device pointers and the stream as void*, the curve
 // constants as a pointer to 45 host words, cudaGetLastError() returned
 // (cudaErrorInvalidValue, without a launch, for a twisted-Edwards curve).
@@ -147,35 +147,6 @@ __global__ void __launch_bounds__(HG_THREADS,
   }
 }
 
-// The 2^i P table in one launch: out holds S = steps + keep rows of each
-// lane in an (NC, 16, S, m) array (the layout of the on-device
-// Fiat-Shamir IPA's (NC, 16, 256) Q table at m = 1): with keep = 1 row 0
-// is P and row i is 2^i P; with keep = 0 row i - 1 is 2^i P (steps = 1:
-// the elementwise 2P, out (NC, 16, m)). Each step's point is stored as it
-// is made. A group of G threads a lane (M::gdbl, group.cuh): a Jacobian
-// doubling waits on 3 product levels (4 for a != 0) instead of one
-// thread's 8 (10) products, and a 255-step table is a chain of 255
-// dependent doublings; thread 0 stores.
-template <class M, int G>
-__global__ void __launch_bounds__(HG_THREADS, 1)
-    double_chain_kernel(const int32_t* __restrict__ P,
-                        int32_t* __restrict__ out, int64_t m, int32_t steps,
-                        int32_t keep, CurveConst cc) {
-  __shared__ uint4 slots[HG_THREADS / G][4 * GRP_SLOTS];
-  const int tid = threadIdx.x;
-  const size_t lane = ((size_t)blockIdx.x * HG_THREADS + tid) / G;
-  if (lane >= (size_t)m) return;  // whole groups only: HG_THREADS % G == 0
-  Grp<G> gr = grp_of<G>(slots, tid);
-  const size_t S = (size_t)steps + keep;
-  typename M::P acc = M::load(P, 1, 0, m, lane);
-  if (keep && gr.g == 0) M::store(out, 1, 0, S * m, lane, acc);
-  for (int32_t i = 1; i <= steps; ++i) {
-    acc = M::template gdbl<G>(gr, acc, cc);
-    if (gr.g == 0)
-      M::store(out, 1, 0, S * m, (size_t)(i - 1 + keep) * m + lane, acc);
-  }
-}
-
 // The row scan: a group of M::MADD_GRP threads a lane below
 // M::MADD_GROUP2_MIN_LANES lanes, of 2 below M::MADD_ONE_THREAD_MIN_LANES,
 // one thread a lane from it.
@@ -200,19 +171,6 @@ static void launch_madd_scan(const void* P, const void* qx, const void* qy,
   else
     madd_scan_kernel<M, G><<<group_blocks(m, G), HG_THREADS, 0, s>>>(
         p, x, y, inf, o, R, m, cc);
-}
-
-// The doubling chain: a group of M::GRP threads a lane at every lane
-// count. The paths send it one lane (the Q table of the on-device
-// Fiat-Shamir IPA), where a chain waits on latency.
-template <class M>
-static void launch_double_chain(const void* P, void* out, int64_t m,
-                                int32_t steps, int32_t keep,
-                                const CurveConst& cc, cudaStream_t s) {
-  constexpr int G = M::GRP;
-  static_assert(HG_THREADS % G == 0 && 32 % G == 0, "group size");
-  double_chain_kernel<M, G><<<group_blocks(m, G), HG_THREADS, 0, s>>>(
-      (const int32_t*)P, (int32_t*)out, m, steps, keep, cc);
 }
 
 // 2^k P + Q on Jacobian points (k = 0: sw_add_tiled's complete add).

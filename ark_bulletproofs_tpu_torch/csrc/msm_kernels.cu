@@ -14,6 +14,8 @@
 //   te_double_k_add   <- ark_bulletproofs_tpu/ops/kernels.py::te_double_k_add_tiled
 //                        and, with k = 0, ::te_add_tiled
 //   te_double         <- ark_bulletproofs_tpu/ops/kernels.py::te_double_tiled
+//                        (and the JAX package's scan of it over a 2^i Q
+//                        table: a chain of doublings in one launch)
 //   rcb_double        <- ark_bulletproofs_tpu/ops/kernels.py::rcb_double_tiled
 //   te_madd           <- ark_bulletproofs_tpu/ops/kernels.py::te_madd_tiled
 //                        (its elementwise launcher; the body also runs in
@@ -161,7 +163,9 @@ struct TeModel {
   static __device__ __forceinline__ P dbl(const P& a, const CurveConst& cc) {
     return te_double(a, cc);
   }
-  static constexpr int GRP = 8;  // levels of 5, 2 and 4 products
+  // The Horner's and te_double's chain's group: levels of 5, 2 and 4
+  // products.
+  static constexpr int GRP = 8;
   static constexpr int ADD_GRP = 8;  // the same levels in an add-only chain
   // te_double_k_add's bands, as RcbModel's.
   static constexpr int64_t DKA_GROUP4_MIN_LANES = 4096;
@@ -312,7 +316,7 @@ __global__ void __launch_bounds__(THREADS)
   M::store(out, 1, 0, m, lane, acc);
 }
 
-// out = 2P elementwise; P, out: (NC, 1, 16, m).
+// out = 2P elementwise; P, out: (NC, 1, 16, m) (rcb_double).
 template <class M>
 __global__ void __launch_bounds__(THREADS)
     double_kernel(const int32_t* __restrict__ P, int32_t* __restrict__ out,
@@ -397,13 +401,16 @@ extern "C" int abtpu_rowsum(const void* in, void* out, int64_t K, int64_t L,
   return (int)cudaGetLastError();
 }
 
+// `steps` doublings of twisted-Edwards extended points (te_double_tiled),
+// each stored: the (4, 16, steps + keep, m) table of double_chain_kernel
+// (point_kernels.cuh), a group of TeModel::GRP = 8 threads a lane.
 extern "C" int abtpu_te_double(const void* P, void* out, int64_t m,
+                               int32_t steps, int32_t keep,
                                const void* words, void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
   if (!cc.te) return (int)cudaErrorInvalidValue;
-  double_kernel<TeModel><<<blocks_for(m), THREADS, 0, s>>>(
-      (const int32_t*)P, (int32_t*)out, m, cc);
+  launch_double_chain<TeModel>(P, out, m, steps, keep, cc, s);
   return (int)cudaGetLastError();
 }
 

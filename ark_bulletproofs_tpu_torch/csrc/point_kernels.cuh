@@ -1,8 +1,8 @@
 // Kernel templates over a point model that both group-law sources
 // instantiate (msm_kernels.cu on RCB projective and TE extended points,
-// jac_kernels.cu on Jacobian points): the elementwise 2^k P + Q and the
-// window Horner, with their launchers, and the launchers' block
-// arithmetic. A model supplies the point type, its identity, add, mixed
+// jac_kernels.cu on Jacobian points): the elementwise 2^k P + Q, the
+// window Horner and the doubling chain, with their launchers, and the
+// launchers' block arithmetic. A model supplies the point type, its identity, add, mixed
 // add, doubling, load and store, and the group forms gadd / gdbl
 // (group.cuh); each source instantiates a template only for its models.
 //
@@ -221,4 +221,48 @@ static void launch_horner(const void* parts, const void* acc0, void* out,
   horner_group_kernel<M, G><<<group_blocks(B, G), HG_THREADS, 0, s>>>(
       (const int32_t*)parts, (const int32_t*)acc0, (int32_t*)out, B, W, Ws,
       c, cc);
+}
+
+// The 2^i P table in one launch: out holds S = steps + keep rows of each
+// lane in an (NC, 16, S, m) array (the layout of the on-device
+// Fiat-Shamir IPA's (NC, 16, 256) Q table at m = 1): with keep = 1 row 0
+// is P and row i is 2^i P; with keep = 0 row i - 1 is 2^i P (steps = 1:
+// the elementwise 2P, out (NC, 16, m)). Each step's point is stored as it
+// is made. A group of G threads a lane (M::gdbl, group.cuh): a Jacobian
+// doubling waits on 3 product levels (4 for a != 0) instead of one
+// thread's 8 (10) products, a twisted-Edwards one (the HWCD add of P and
+// P) on 3 (5, 2 and 4 products at G = 8) instead of 11, and a 255-step
+// table is a chain of 255 dependent doublings; thread 0 stores.
+template <class M, int G>
+__global__ void __launch_bounds__(HG_THREADS, 1)
+    double_chain_kernel(const int32_t* __restrict__ P,
+                        int32_t* __restrict__ out, int64_t m, int32_t steps,
+                        int32_t keep, CurveConst cc) {
+  __shared__ uint4 slots[HG_THREADS / G][4 * GRP_SLOTS];
+  const int tid = threadIdx.x;
+  const size_t lane = ((size_t)blockIdx.x * HG_THREADS + tid) / G;
+  if (lane >= (size_t)m) return;  // whole groups only: HG_THREADS % G == 0
+  Grp<G> gr = grp_of<G>(slots, tid);
+  const size_t S = (size_t)steps + keep;
+  typename M::P acc = M::load(P, 1, 0, m, lane);
+  if (keep && gr.g == 0) M::store(out, 1, 0, S * m, lane, acc);
+  for (int32_t i = 1; i <= steps; ++i) {
+    acc = M::template gdbl<G>(gr, acc, cc);
+    if (gr.g == 0)
+      M::store(out, 1, 0, S * m, (size_t)(i - 1 + keep) * m + lane, acc);
+  }
+}
+
+// The doubling chain: a group of M::GRP threads a lane at every lane
+// count. The paths send it one lane (the 2^i Q table of the on-device
+// Fiat-Shamir IPA, JacModel or TeModel) or two (the TE commit table's
+// 2^i B and 2^i B_blinding, TeModel), where a chain waits on latency.
+template <class M>
+static void launch_double_chain(const void* P, void* out, int64_t m,
+                                int32_t steps, int32_t keep,
+                                const CurveConst& cc, cudaStream_t s) {
+  constexpr int G = M::GRP;
+  static_assert(HG_THREADS % G == 0 && 32 % G == 0, "group size");
+  double_chain_kernel<M, G><<<group_blocks(m, G), HG_THREADS, 0, s>>>(
+      (const int32_t*)P, (int32_t*)out, m, steps, keep, cc);
 }

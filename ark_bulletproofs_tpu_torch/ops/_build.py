@@ -45,7 +45,7 @@ _SIGNATURES = {
     "abtpu_rowsum": [_P, _P, _I64, _I64, _P, _P],
     "abtpu_rcb_double_k_add": [_P, _P, _P, _I64, _I32, _P, _P],
     "abtpu_te_double_k_add": [_P, _P, _P, _I64, _I32, _P, _P],
-    "abtpu_te_double": [_P, _P, _I64, _P, _P],
+    "abtpu_te_double": [_P, _P, _I64, _I32, _I32, _P, _P],
     "abtpu_jac_double_k_add": [_P, _P, _P, _I64, _I32, _P, _P],
     "abtpu_jac_double": [_P, _P, _I64, _I32, _I32, _P, _P],
     "abtpu_jac_madd": [_P, _P, _P, _P, _P, _I64, _I64, _P, _P],
@@ -56,7 +56,11 @@ _SIGNATURES = {
     "abtpu_row_gather": [_P, _P, _P, _I64, _I64, _I32, _P],
     "abtpu_fs_round": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P,
                        _P],
-    "abtpu_mont_mul": [_P, _P, _P, _I64, _I64, _I64, _I64, _P, _P],
+    "abtpu_mont_mul": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                       _I32, _P, _P],
+    "abtpu_add_sub": [_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P, _P],
+    "abtpu_sum_mod": [_P, _P, _I64, _P, _P, _P],
+    "abtpu_mont_inv_batch": [_P, _P, _P, _I64, _I64, _P, _P, _P],
 }
 
 

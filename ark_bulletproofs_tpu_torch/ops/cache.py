@@ -109,8 +109,9 @@ def full_table(bp_gens, pc_gens, curve, device):
 def commit_table(pc_gens, device):
     """(4, 16, 512) extended points for the device Pedersen batch of a
     twisted-Edwards curve (ops/prove.py): lane i holds 2^i B, lane 256 + i
-    2^i B_blinding (i < 256). 255 `te_double` launches of two lanes, once
-    per (pc_gens, device) (the JAX package's `_q_doubles` scan)."""
+    2^i B_blinding (i < 256). One `te_double` launch of 255 steps on two
+    lanes and one copy into that layout, once per (pc_gens, device) (the
+    JAX package's `_q_doubles` scan)."""
     curve = pc_gens.curve
 
     def make():
@@ -118,10 +119,7 @@ def commit_table(pc_gens, device):
         ext = [curve.to_proj(P) for P in (pc_gens.B, pc_gens.B_blinding)]
         P = torch.stack([ints_to_limbs([e[c] * f.R % f.p for e in ext],
                                        device) for c in range(4)])
-        rows = [P]
-        for _ in range(255):
-            P = kk.te_double(spec, P)
-            rows.append(P)
-        return torch.stack(rows, dim=-1).reshape(4, N_LIMBS, 512)
+        rows = kk.te_double(spec, P, 255)  # (4, 16, 256, 2)
+        return rows.transpose(-1, -2).reshape(4, N_LIMBS, 512)
 
     return _cached(pc_gens, (curve.name, "commit", str(device)), make)

@@ -150,22 +150,22 @@ def _sw_double(spec: CurveSpec, P: torch.Tensor) -> torch.Tensor:
     fs = spec.fq
     X1, Y1, Z1 = P.long()
     XX, YY, ZZ = _mm(fs, (X1, X1), (Y1, Y1), (Z1, Z1))
-    xpyy = df.add(fs, X1, YY)
-    ypz = df.add(fs, Y1, Z1)
+    xpyy = df.add_plain(fs, X1, YY)
+    ypz = df.add_plain(fs, Y1, Z1)
     YYYY, xpyy2, ypz2 = _mm(fs, (YY, YY), (xpyy, xpyy), (ypz, ypz))
-    S = df.sub(fs, xpyy2, df.add(fs, XX, YYYY))
-    S = df.add(fs, S, S)
-    M = df.add(fs, df.add(fs, XX, XX), XX)
+    S = df.sub_plain(fs, xpyy2, df.add_plain(fs, XX, YYYY))
+    S = df.add_plain(fs, S, S)
+    M = df.add_plain(fs, df.add_plain(fs, XX, XX), XX)
     if not spec.is_a_zero:
         (ZZ2,) = _mm(fs, (ZZ, ZZ))
         (aZZ2,) = _mm(fs, (df.const(spec.a_mont_limbs, P.device)
                            .expand_as(ZZ2), ZZ2))
-        M = df.add(fs, M, aZZ2)
+        M = df.add_plain(fs, M, aZZ2)
     (M2,) = _mm(fs, (M, M))
-    X3 = df.sub(fs, M2, df.add(fs, S, S))
-    (MSX,) = _mm(fs, (M, df.sub(fs, S, X3)))
-    Y3 = df.sub(fs, MSX, df.mul_small(fs, YYYY, 8))
-    Z3 = df.sub(fs, ypz2, df.add(fs, YY, ZZ))
+    X3 = df.sub_plain(fs, M2, df.add_plain(fs, S, S))
+    (MSX,) = _mm(fs, (M, df.sub_plain(fs, S, X3)))
+    Y3 = df.sub_plain(fs, MSX, df.mul_small(fs, YYYY, 8))
+    Z3 = df.sub_plain(fs, ypz2, df.add_plain(fs, YY, ZZ))
     return torch.stack([X3, Y3, Z3])
 
 
@@ -182,21 +182,21 @@ def _sw_add(spec: CurveSpec, P: torch.Tensor,
     Z1Z1, Z2Z2 = _mm(fs, (Z1, Z1), (Z2, Z2))
     U1, U2, A, B = _mm(fs, (X1, Z2Z2), (X2, Z1Z1), (Y1, Z2), (Y2, Z1))
     S1, S2 = _mm(fs, (A, Z2Z2), (B, Z1Z1))
-    H = df.sub(fs, U2, U1)
-    rr0 = df.sub(fs, S2, S1)
+    H = df.sub_plain(fs, U2, U1)
+    rr0 = df.sub_plain(fs, S2, S1)
     x_eq = df.is_zero(H)
     y_eq = df.is_zero(rr0)
-    rr = df.add(fs, rr0, rr0)
-    twoH = df.add(fs, H, H)
+    rr = df.add_plain(fs, rr0, rr0)
+    twoH = df.add_plain(fs, H, H)
     (I,) = _mm(fs, (twoH, twoH))
     J, V, rr2 = _mm(fs, (H, I), (U1, I), (rr, rr))
-    X3 = df.sub(fs, rr2, df.add(fs, J, df.add(fs, V, V)))
+    X3 = df.sub_plain(fs, rr2, df.add_plain(fs, J, df.add_plain(fs, V, V)))
     (S1J,) = _mm(fs, (S1, J))
-    (t1,) = _mm(fs, (rr, df.sub(fs, V, X3)))
-    Y3 = df.sub(fs, t1, df.add(fs, S1J, S1J))
-    zpz = df.add(fs, Z1, Z2)
+    (t1,) = _mm(fs, (rr, df.sub_plain(fs, V, X3)))
+    Y3 = df.sub_plain(fs, t1, df.add_plain(fs, S1J, S1J))
+    zpz = df.add_plain(fs, Z1, Z2)
     (zpz2,) = _mm(fs, (zpz, zpz))
-    w = df.sub(fs, zpz2, df.add(fs, Z1Z1, Z2Z2))
+    w = df.sub_plain(fs, zpz2, df.add_plain(fs, Z1Z1, Z2Z2))
     (Z3,) = _mm(fs, (w, H))
     R = torch.stack([X3, Y3, Z3])
     finite = ~p_inf & ~q_inf
@@ -226,19 +226,19 @@ def _sw_add_mixed(spec: CurveSpec, P: torch.Tensor, Qx: torch.Tensor,
     (Z1Z1,) = _mm(fs, (Z1, Z1))
     U2, B = _mm(fs, (Qx, Z1Z1), (Qy, Z1))
     (S2,) = _mm(fs, (B, Z1Z1))
-    H = df.sub(fs, U2, X1)
-    rr0 = df.sub(fs, S2, Y1)
+    H = df.sub_plain(fs, U2, X1)
+    rr0 = df.sub_plain(fs, S2, Y1)
     x_eq = df.is_zero(H)
     y_eq = df.is_zero(rr0)
-    rr = df.add(fs, rr0, rr0)
-    twoH = df.add(fs, H, H)
-    zph = df.add(fs, Z1, H)
+    rr = df.add_plain(fs, rr0, rr0)
+    twoH = df.add_plain(fs, H, H)
+    zph = df.add_plain(fs, Z1, H)
     I, rr2, zph2, HH = _mm(fs, (twoH, twoH), (rr, rr), (zph, zph), (H, H))
     J, V = _mm(fs, (H, I), (X1, I))
-    X3 = df.sub(fs, rr2, df.add(fs, J, df.add(fs, V, V)))
-    t1, S1J = _mm(fs, (rr, df.sub(fs, V, X3)), (Y1, J))
-    Y3 = df.sub(fs, t1, df.add(fs, S1J, S1J))
-    Z3 = df.sub(fs, zph2, df.add(fs, Z1Z1, HH))
+    X3 = df.sub_plain(fs, rr2, df.add_plain(fs, J, df.add_plain(fs, V, V)))
+    t1, S1J = _mm(fs, (rr, df.sub_plain(fs, V, X3)), (Y1, J))
+    Y3 = df.sub_plain(fs, t1, df.add_plain(fs, S1J, S1J))
+    Z3 = df.sub_plain(fs, zph2, df.add_plain(fs, Z1Z1, HH))
     R = torch.stack([X3, Y3, Z3])
     finite = ~p_inf & ~q_inf
     both = x_eq & y_eq

@@ -1,18 +1,21 @@
 """256-bit prime-field arithmetic in Montgomery form.
 
-Counterpart of ark_bulletproofs_tpu/ops/field.py. Apart from `mont_mul`
-these are plain PyTorch: the plain versions of the CUDA field core
+Counterpart of ark_bulletproofs_tpu/ops/field.py. `mont_mul` (the
+product, and with a third operand the product plus or minus it),
+`add_sub` (and `add`, `sub`, `neg` through it) and `sum_mod` (and
+`dot_mod`) are the wrappers of the CUDA field kernels
+(csrc/field_kernels.cu): on a CUDA tensor each launches its kernel and
+returns int32 with no device-to-host sync, on a CPU tensor it runs its
+plain version (`mont_mul_plain`, `add_plain`, `sub_plain`, `neg_plain`,
+`sum_mod_plain`), and on anything else it raises. The plain versions
+are plain PyTorch, the plain versions of the CUDA field core
 (csrc/field.cuh), which the CPU tests run and chip_smoke.py holds the
-kernels against on the card. `mont_mul` is the wrapper of the CUDA
-Montgomery-product kernel (csrc/field_kernels.cu): on a CUDA tensor it
-launches the kernel and returns int32, on a CPU tensor it runs
-`mont_mul_plain`, and on anything else it raises. The group-law plain
-versions (proj.py) call `mont_mul_plain` directly, so they stay plain on
-the card. Values are
-16 canonical 16-bit limbs along axis -2 of a (..., 16, L) tensor; every
-function takes any integer dtype and computes and returns int64 (torch's
-CPU uint32 has no add, shift or compare). Every result is canonical in
-[0, p), so any correct formula gives bit-equal limbs.
+kernels against on the card; the group-law plain versions (proj.py,
+curve.py) call them directly, so they stay plain on the card. Values
+are 16 canonical 16-bit limbs along axis -2 of a (..., 16, L) tensor;
+every plain function takes any integer dtype and computes and returns
+int64 (torch's CPU uint32 has no add, shift or compare). Every result is
+canonical in [0, p), so any correct formula gives bit-equal limbs.
 
 `mont_mul_plain` is vectorised over the limb axis: the 31 column sums of the
 schoolbook product on whole tensors, carry normalisation by passes,
@@ -24,8 +27,10 @@ Montgomery radix R = 2^256, as in the JAX package and arkworks.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .limbs import LIMB_BITS, MASK, N_LIMBS
@@ -170,19 +175,21 @@ def _cond_sub_p(fs: FieldSpec, r: torch.Tensor, extra: torch.Tensor):
     return torch.where(need.unsqueeze(-2), d, r)
 
 
-def add(fs: FieldSpec, a, b) -> torch.Tensor:
+def add_plain(fs: FieldSpec, a, b) -> torch.Tensor:
+    """a + b mod p for canonical a and b, plain PyTorch (int64)."""
     s, c = _norm(a.long() + b.long())
     return _cond_sub_p(fs, s, c)
 
 
-def sub(fs: FieldSpec, a, b) -> torch.Tensor:
+def sub_plain(fs: FieldSpec, a, b) -> torch.Tensor:
+    """a - b mod p for canonical a and b, plain PyTorch (int64)."""
     d, borrow = _norm(a.long() - b.long())
     dp, _ = _norm(d + const(fs.p_limbs, d.device))
     return torch.where((borrow < 0).unsqueeze(-2), dp, d)
 
 
-def neg(fs: FieldSpec, a) -> torch.Tensor:
-    return sub(fs, torch.zeros_like(a), a)
+def neg_plain(fs: FieldSpec, a) -> torch.Tensor:
+    return sub_plain(fs, torch.zeros_like(a), a)
 
 
 def mont_mul_plain(fs: FieldSpec, a, b) -> torch.Tensor:
@@ -211,51 +218,80 @@ def mont_mul_plain(fs: FieldSpec, a, b) -> torch.Tensor:
     return _cond_sub_p(fs, r, top)
 
 
-def _kernel_operands(a: torch.Tensor, b: torch.Tensor):
-    """a and b as the kernel takes them: a (rows, 16, L) and b (rows_b,
-    16, L_b) with rows_b in {1, rows} and L_b in {1, L}, contiguous int32.
-    The product commutes, so the broadcast operand goes second; operands
-    broadcast in any other way are expanded."""
-    shape = _broadcast(a.shape, b.shape)
-    if tuple(a.shape) != tuple(shape):
-        a, b = b, a
-    a = a.expand(shape)
-    b_lead = tuple(b.shape[:-2])
-    if b_lead != tuple(shape[:-2]) and any(d != 1 for d in b_lead):
-        b = b.expand(shape)
-
-    def flat(t):
-        return t.to(torch.int32).contiguous().reshape(-1, N_LIMBS,
-                                                      t.shape[-1])
-
-    return flat(a), flat(b)
+def _device(name: str, *ts) -> torch.device:
+    """The device of the tensors among ts (None skipped); raise unless
+    they share one, and it is the CPU or a CUDA device."""
+    dev = ts[0].device
+    for t in ts[1:]:
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
 
 
-def mont_mul(fs: FieldSpec, a, b) -> torch.Tensor:
-    """a * b * R^-1 mod p over (..., 16, L) limbs, b broadcast against a
-    (a (16, 1) operand is read with stride 0 on the card). For a < 2^256
-    and canonical b the result is canonical.
+def _shape(*ts) -> tuple:
+    shape = tuple(ts[0].shape)
+    for t in ts[1:]:
+        if t is not None:
+            shape = _broadcast(shape, t.shape)
+    return shape
 
-    On CPU tensors: `mont_mul_plain` (int64). On CUDA tensors: the
-    csrc/field_kernels.cu kernel (int32), counted in `mont_mul.launches`.
-    Any other device raises."""
-    dev = a.device
-    if b.device != dev:
-        raise ValueError(f"mont_mul: tensors on {dev} and {b.device}")
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous().reshape(-1, N_LIMBS, t.shape[-1])
+
+
+def _side(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """A broadcast operand as the kernels read it against `shape`: (rows_t,
+    16, L_t) with rows_t in {1, rows} and L_t in {1, L}, contiguous int32;
+    an operand whose leading axes broadcast in any other way is expanded
+    over them."""
+    lead = tuple(t.shape[:-2])
+    if lead != tuple(shape[:-2]) and any(d != 1 for d in lead):
+        t = t.expand(*shape[:-2], *t.shape[-2:])
+    return _flat(t)
+
+
+def _signed(sign: int) -> int:
+    if sign not in (1, -1):
+        raise ValueError(f"sign={sign}: expected +1 or -1")
+    return sign
+
+
+def mont_mul(fs: FieldSpec, a, b, c=None, sign: int = 1) -> torch.Tensor:
+    """a * b * R^-1 mod p over (..., 16, L) limbs, b broadcast against a;
+    with c, a * b + c (sign = +1) or a * b - c (sign = -1), c broadcast as
+    b is. A (16, 1) operand is read with stride 0 on the card. For a <
+    2^256 and canonical b and c the result is canonical.
+
+    On CPU tensors: `mont_mul_plain`, then `add_plain` / `sub_plain`
+    (int64). On CUDA tensors: one launch of the csrc/field_kernels.cu
+    kernel, the add in its registers (int32), counted in
+    `mont_mul.launches`. Any other device raises."""
+    dev = _device("mont_mul", a, b, c)
+    sign = _signed(sign)
     if dev.type == "cpu":
-        return mont_mul_plain(fs, a, b)
-    if dev.type != "cuda":
-        raise ValueError(f"mont_mul: unsupported device {dev}")
-    shape = _broadcast(a.shape, b.shape)
-    x, y = _kernel_operands(a, b)
-    rows, _, L = x.shape
+        r = mont_mul_plain(fs, a, b)
+        if c is None:
+            return r
+        return (add_plain if sign > 0 else sub_plain)(fs, r, c)
+    shape = _shape(a, b, c)
+    if tuple(a.shape) != shape and tuple(b.shape) == shape:
+        a, b = b, a  # the product commutes: the broadcast operand second
+    x = _flat(a.expand(shape))
+    y = _side(b, shape)
+    z = None if c is None else _side(c, shape)
     out = torch.empty(shape, dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
     from .kernels import launch
 
-    launch("mont_mul", fs, dev, x.data_ptr(), y.data_ptr(), out.data_ptr(),
-           rows, L, y.shape[0], y.shape[-1])
+    rows_c, L_c = (1, 1) if z is None else (z.shape[0], z.shape[-1])
+    launch("mont_mul", fs, dev, x.data_ptr(), y.data_ptr(),
+           None if z is None else z.data_ptr(), out.data_ptr(), x.shape[0],
+           x.shape[-1], y.shape[0], y.shape[-1], rows_c, L_c,
+           0 if c is None else sign)
     mont_mul.launches += 1
     return out
 
@@ -263,18 +299,70 @@ def mont_mul(fs: FieldSpec, a, b) -> torch.Tensor:
 mont_mul.launches = 0
 
 
+def add_sub(fs: FieldSpec, a, b, sign: int) -> torch.Tensor:
+    """a + b (sign = +1) or a - b (sign = -1) mod p over (..., 16, L)
+    canonical limbs, b broadcast against a; a = None stands for zero
+    (-b).
+
+    On CPU tensors: `add_plain` / `sub_plain` / `neg_plain` (int64). On
+    CUDA tensors: one launch of csrc/field_kernels.cu's add_sub kernel
+    (int32), counted in `add_sub.launches`, with no device-to-host sync.
+    Any other device raises."""
+    dev = _device("add_sub", b, a)
+    sign = _signed(sign)
+    if dev.type == "cpu":
+        a = torch.zeros_like(b) if a is None else a
+        return (add_plain if sign > 0 else sub_plain)(fs, a, b)
+    shape = _shape(b) if a is None else _shape(a, b)
+    if (a is not None and sign > 0 and tuple(a.shape) != shape
+            and tuple(b.shape) == shape):
+        a, b = b, a  # the sum commutes: the broadcast operand second
+    x = None if a is None else _flat(a.expand(shape))
+    y = _side(b, shape)
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    from .kernels import launch
+
+    launch("add_sub", fs, dev, None if x is None else x.data_ptr(),
+           y.data_ptr(), out.data_ptr(), out.numel() // (N_LIMBS * shape[-1]),
+           shape[-1], y.shape[0], y.shape[-1], sign)
+    add_sub.launches += 1
+    return out
+
+
+add_sub.launches = 0
+
+
+def add(fs: FieldSpec, a, b) -> torch.Tensor:
+    """a + b mod p: `add_sub` (the CUDA kernel on the card)."""
+    return add_sub(fs, a, b, 1)
+
+
+def sub(fs: FieldSpec, a, b) -> torch.Tensor:
+    """a - b mod p: `add_sub` (the CUDA kernel on the card)."""
+    return add_sub(fs, a, b, -1)
+
+
+def neg(fs: FieldSpec, a) -> torch.Tensor:
+    """-a mod p: `add_sub` (the CUDA kernel on the card)."""
+    return add_sub(fs, None, a, -1)
+
+
 def mul_small(fs: FieldSpec, a, c: int) -> torch.Tensor:
-    """a * c for a small non-negative int constant (double-and-add)."""
+    """a * c for a small non-negative int constant (double-and-add), plain
+    PyTorch: the group laws' plain versions (ops/proj.py, ops/curve.py)
+    use it."""
     if c == 0:
         return torch.zeros_like(a, dtype=torch.int64)
     acc = None
     addend = a.long()
     while c:
         if c & 1:
-            acc = addend if acc is None else add(fs, acc, addend)
+            acc = addend if acc is None else add_plain(fs, acc, addend)
         c >>= 1
         if c:
-            addend = add(fs, addend, addend)
+            addend = add_plain(fs, addend, addend)
     return acc
 
 
@@ -302,23 +390,66 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     return torch.where(mask.unsqueeze(-2), a, b)
 
 
-def sum_mod(fs: FieldSpec, a) -> torch.Tensor:
-    """Modular sum over the lanes of (..., 16, L) limbs -> (..., 16, 1).
+def sum_mod_plain(fs: FieldSpec, a) -> torch.Tensor:
+    """The plain version of `sum_mod` (int64).
 
     The int64 limb-column sums are exact (each column below L * 2^16);
     normalised, they give the wide total lo + c * 2^256 with lo < 2^256
     and c < L. Then lo mod p = from_mont(to_mont(lo)) (to_mont takes any
-    lo < 2^256) and c * 2^256 mod p = mont_mul(c, R^2). Montgomery-form
-    linear, so it sums Montgomery and canonical values alike."""
+    lo < 2^256) and c * 2^256 mod p = mont_mul(c, R^2)."""
     cols = a.long().sum(dim=-1, keepdim=True)
     lo, c = _norm(cols, 3)
     c_limbs = torch.zeros_like(lo)
     c_limbs[..., 0, :] = c & MASK
     c_limbs[..., 1, :] = c >> LIMB_BITS
     r2 = const(fs.r2_limbs, a.device)
-    hi = mont_mul(fs, c_limbs, r2)
-    lo = from_mont(fs, mont_mul(fs, lo, r2))
-    return add(fs, lo, hi)
+    hi = mont_mul_plain(fs, c_limbs, r2)
+    lo = mont_mul_plain(fs, mont_mul_plain(fs, lo, r2),
+                        const(_limbs_of(1), a.device))
+    return add_plain(fs, lo, hi)
+
+
+_R2_WORDS: dict = {}
+
+
+def _r2_words(fs: FieldSpec) -> np.ndarray:
+    """R^2 mod p as 8 uint32 words (kept alive: ctypes passes a pointer)."""
+    w = _R2_WORDS.get(fs)
+    if w is None:
+        r2 = fs.R * fs.R % fs.p
+        w = np.array([(r2 >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+                     dtype=np.uint32)
+        _R2_WORDS[fs] = w
+    return w
+
+
+def sum_mod(fs: FieldSpec, a) -> torch.Tensor:
+    """Modular sum over the lanes of (..., 16, L) limbs -> (..., 16, 1).
+    Montgomery-form linear, so it sums Montgomery and canonical values
+    alike.
+
+    On CPU tensors: `sum_mod_plain` (int64). On CUDA tensors: the exact
+    int64 column sums (a torch sum), then one launch of
+    csrc/field_kernels.cu's sum_mod kernel (one thread a row: the column
+    carries and the plain version's products and add; int32), counted in
+    `sum_mod.launches`, with no device-to-host sync."""
+    dev = _device("sum_mod", a)
+    if dev.type == "cpu":
+        return sum_mod_plain(fs, a)
+    cols = a.sum(dim=-1, dtype=torch.int64).contiguous()  # (..., 16)
+    out = torch.empty(*cols.shape, 1, dtype=torch.int32, device=dev)
+    rows = cols.numel() // N_LIMBS
+    if rows == 0:
+        return out
+    from .kernels import launch
+
+    launch("sum_mod", fs, dev, cols.data_ptr(), out.data_ptr(), rows,
+           _r2_words(fs).ctypes.data_as(ctypes.c_void_p))
+    sum_mod.launches += 1
+    return out
+
+
+sum_mod.launches = 0
 
 
 def dot_mod(fs: FieldSpec, a, b) -> torch.Tensor:

@@ -15,7 +15,8 @@ host round trip (ops/ipa.py::ipa_prove_fs):
     (fields.py::Field.rand: the accepted raw limbs are the Montgomery
     form, so a challenge comes out ready for the fold);
   * `mont_pow_pm2` (x^(p-2), the field inverse in Montgomery form) and
-    `mont_inv_batch` (Montgomery's trick over the lanes);
+    `mont_inv_batch` (one launch of safegcd inverses on the card; its
+    plain version Montgomery's trick over the lanes);
   * arkworks' uncompressed point encodings, short-Weierstrass (x || y,
     flags in the top bits of y's last byte) and twisted-Edwards (x || y).
 
@@ -325,12 +326,14 @@ def mont_pow_pm2(fs: df.FieldSpec, x: torch.Tensor, mul=df.mont_mul):
     return acc
 
 
-def mont_inv_batch(fs: df.FieldSpec, z: torch.Tensor) -> torch.Tensor:
-    """Inverses of (16, B) Montgomery elements by Montgomery's trick:
-    inclusive prefix and suffix products over the lanes (2 lg B wide
-    products each, Hillis-Steele), one `mont_pow_pm2` of the total on one
-    lane, two combining products. Zero lanes count as one in the products
-    and return 0."""
+def mont_inv_batch_plain(fs: df.FieldSpec, z: torch.Tensor,
+                         rows=None) -> torch.Tensor:
+    """The plain version of `mont_inv_batch`, the JAX package's algorithm:
+    Montgomery's trick, inclusive prefix and suffix products over the
+    lanes (2 lg B wide products each, Hillis-Steele), one `mont_pow_pm2`
+    of the total on one lane, two combining products; then the rows by
+    the inverses."""
+    mul = df.mont_mul_plain
     B = z.shape[-1]
     iz = df.is_zero(z)
     one = df.const(fs.r_limbs, z.device).expand(z.shape)
@@ -341,17 +344,56 @@ def mont_inv_batch(fs: df.FieldSpec, z: torch.Tensor) -> torch.Tensor:
         acc, sh = x, 1
         while sh < B:
             keep = idx >= sh if sign > 0 else idx < B - sh
-            acc = df.mont_mul(fs, acc, df.select(
+            acc = mul(fs, acc, df.select(
                 keep, torch.roll(acc, sign * sh, -1), one))
             sh <<= 1
         return acc
 
     pre, suf = scan(1), scan(-1)
-    tot_inv = mont_pow_pm2(fs, pre[:, B - 1:])
+    tot_inv = mont_pow_pm2(fs, pre[:, B - 1:], mul)
     pre_prev = df.select(idx >= 1, torch.roll(pre, 1, -1), one)
     suf_next = df.select(idx < B - 1, torch.roll(suf, -1, -1), one)
-    inv = df.mont_mul(fs, df.mont_mul(fs, pre_prev, suf_next), tot_inv)
-    return df.select(iz, torch.zeros_like(inv), inv)
+    inv = mul(fs, mul(fs, pre_prev, suf_next), tot_inv)
+    inv = df.select(iz, torch.zeros_like(inv), inv)
+    return inv if rows is None else mul(fs, rows, inv)
+
+
+def mont_inv_batch(fs: df.FieldSpec, z: torch.Tensor,
+                   rows=None) -> torch.Tensor:
+    """Inverses of (16, B) Montgomery elements, in Montgomery form; zero
+    lanes return 0. With rows (R, 16, B), rows * z^-1 lane-wise instead
+    ((R, 16, B): the table shrink's affine X / Z and Y / Z).
+
+    On CPU tensors: `mont_inv_batch_plain` (int64). On CUDA tensors: one
+    launch of csrc/field_kernels.cu's mont_inv_batch kernel (one thread a
+    lane, each inverting its own element by safegcd, csrc/inv.cuh; the
+    inverse is unique, so it equals the plain version's Fermat power bit
+    for bit), int32, counted in `mont_inv_batch.launches`."""
+    if z.dim() != 2 or z.shape[0] != N_LIMBS:
+        raise ValueError(f"mont_inv_batch: z of shape {tuple(z.shape)}, "
+                         f"expected (16, B)")
+    B = z.shape[-1]
+    if rows is not None and (rows.dim() != 3 or rows.shape[1:] != z.shape):
+        raise ValueError(f"mont_inv_batch: rows of shape "
+                         f"{tuple(rows.shape)} against z {tuple(z.shape)}")
+    dev = df._device("mont_inv_batch", z, rows)
+    if dev.type == "cpu":
+        return mont_inv_batch_plain(fs, z, rows)
+    shape = (N_LIMBS, B) if rows is None else tuple(rows.shape)
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    zc = z.to(torch.int32).contiguous()
+    rc = None if rows is None else rows.to(torch.int32).contiguous()
+    launch("mont_inv_batch", fs, dev, zc.data_ptr(),
+           None if rc is None else rc.data_ptr(), out.data_ptr(), B,
+           0 if rc is None else rc.shape[0],
+           inv_const(fs).ctypes.data_as(ctypes.c_void_p))
+    mont_inv_batch.launches += 1
+    return out
+
+
+mont_inv_batch.launches = 0
 
 
 # --- point encodings --------------------------------------------------------
@@ -373,7 +415,7 @@ def point_uncompressed_bytes(fq: df.FieldSpec, xc, yc, inf):
     -y < y and the identity all zero with 1 << 6. (L, x_size + y_size)."""
     bits = fq.p.bit_length()
     x_size, y_size = (bits + 7) // 8, (bits + 2 + 7) // 8
-    neg = _lt(df.neg(fq, yc), yc.long())
+    neg = _lt(df.neg_plain(fq, yc), yc.long())
     zero = torch.zeros_like(xc)
     xb = limbs_to_bytes_le(df.select(inf, zero, xc), x_size)
     yb = limbs_to_bytes_le(df.select(inf, zero, yc), y_size)
@@ -454,17 +496,21 @@ def fs_round_plain(spec, fr: df.FieldSpec, S: torch.Tensor, st: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def inv_words(fq: df.FieldSpec, fr: df.FieldSpec) -> np.ndarray:
-    """The 18 uint32 words of csrc/fs.cuh's InvConst for fq, then for fr:
-    R^3 mod p (8 words; one Montgomery product takes the safegcd inverse
+def inv_const(f: df.FieldSpec) -> np.ndarray:
+    """The 9 uint32 words of csrc/inv.cuh's InvConst for one field: R^3
+    mod p (8 words; one Montgomery product takes the safegcd inverse
     (xR)^-1 to x^-1 R) and p^-1 mod 2^30. Cached: ctypes passes a pointer
     to them."""
-    out = []
-    for f in (fq, fr):
-        r3 = pow(f.R, 3, f.p)
-        out += [(r3 >> (32 * i)) & M32 for i in range(8)]
-        out.append(pow(f.p, -1, 1 << 30))
-    return np.array(out, dtype=np.uint32)
+    r3 = pow(f.R, 3, f.p)
+    return np.array([(r3 >> (32 * i)) & M32 for i in range(8)]
+                    + [pow(f.p, -1, 1 << 30)], dtype=np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def inv_words(fq: df.FieldSpec, fr: df.FieldSpec) -> np.ndarray:
+    """The 18 words of fs_round's two InvConst: fq's, then fr's
+    (`inv_const`). Cached: ctypes passes a pointer to them."""
+    return np.concatenate([inv_const(fq), inv_const(fr)])
 
 
 def fs_round(spec, fr: df.FieldSpec, S: torch.Tensor, st: torch.Tensor,

@@ -95,19 +95,23 @@ def _masks(N: int, m: int, cur: int, device):
 def _fold(fr, a, b, gm, hm, u, u_inv, m: int, cur: int):
     """Fold the witness halves and update the base weights after
     challenge u (cur: the round's width, m = cur / 2; u, u_inv: (16, 1)
-    Montgomery, or (P, 16, 1) for (P, 16, N) vectors). Two product
-    launches."""
+    Montgomery, or (P, 16, 1) for (P, 16, N) vectors): a' = a u +
+    a[i + m] u^-1, b' = b u^-1 + b[i + m] u, the weights by u or u^-1 by
+    half. Two product launches, the second with the first's a u and
+    b u^-1 added in its registers."""
     N = a.shape[-1]
     idx, _, right, active = _masks(N, m, cur, a.device)
     up = (idx + m).clamp(max=N - 1)
-    p4 = df.mont_mul(fr, torch.stack([a, a[..., up], b, b[..., up]]),
-                     torch.stack([u, u_inv, u_inv, u]))
-    p2 = df.mont_mul(fr, torch.stack([gm, hm]), torch.stack([
-        df.select(right, u, u_inv), df.select(right, u_inv, u)]))
-    zero = torch.zeros_like(a, dtype=torch.int64)
-    a_new = df.select(active, df.add(fr, p4[0], p4[1]), zero)
-    b_new = df.select(active, df.add(fr, p4[2], p4[3]), zero)
-    return a_new, b_new, p2[0], p2[1]
+    shape = (*u.shape[:-1], N)
+    p4 = df.mont_mul(fr, torch.stack([a, b, gm, hm]), torch.stack([
+        u.expand(shape), u_inv.expand(shape), df.select(right, u, u_inv),
+        df.select(right, u_inv, u)]))
+    ab = df.mont_mul(fr, torch.stack([a[..., up], b[..., up]]),
+                     torch.stack([u_inv, u]), p4[:2])
+    zero = torch.zeros_like(ab[0])
+    a_new = df.select(active, ab[0], zero)
+    b_new = df.select(active, ab[1], zero)
+    return a_new, b_new, p4[2], p4[3]
 
 
 def _round_scalars_compact(fr, a, b, gm, hm, qw, m: int, cur: int):
@@ -342,21 +346,17 @@ class IpaBatchProver:
 
 def _q_doubles(curve, Q, device) -> torch.Tensor:
     """(NC, 16, 256) int32 model coordinates of 2^i Q, i < 256, the JAX
-    package's 256-step scan: one `jac_double` launch of 255 steps, or 255
-    `te_double` launches on a twisted-Edwards curve."""
+    package's 256-step scan: one `jac_double` launch of 255 steps, or one
+    `te_double` launch on a twisted-Edwards curve."""
     spec = spec_for(curve)
     f = curve.fq
     x, y = Q
-    coords = [x, y, x * y % f.p, 1] if is_te(spec) else [x, y, 1]
+    te = is_te(spec)
+    coords = [x, y, x * y % f.p, 1] if te else [x, y, 1]
     P = ints_to_limbs([v * f.R % f.p for v in coords], device)
     P = P.T.reshape(len(coords), N_LIMBS, 1).contiguous()
-    if not is_te(spec):
-        return kk.jac_double(spec, P, 255).reshape(3, N_LIMBS, 256)
-    rows = [P]
-    for _ in range(255):
-        P = kk.te_double(spec, P)
-        rows.append(P)
-    return torch.cat(rows, dim=-1)
+    dbl = kk.te_double if te else kk.jac_double
+    return dbl(spec, P, 255).reshape(len(coords), N_LIMBS, 256)
 
 
 def _mul_point_dev(spec, p2: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -384,16 +384,13 @@ def _shrink_fs_dev(spec, fr, X, Y, inf, gm, hm, cur: int):
     """The segmented shrink on the card: `_shrink_msm` on the v2 MSM (as
     the JAX package's `_shrink_fs_chunk`), then the affine table (X / Z,
     Y / Z in Montgomery form; an RCB identity, Z = 0, as X = Y = 0 marked
-    in inf) by one batch inversion, with no host round trip."""
+    in inf) by one batch inversion (on the card one launch for the
+    inverses and the products), with no host round trip."""
     fq = spec.fq
     pts = _shrink_msm(spec, fr, X, Y, inf, gm, hm, cur, msm_v2)
     z = pts[-1]
-    zi = fs.mont_inv_batch(fq, z)
-    xa, ya = df.mont_mul(fq, pts[:2], zi)
-    inf2 = df.is_zero(z)
-    zero = torch.zeros_like(xa)
-    return (df.select(inf2, zero, xa).to(torch.int32),
-            df.select(inf2, zero, ya).to(torch.int32), inf2)
+    xa, ya = fs.mont_inv_batch(fq, z, pts[:2])  # 0 where Z = 0
+    return xa.to(torch.int32), ya.to(torch.int32), df.is_zero(z)
 
 
 def _round_msm(spec, X, Y, inf, scal, bm, v2: bool) -> torch.Tensor:

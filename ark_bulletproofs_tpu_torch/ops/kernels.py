@@ -12,8 +12,10 @@ points, csrc/jac_kernels.cu).
       both: a group of 8 threads a lane (csrc/group.cuh), of 4 from the
       model's first band edge (DKA_BANDS), one thread a lane from its
       second (a throughput kernel without the doubling code at k = 0);
-  te_double        <- ::te_double_tiled: the 2^i B tables of that batch
-      and of the on-device Fiat-Shamir IPA's Q terms (ops/ipa.py);
+  te_double        <- ::te_double_tiled: 2P, or with `steps` a chain of
+      doublings in one launch (a group of 8 threads a lane), the 2^i B
+      table of that batch (ops/cache.py) and the on-device Fiat-Shamir
+      IPA's 2^i Q table (ops/ipa.py);
   rcb_double       <- ::rcb_double_tiled: complete RCB doubling (Alg 9
       for a = 0, Alg 3 otherwise); as in the JAX package, only `double`
       reaches it and no path of the port calls that;
@@ -215,8 +217,24 @@ def jac_double_k_add(spec, P: torch.Tensor, Q: torch.Tensor,
                          Q, k)
 
 
-def te_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
-    return _by_lanes(lambda p: proj.double(spec, p), P)
+def _chain_plain(dbl, P: torch.Tensor, steps: int) -> torch.Tensor:
+    """`steps` loops of the doubling `dbl` over lane slices: 2P for one
+    step, else the rows P, 2P, ..., 2^steps P stacked as (NC, 16, steps +
+    1, m)."""
+
+    def f(p):
+        rows = [p.long()]
+        for _ in range(steps):
+            rows.append(dbl(rows[-1]))
+        return rows[1] if steps == 1 else torch.stack(rows, dim=-2)
+
+    return _by_lanes(f, P)
+
+
+def te_double_plain(spec, P: torch.Tensor, steps: int = 1) -> torch.Tensor:
+    """The plain version of `te_double`: `steps` loops of
+    ops/proj.py::double (the HWCD add of P and P)."""
+    return _chain_plain(lambda p: proj.double(spec, p), P, steps)
 
 
 def rcb_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
@@ -226,36 +244,40 @@ def rcb_double_plain(spec, P: torch.Tensor) -> torch.Tensor:
 
 def jac_double_plain(spec, P: torch.Tensor, steps: int = 1) -> torch.Tensor:
     """The plain version of `jac_double`: `steps` loops of
-    ops/curve.py::_sw_double, 2P for one step, else the rows P, 2P, ...,
-    2^steps P stacked as (3, 16, steps + 1, m)."""
-
-    def f(p):
-        rows = [p.long()]
-        for _ in range(steps):
-            rows.append(_sw_double(spec, rows[-1]))
-        return rows[1] if steps == 1 else torch.stack(rows, dim=-2)
-
-    return _by_lanes(f, P)
+    ops/curve.py::_sw_double."""
+    return _chain_plain(lambda p: _sw_double(spec, p), P, steps)
 
 
-def _double(wrapper, plain, spec, P):
+def _double_chain(wrapper, plain, spec, P, steps: int):
+    """Checks, then the plain version (CPU) or one launch of the
+    wrapper's doubling chain (CUDA), counted on the wrapper."""
     name = wrapper.__name__
+    nc = n_coords(spec)
     m = P.shape[-1]
-    check_tensor(P, (n_coords(spec), N_LIMBS, m), f"{name} P")
+    check_tensor(P, (nc, N_LIMBS, m), f"{name} P")
+    if not 1 <= steps < (1 << 31) - 1:
+        raise ValueError(f"{name}: steps={steps} out of range")
     if P.device.type == "cpu":
-        return plain(spec, P)
+        return plain(spec, P, steps)
     if m == 0:
         raise ValueError(f"{name}: empty input")
-    out = torch.empty_like(P)
-    launch(name, spec, P.device, P.data_ptr(), out.data_ptr(), m)
+    keep = int(steps > 1)
+    out = torch.empty((nc, N_LIMBS, m) if steps == 1 else
+                      (nc, N_LIMBS, steps + 1, m), dtype=torch.int32,
+                      device=P.device)
+    launch(name, spec, P.device, P.data_ptr(), out.data_ptr(), m, steps,
+           keep)
     wrapper.launches += 1
     return out
 
 
-def te_double(spec, P: torch.Tensor) -> torch.Tensor:
-    """2P lane-wise on a twisted-Edwards curve; P: (4, 16, m) int32."""
+def te_double(spec, P: torch.Tensor, steps: int = 1) -> torch.Tensor:
+    """2P lane-wise on a twisted-Edwards curve; P: (4, 16, m) int32. With
+    steps = s > 1, the s + 1 rows P, 2P, ..., 2^s P of every lane from one
+    launch, as (4, 16, s + 1, m): the 2^i Q table of the on-device
+    Fiat-Shamir IPA (m = 1) and the commit table (m = 2)."""
     _check_model("te_double", spec, te=True)
-    return _double(te_double, te_double_plain, spec, P)
+    return _double_chain(te_double, te_double_plain, spec, P, steps)
 
 
 def jac_double(spec, P: torch.Tensor, steps: int = 1) -> torch.Tensor:
@@ -264,29 +286,23 @@ def jac_double(spec, P: torch.Tensor, steps: int = 1) -> torch.Tensor:
     lane from one launch, as (3, 16, s + 1, m): at m = 1 the (3, 16,
     s + 1) table of the on-device Fiat-Shamir IPA without a copy."""
     _check_model("jac_double", spec, te=False)
-    m = P.shape[-1]
-    check_tensor(P, (3, N_LIMBS, m), "jac_double P")
-    if not 1 <= steps < (1 << 31) - 1:
-        raise ValueError(f"jac_double: steps={steps} out of range")
-    if P.device.type == "cpu":
-        return jac_double_plain(spec, P, steps)
-    if m == 0:
-        raise ValueError("jac_double: empty input")
-    keep = int(steps > 1)
-    out = torch.empty((3, N_LIMBS, m) if steps == 1 else
-                      (3, N_LIMBS, steps + 1, m), dtype=torch.int32,
-                      device=P.device)
-    launch("jac_double", spec, P.device, P.data_ptr(), out.data_ptr(), m,
-           steps, keep)
-    jac_double.launches += 1
-    return out
+    return _double_chain(jac_double, jac_double_plain, spec, P, steps)
 
 
 def rcb_double(spec, P: torch.Tensor) -> torch.Tensor:
     """Complete 2P lane-wise on RCB projective short-Weierstrass points
     (Alg 9 for a = 0, Alg 3 otherwise); P: (3, 16, m) int32."""
     _check_model("rcb_double", spec, te=False)
-    return _double(rcb_double, rcb_double_plain, spec, P)
+    m = P.shape[-1]
+    check_tensor(P, (3, N_LIMBS, m), "rcb_double P")
+    if P.device.type == "cpu":
+        return rcb_double_plain(spec, P)
+    if m == 0:
+        raise ValueError("rcb_double: empty input")
+    out = torch.empty_like(P)
+    launch("rcb_double", spec, P.device, P.data_ptr(), out.data_ptr(), m)
+    rcb_double.launches += 1
+    return out
 
 
 def jac_madd_plain(spec, P: torch.Tensor, Qx: torch.Tensor,

@@ -59,11 +59,11 @@ def _mul(fs, *pairs):
 
 
 def _add(fs, *pairs):
-    return df.add(fs, _stack(pairs, 0), _stack(pairs, 1)).unbind(0)
+    return df.add_plain(fs, _stack(pairs, 0), _stack(pairs, 1)).unbind(0)
 
 
 def _sub(fs, *pairs):
-    return df.sub(fs, _stack(pairs, 0), _stack(pairs, 1)).unbind(0)
+    return df.sub_plain(fs, _stack(pairs, 0), _stack(pairs, 1)).unbind(0)
 
 
 def _mul_const(fs, xs, mont_limbs, small):

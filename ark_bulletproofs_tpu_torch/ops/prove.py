@@ -20,7 +20,11 @@ The six t-coefficients (util.rs:75-93, exploiting l0 = r2 = 0):
   t4 = <l1,r3>+<l3,r1>  t5 = <l2,r3>  t6 = <l3,r3>
 
 Every field product is one `field.mont_mul` call (the CUDA kernel on the
-card): the nine dot products are one (9, 16, n) launch. The coefficient
+card), fused with the add that is its only use where there is one (l1,
+r1 and r3 one launch; l(x) and r(x) by Horner side by side, three
+launches); the other adds are `field.add` / `sub` (a kernel each, no
+device-to-host sync), and the nine dot products are one (9, 16, n)
+product launch and one `sum_mod`. The coefficient
 vectors stay on the device between the two transcript syncs and the
 evaluated l, r feed the device IPA (ops/ipa.py) directly. The JAX
 package's mesh branch is not ported.
@@ -58,27 +62,19 @@ def _poly_phase(fr, padded_n: int, lg_n: int,
     y_vec = _pow_vector(fr, y_m, padded_n, lg_n)
     y_inv_vec = _pow_vector(fr, y_inv_m, padded_n, lg_n)
 
-    prods = df.mont_mul(fr, torch.stack([y_inv_vec, y_vec, y_vec]),
-                        torch.stack([wRm, aRm, sRm]))
-    l1 = df.add(fr, aLm, prods[0])
-    l2 = aOm.long()
-    l3 = sLm.long()
+    # l1 = y^-i wR + aL, r1 = y^i aR + wL, r3 = y^i sR (+ 0): one launch
+    l1, r1, r3 = df.mont_mul(fr, torch.stack([y_inv_vec, y_vec, y_vec]),
+                             torch.stack([wRm, aRm, sRm]),
+                             torch.stack([aLm, wLm, torch.zeros_like(wLm)]))
+    l2, l3 = aOm, sLm
     r0 = df.sub(fr, wOm, y_vec)
-    r1 = df.add(fr, prods[1], wLm)
-    r3 = prods[2].long()
 
     # nine inner products in one product launch, then per-dot sums
     lhs = torch.stack([l1, l1, l2, l2, l3, l3, l1, l2, l3])
     rhs = torch.stack([r0, r1, r1, r0, r0, r1, r3, r3, r3])
     sums = df.dot_mod(fr, lhs, rhs)  # (9, 16, 1)
-    t = torch.stack([
-        sums[0],
-        df.add(fr, sums[1], sums[3]),
-        df.add(fr, sums[2], sums[4]),
-        df.add(fr, sums[6], sums[5]),
-        sums[7],
-        sums[8],
-    ])
+    t234 = df.add(fr, sums[[1, 2, 6]], sums[[3, 4, 5]])  # one launch
+    t = torch.stack([sums[0], *t234.unbind(0), sums[7], sums[8]])
     return df.from_mont(fr, t), (l1, l2, l3, r0, r1, r3)
 
 
@@ -87,15 +83,12 @@ def _eval_phase(fr, coeffs, x):
     canonical."""
     l1, l2, l3, r0, r1, r3 = coeffs
     x_m = df.to_mont(fr, x)
-    # l = x*(l1 + x*(l2 + x*l3))
-    t = df.mont_mul(fr, l3, x_m)
-    t = df.mont_mul(fr, df.add(fr, l2, t), x_m)
-    l_vec = df.mont_mul(fr, df.add(fr, l1, t), x_m)
-    # r = r0 + x*(r1 + x*(x*r3))
-    u = df.mont_mul(fr, r3, x_m)
-    u = df.mont_mul(fr, u, x_m)
-    u = df.mont_mul(fr, df.add(fr, r1, u), x_m)
-    r_vec = df.add(fr, r0, u)
+    # Horner, l and r side by side, each product fused with its add:
+    # l = ((l3 x + l2) x + l1) x, r = ((r3 x + 0) x + r1) x + r0.
+    zero = torch.zeros_like(l2)
+    t = df.mont_mul(fr, torch.stack([l3, r3]), x_m, torch.stack([l2, zero]))
+    t = df.mont_mul(fr, t, x_m, torch.stack([l1, r1]))
+    l_vec, r_vec = df.mont_mul(fr, t, x_m, torch.stack([zero, r0]))
     return l_vec, r_vec
 
 

@@ -15,8 +15,9 @@ Both the s-vector
 (reference src/inner_product_proof.rs:302-311) and the powers y^-i
 decompose over the bits of i, so each is lg n masked products. Every
 product is one launch of the Montgomery-product kernel on the card
-(field.mont_mul); the modular adds and subtractions are plain PyTorch
-(field.add / sub, whose carry loop `_norm` synchronises with the host).
+(field.mont_mul), and every modular add, subtraction and sum one launch
+of the field kernels (field.add / sub, sum_mod), none of which
+synchronises with the host.
 
 Vectors are (..., 16, n) limbs: (16, n) for one proof, (B, 16, n) for B
 proofs of one padded size (the JAX package's vmap becomes this batch
@@ -118,7 +119,7 @@ def _gh_scalars(fr, padded_n: int, lg_n: int, wL, wR, wO, y_inv, u, x, a,
     allinv: (16, 1) canonical; u_sq: (16, lg_n) canonical; n1 the phase-1
     multiplier count. Returns (g, h) canonical, or Montgomery with
     mont_out, and delta = <y^-i wR, wL> (16, 1) canonical, or None without
-    with_delta (its modular sum synchronises with the host)."""
+    with_delta (the caller's fetch of it synchronises with the host)."""
     wLm, wRm, wOm = _to_mont_all(fr, wL, wR, wO)
     y_inv_m, u_m, x_m, a_m, b_m, allinv_m = _to_mont_all(
         fr, y_inv, u, x, a, b, allinv)

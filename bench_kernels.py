@@ -37,15 +37,22 @@ threads a lane at every lane count, one thread a lane at every lane count
 under launch bounds of 1 to 4 resident blocks) at 32 rows of every lane
 count of chip_smoke.SCAN_LANES and at the small rounds' row counts; and
 the Q-table chain (jac_double with 255 steps, a group of 4 threads a
-lane) at 1 to 65,536 lanes, on secq256k1 and zorro. With --parent DIR (a
-checkout of the parent commit, e.g. unpacked by `git archive` into the
-git-ignored chipwork/), the parent's kernels are built too and its forms
-timed in the same turns: R one-row jac_madd launches each followed by the
-copy into the scan's output, as its v1 Pippenger ran them, and 255
-one-step jac_double launches and their torch.stack, as its Q table.
+lane) at 1 to 65,536 lanes, on secq256k1 and zorro.
+
+The field kernels (csrc/field_kernels.cu): mont_mul's block of 128
+threads against 256 and 64 (FIELD_VARIANTS) at the paths' lane counts
+(MM_LANES, 1 to 65,536), and the one-launch batch inverse with the
+shrink's two rows at INV_BENCH_LANES; and te_double's 255-step chain at 1
+and 2 lanes (the TE Q and commit tables). With --parent DIR (a checkout
+of the parent commit, e.g. unpacked by `git archive` into the git-ignored
+chipwork/), the parent's kernels are built too and its forms timed in
+the same turns: its 255 one-step te_double launches and their stack, and
+its mont_inv_batch (Montgomery's trick and a Fermat power on its product
+kernel).
 
 --parts picks the comparisons to run (default all): ops (one thread's
-cycles), fs, jac, rcb_te, wide, chains, scan, chain, msm.
+cycles), fs, jac, rcb_te, wide, chains, scan, chain, field, te_chain,
+msm.
 
 The last line is a JSON object of every number; --out also writes it to
 FILE. Needs one card; exits 1 without.
@@ -170,6 +177,15 @@ SCAN_VARIANTS.update({
 # rounds (n rows of 8,192 lanes) and prove_batch's one-term MSMs
 SCAN_EXTRA = [(16, 8192), (8, 8192), (2, 8192), (1, 8192), (1, 24576)]
 CHAIN_LANES = [1, 2, 8, 64, 512, 2048, 4096, 8192, 16384, 32768, 65536]
+# mont_mul's block (csrc/field_kernels.cu's MM_THREADS) at 256 and 64
+# threads beside the committed 128, at the paths' lane counts
+MM_BLOCK = "#define MM_THREADS 128"
+FIELD_VARIANTS = {f"mont_mul {n} threads": ("field_kernels.cu", [
+    (MM_BLOCK, f"#define MM_THREADS {n}")]) for n in (256, 64)}
+MM_LANES = [1, 2, 2048, 12288, 18432, 65536]
+# the batch inverse at the table shrinks' lane counts (chip_smoke's
+# INV_LANES: 1,024 at n = 2^16, 8,192 and 512 under the JAX segment plan)
+INV_BENCH_LANES = [512, 1024, 8192]
 # fs_round with the inverse of f mod 2^32 by Newton's iteration in each
 # divstep (the first form of csrc/fs.cuh) instead of the 5-bit step
 FIVE_BIT = """    const int limit = min(min(eta + 1, i), 5);
@@ -636,12 +652,15 @@ def scan_launcher(path: str):
     return scan
 
 
-def parent_launchers(parent: str, build_dir: str) -> tuple:
-    """The parent commit's forms of the scan and the chain, built from its
-    csrc/msm_kernels.cu: R launches of its one-row jac_madd kernel, each
-    followed by the copy into the scan's output (its ops/msm.py), and
-    `steps` launches of its one-step jac_double kernel and one stack of
-    the rows (its ops/ipa.py::_q_doubles, here over any lane count)."""
+def parent_launchers(parent: str, build_dir: str) -> dict:
+    """The parent commit's forms of this slice's kernels, built from its
+    csrc/msm_kernels.cu and csrc/field_kernels.cu (one nvcc each, in
+    parallel): "te_chain", `steps` launches of its one-step te_double
+    kernel (one thread a lane) and one stack of the rows, as its
+    ops/ipa.py::_q_doubles and ops/cache.py::commit_table made the TE
+    tables; "inv", its ops/fs.py::mont_inv_batch (Montgomery's trick and
+    the Fermat power) on its product kernel (256 threads a block), then
+    the rows' product, as its ops/ipa.py::_shrink_fs_dev made them."""
     import ctypes
 
     import torch
@@ -652,16 +671,23 @@ def parent_launchers(parent: str, build_dir: str) -> tuple:
     d = os.path.join(build_dir, "parent")
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(src, d, ignore=shutil.ignore_patterns("host"))
-    lib_path = os.path.join(d, "lib.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    lib_path, os.path.join(d, "msm_kernels.cu")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(lib_path)
+    libs = {name: os.path.join(d, f"{name}.so")
+            for name in ("msm_kernels", "field_kernels")}
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                               "-o", lib, os.path.join(d, f"{name}.cu")],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for name, lib in libs.items()]
+    for p in procs:
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed on the parent:\n{log}")
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    madd_fn, dbl_fn = lib.abtpu_jac_madd, lib.abtpu_jac_double
-    madd_fn.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp]
+    dbl_fn = ctypes.CDLL(libs["msm_kernels"]).abtpu_te_double
+    mm_fn = ctypes.CDLL(libs["field_kernels"]).abtpu_mont_mul
     dbl_fn.argtypes = [vp, vp, i64, vp, vp]
-    madd_fn.restype = dbl_fn.restype = ctypes.c_int
+    mm_fn.argtypes = [vp, vp, vp, i64, i64, i64, i64, vp, vp]
+    dbl_fn.restype = mm_fn.restype = ctypes.c_int
 
     def words(spec):
         return _build.curve_words(spec).ctypes.data_as(vp)
@@ -669,32 +695,60 @@ def parent_launchers(parent: str, build_dir: str) -> tuple:
     def stream():
         return vp(torch.cuda.current_stream().cuda_stream)
 
-    def scan(spec, P, qx, qy, qi):
-        R, _, m = qx.shape
-        local = torch.empty((3, R, 16, m), dtype=torch.int32,
-                            device=P.device)
-        acc = P
-        for r in range(R - 1, -1, -1):
-            out = torch.empty_like(P)
-            _build.check(madd_fn(acc.data_ptr(), qx[r].data_ptr(),
-                                 qy[r].data_ptr(), qi[r].data_ptr(),
-                                 out.data_ptr(), m, words(spec), stream()),
-                         "parent jac_madd")
-            acc = out
-            local[:, r] = acc
-        return local
-
-    def chain(spec, P, steps):
+    def te_chain(spec, P, steps):
         rows = [P]
         for _ in range(steps):
             out = torch.empty_like(P)
             _build.check(dbl_fn(rows[-1].data_ptr(), out.data_ptr(),
                                 P.shape[-1], words(spec), stream()),
-                         "parent jac_double")
+                         "parent te_double")
             rows.append(out)
         return torch.stack(rows, dim=-2)
 
-    return scan, chain
+    def mont_mul(fs, a, b):
+        """Its wrapper's launch: a full, b (rows_b, 16, L_b) broadcast."""
+        if a.shape[-1] < b.shape[-1] or a.dim() < b.dim():
+            a, b = b, a
+        a = a.to(torch.int32).contiguous()
+        rows, L = a.numel() // (16 * a.shape[-1]), a.shape[-1]
+        if b.dim() < a.dim() or b.shape[:-2] != a.shape[:-2]:
+            if any(d != 1 for d in b.shape[:-2]):
+                b = b.expand(*a.shape[:-1], b.shape[-1])
+        b = b.to(torch.int32).contiguous()
+        out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+        _build.check(mm_fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), rows,
+                           L, b.numel() // (16 * b.shape[-1]), b.shape[-1],
+                           words(fs), stream()), "parent mont_mul")
+        return out
+
+    def inv(fs, z, rows):
+        """Its mont_inv_batch, the algorithm of mont_inv_batch_plain."""
+        from ark_bulletproofs_tpu_torch.ops import field as df
+        from ark_bulletproofs_tpu_torch.ops import fs as dfs
+
+        B = z.shape[-1]
+        iz = df.is_zero(z)
+        one = df.const(fs.r_limbs, z.device).expand(z.shape)
+        x = df.select(iz, one, z)
+        idx = torch.arange(B, device=z.device)
+
+        def scan(sign):
+            acc, sh = x, 1
+            while sh < B:
+                keep = idx >= sh if sign > 0 else idx < B - sh
+                acc = mont_mul(fs, acc, df.select(
+                    keep, torch.roll(acc, sign * sh, -1), one))
+                sh <<= 1
+            return acc
+
+        pre, suf = scan(1), scan(-1)
+        tot_inv = dfs.mont_pow_pm2(fs, pre[:, B - 1:], mont_mul)
+        pre_prev = df.select(idx >= 1, torch.roll(pre, 1, -1), one)
+        suf_next = df.select(idx < B - 1, torch.roll(suf, -1, -1), one)
+        out = mont_mul(fs, mont_mul(fs, pre_prev, suf_next), tot_inv)
+        return mont_mul(fs, rows, df.select(iz, torch.zeros_like(out), out))
+
+    return {"te_chain": te_chain, "inv": inv}
 
 
 def scan_compare(res: dict, variants: dict, dev) -> None:
@@ -769,8 +823,110 @@ def chain_steps_compare(res: dict, variants: dict, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def mont_mul_launcher(path: str):
+    """mont_mul (a * b, no third operand) of the kernel library at `path`,
+    on (rows, 16, L) operands of one shape."""
+    import ctypes
+
+    import torch
+
+    fn = launcher(ctypes.CDLL(path), "mont_mul")
+
+    def run(fs, a, b):
+        out = torch.empty_like(a)
+        fn(fs, a.data_ptr(), b.data_ptr(), None, out.data_ptr(), a.shape[0],
+           a.shape[-1], b.shape[0], b.shape[-1], 1, 1, 0)
+        return out
+
+    return run
+
+
+def field_compare(res: dict, variants: dict, parent, dev) -> None:
+    """mont_mul's block size: the committed 128 threads and the variants
+    (256, 64) at MM_LANES lanes of one (1, 16, L) pair on secq256k1's fr,
+    bit-equal, ms from CUDA graphs in turns into res["mont_mul"]; and the
+    batch inverse, the committed one launch (with the shrink's two rows)
+    against the parent's mont_inv_batch (Montgomery's trick and the Fermat
+    power on its product kernel, then the rows' product) at
+    INV_BENCH_LANES on secq256k1's fq, into res["inv"]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import field as df
+    from ark_bulletproofs_tpu_torch.ops import fs as dfs
+
+    check = cs.KernelCheck(dev, cs.Bound(1980))
+    fr = df.spec_for(curves.secq256k1.fr)
+    runs = {"committed": lambda fs, a, b: df.mont_mul(fs, a, b), **variants}
+    res["mont_mul"] = {}
+    for L in MM_LANES:
+        a, b = check.field_operands(fr, 2, L, L).unsqueeze(1).unbind(0)
+        want = df.mont_mul(fr, a, b)
+        for name, run in runs.items():
+            if not torch.equal(run(fr, a, b), want):
+                res["failures"].append(f"mont_mul {L}: {name} differs")
+        times = in_turns(runs, lambda run: run(fr, a, b), 100)
+        res["mont_mul"][L] = times
+        print(f"  mont_mul {L} lanes (ms, mean of 2): " + "; ".join(
+            f"{name} {statistics.mean(t):.5f}" for name, t in times.items()),
+            flush=True)
+    fq = df.spec_for(curves.secq256k1.fq)
+    runs = {"committed": lambda z, r: dfs.mont_inv_batch(fq, z, r)}
+    if parent:
+        runs["parent"] = lambda z, r: parent["inv"](fq, z, r)
+    res["inv"] = {}
+    for B in INV_BENCH_LANES:
+        z, x, y = check.field_operands(fq, 3, B, B).unbind(0)
+        z[:, ::5] = 0
+        rows = torch.stack([x, y])
+        want = dfs.mont_inv_batch(fq, z, rows)
+        for name, run in runs.items():
+            if not torch.equal(run(z, rows).long(), want.long()):
+                res["failures"].append(f"inverse {B}: {name} differs")
+        times = in_turns(runs, lambda run: run(z, rows), 3)
+        res["inv"][B] = times
+        print(f"  mont_inv_batch {B} lanes, 2 rows (ms, mean of 2): "
+              + "; ".join(f"{name} {statistics.mean(t):.4f}"
+                          for name, t in times.items()), flush=True)
+
+
+def te_chain_compare(res: dict, parent, dev) -> None:
+    """te_double's 255-step chain, committed (a group of 8 threads a lane,
+    one launch) against the parent's 255 one-step launches and their
+    stack, at 1 lane (the TE Q table) and 2 (the commit table) on
+    curve25519, bit-equal, ms from CUDA graphs in turns into
+    res["te_chain"]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import kernels as kk
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    curve = curves.curve25519
+    spec = spec_for(curve)
+    check = cs.KernelCheck(dev, cs.Bound(1980))
+    runs = {"committed": kk.te_double}
+    if parent:
+        runs["parent"] = parent["te_chain"]
+    res["te_chain"] = {}
+    T, _ = check.model_points(curve, spec, 1, 64, 64)
+    for L in (1, 2):
+        P = T[:, 0, :, 32:32 + L].contiguous()
+        want = kk.te_double(spec, P, 255)
+        for name, run in runs.items():
+            if not torch.equal(run(spec, P, 255), want):
+                res["failures"].append(f"te chain {L}: {name} differs")
+        times = in_turns(runs, lambda run: run(spec, P, 255), 2)
+        res["te_chain"][L] = times
+        print(f"  te_double chain 255 x {L} (ms, mean of 2): " + "; ".join(
+            f"{name} {statistics.mean(t):.4f}" for name, t in times.items()),
+            flush=True)
+
+
 PARTS = ("ops", "fs", "jac", "rcb_te", "wide", "chains", "scan", "chain",
-         "msm")
+         "field", "te_chain", "msm")
 
 
 def main() -> int:
@@ -807,32 +963,35 @@ def main() -> int:
     for part, variants in (("chains", CHAIN_VARIANTS), ("jac", JAC_VARIANTS),
                            ("rcb_te", RCB_TE_VARIANTS),
                            ("wide", WIDE_VARIANTS), ("fs", FS_VARIANTS),
-                           ("scan", SCAN_VARIANTS)):
+                           ("scan", SCAN_VARIANTS),
+                           ("field", FIELD_VARIANTS)):
         if part in parts:
             wanted.update(variants)
     bench_dir = os.path.join(_build.BUILD_DIR, "bench")
     procs = build_variants(bench_dir, wanted)
     parent = (parent_launchers(args.parent, bench_dir) if args.parent
-              and parts & {"scan", "chain"} else None)
+              and parts & {"field", "te_chain"} else None)
     _build.lib()
     res["build_s"] = time.perf_counter() - t0
     ptx = [line for line in cs.ptxas_report(_build.build_log or "")
            if re.match(r"(suffix_|rowsum|horner|mont_mul|double_k_add|fs_|"
                        r"madd_scan|double_chain)", line)]
-    chains, dkas, fss, scans = {}, {}, {}, {}
+    chains, dkas, fss, scans, fields = {}, {}, {}, {}, {}
     for name, (p, lib) in procs.items():
         log = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         ptx += [f"{name}: {line}" for line in cs.ptxas_report(log)
                 if re.match(r"(suffix_jac|rowsum|double_k_add|fs_|madd_scan|"
-                            r"double_chain)", line)]
+                            r"double_chain|mont_mul)", line)]
         if name in CHAIN_VARIANTS:
             chains[name] = chain_launchers(lib)
         elif name in FS_VARIANTS:
             fss[name] = fs_launcher(lib)
         elif name in SCAN_VARIANTS:
             scans[name] = scan_launcher(lib)
+        elif name in FIELD_VARIANTS:
+            fields[name] = mont_mul_launcher(lib)
         else:
             dkas[name] = dka_launchers(lib)
     res["ptxas"] = ptx
@@ -854,11 +1013,13 @@ def main() -> int:
     if "chains" in parts:
         chain_compare(res, chains, dev)
     if "scan" in parts:
-        extra = {"parent": parent[0]} if parent else {}
-        scan_compare(res, {**scans, **extra}, dev)
+        scan_compare(res, scans, dev)
     if "chain" in parts:
-        chain_steps_compare(res, {"parent": parent[1]} if parent else {},
-                            dev)
+        chain_steps_compare(res, {}, dev)
+    if "field" in parts:
+        field_compare(res, fields, parent, dev)
+    if "te_chain" in parts:
+        te_chain_compare(res, parent, dev)
     if "ops" in parts:
         res["sass_mont_mul"] = sass_mix(_build.library_path(),
                                         "mont_mul_kernel")

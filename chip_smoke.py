@@ -39,10 +39,21 @@ Phases, each printed with its seconds:
      timed at 32 x 32,768 and 32 x 512 beside the bound and the critical
      path; te_madd (curve25519), one launch a row of the TE scan, at
      65,536 and 1 lanes with P = O, Q = O, P = Q and P = -Q lanes
-     (te_double_k_add also at k = 1 and 4); mont_mul
-     on two fr fields at 1,000, 6 x 2048 and 9 x 2048 lanes, with a
-     (16, 1) operand and with 0, 1 and p - 1 lanes, and at the prover's
-     (6, 4, 9) x 16 x 2048 row shapes; the window Horner, horner_windows
+     (te_double_k_add also at k = 1 and 4); the field kernels on the
+     fr and fq of the three curves at FIELD_LANES (1 to 65,536), with 0,
+     1, p - 1 and p - 2 lanes: mont_mul with a (16, 1) operand on either
+     side and per row, and with a third operand added or subtracted (c
+     full, (16, 1), per row), and at the prover's (6, 4, 9) x 16 x 2048
+     row shapes, timed at 6 x 2048 lanes and at one; add, sub and neg
+     (the add_sub kernel) with carry and borrow lanes; sum_mod (the torch
+     column sum and the tail kernel) at every row count a path sends
+     (SUM_ROWS: 1 to 512, over 1 to 65,536 lanes) with an all-(p - 1)
+     row, its tail timed at the vector phase's 9 rows;
+     mont_inv_batch on fq at INV_LANES (the table shrinks' lane counts)
+     with zero lanes, alone and with two rows multiplied in, timed at
+     1,024 lanes (n = 2^16's shrink); te_double's chain (curve25519) at
+     steps 1, 2 and 255 of 1, 2 and 3 lanes, timed at the Q table's 255
+     x 1 and the commit table's 255 x 2; the window Horner, horner_windows
      (RCB on secq256k1 and zorro, extended on curve25519) and
      jac_horner_windows (secq256k1, zorro), at v2's stage-G shape (one
      set, W = 22, c = 12) and the create_batch v1 shape (256 sets,
@@ -59,8 +70,9 @@ Phases, each printed with its seconds:
      (also in microseconds a complete add, beside the bound and the
      chain's product levels; the table keeps 64 x 1,408); then each
      timed at its main-path shape (n = 2^20
-     MSM on secq256k1 and on curve25519; mont_mul at the k = 1024 fold's
-     6 x 2048 lanes; te_double at the commit table's 2 lanes;
+     MSM on secq256k1 and on curve25519; mont_mul and add_sub at the
+     k = 1024 fold's 6 x 2048 lanes; sum_mod's tail at 9 rows;
+     mont_inv_batch at 1,024 lanes; te_double's chain at 255 x 1;
      jac_double_k_add at the P = 128 batch tree's first 32,768 lanes,
      jac_double's chain at 255 steps of one lane, fs_round at P = 1 and
      128, jac_madd's scan at create_batch's 32 rows of 32,768 lanes and
@@ -124,8 +136,9 @@ Phases, each printed with its seconds:
      double-k-add kernel at k > 0; and the most lanes suffix_jac_scan,
      rowsum and the three double-k-add kernels were launched at over
      those paths, no more than phase 2 held them at, with every lane
-     count sent; and every (rows, lanes) of jac_madd and (steps, lanes) of
-     jac_double a path sent, each among the shapes phase 2 held;
+     count sent; and every (rows, lanes) of jac_madd and mont_inv_batch,
+     (steps, lanes) of jac_double and te_double and rows of sum_mod a
+     path sent, each among the shapes phase 2 held;
  15. traces: the card prove (secq256k1 and curve25519) and the verify
      once more each under torch.profiler, which splits card time from
      host time and names the largest kernels (last, so that no timing
@@ -140,6 +153,7 @@ one card; exits 1 at once without one or without the port beside it.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import json
 import os
@@ -177,6 +191,7 @@ CHAIN_SHAPES = [(64, 22 * 64, "n = 2^20: stage D level A, stage F pass 1"),
                 (1, 64, "n = 256: pass 2"),
                 (16, 1024 * 64 * 16, "the most lanes a path sends")]
 MSM_CU = "ark_bulletproofs_tpu_torch/csrc/msm_kernels.cu"
+FIELD_CU = "ark_bulletproofs_tpu_torch/csrc/field_kernels.cu"
 JAC_CU = "ark_bulletproofs_tpu_torch/csrc/jac_kernels.cu"
 FS_CU = "ark_bulletproofs_tpu_torch/csrc/fs_kernels.cu"
 GATHER_CU = "ark_bulletproofs_tpu_torch/csrc/gather_kernels.cu"
@@ -233,6 +248,27 @@ SCAN_ROWS = (1, 2, 4, 8, 16, 32)
 # IPA's Q table), held at steps 1, 2 and 255 of these lane counts.
 CHAIN_STEPS = (1, 2, 255)
 CHAIN_LANES = (1, 2, 3, 1 << 16)
+# te_double's chain: 255 steps of one lane (the TE Q table) and of two
+# (the commit table's 2^i B and 2^i B_blinding), held at steps 1, 2 and
+# 255 of these lane counts.
+TE_CHAIN_LANES = (1, 2, 3)
+# The field kernels' lane counts: one lane (the challenges' products),
+# the k = 1024 prover's 2,048-lane vectors and their (6, 9) x 2,048 row
+# stacks, 18,432 (9 x 2,048) and the n = 2^16 IPA's 65,536.
+FIELD_LANES = (1, 2, 33, 2048, MM_LANES, 9 * 2048, 1 << 16)
+# mont_inv_batch's lanes: the table shrink inverts 2 cur lanes (cur the
+# width it shrinks to: 512 at n = 2^16, so 1,024; the JAX package's plan
+# of 2^4, which phase 8 runs too, 4,096 and then 256: 8,192 and 512),
+# with its two rows (X, Y) multiplied in; held with and without rows.
+INV_LANES = (1, 2, 33, 512, 1024, 8192)
+INV_TIMED = 1024
+# sum_mod's rows (one thread a row, 128 a block): a single proof's dot
+# (1), an IPA round's c_L, c_R (2), the vector phase's nine dots (9), a
+# batch IPA's 2P at P = 128 (create_batch, prove_batch: 256) and the
+# batch verify's 2n g/h sums at k = 128 (n = 256: 512), with the block
+# edges 128 and 129; each held over SUM_LANES (to 65,536 up to 9 rows).
+SUM_ROWS = (1, 2, 9, 128, 129, 256, 512)
+SUM_LANES = (1, 2, 64, 2048, 1 << 16)
 # Product latencies on a double-k-add lane's critical path, per model:
 # one thread runs every product of the add and of a doubling; a group of G
 # threads waits on their levels (csrc/rcb.cuh, te.cuh: ceil(N / G) a level
@@ -256,8 +292,7 @@ ENTRIES = [
     ("rcb_double_k_add", "rcb_double_k_add", "sw", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:853, "
      "ark_bulletproofs_tpu/ops/kernels.py:704"),
-    ("mont_mul", "mont_mul", None,
-     "ark_bulletproofs_tpu_torch/csrc/field_kernels.cu",
+    ("mont_mul", "mont_mul", None, FIELD_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:303"),
     ("suffix_madd_scan[te]", "suffix_madd_scan", "te", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels2.py:133, "
@@ -295,6 +330,14 @@ ENTRIES = [
     # port-only: the JAX package runs this round body as XLA ops
     ("fs_round", "fs_round", None, FS_CU,
      "ark_bulletproofs_tpu/ops/ipa.py:550"),
+    # port-only: the JAX package's field add / sub, sum_mod's tail and
+    # batch inverse, XLA ops (and chains of mont_mul_fast) there
+    ("add_sub", "add_sub", None, FIELD_CU,
+     "ark_bulletproofs_tpu/ops/field.py:196"),
+    ("sum_mod", "sum_mod", None, FIELD_CU,
+     "ark_bulletproofs_tpu/ops/field.py:319"),
+    ("mont_inv_batch", "mont_inv_batch", None, FIELD_CU,
+     "ark_bulletproofs_tpu/ops/fs.py:467"),
 ]
 SCANS = ("suffix_madd_scan", "suffix_jac_scan", "rowsum")
 PER_MODEL = SCANS + ("horner_windows",)  # entries split by point model
@@ -319,9 +362,12 @@ MSM_KERNELS = {"sw": SCANS + ("rcb_double_k_add", "horner_windows"),
                "te": SCANS + ("te_double_k_add", "horner_windows")}
 # The on-device Fiat-Shamir IPA's kernels beyond the MSM's: the c * Q
 # tree and the 2^i Q table, and the round's transcript step.
-FS_KERNELS = {"sw": ("mont_mul", "jac_double_k_add", "jac_double",
-                     "fs_round"),
-              "te": ("mont_mul", "te_double", "fs_round")}
+FS_KERNELS = {"sw": ("mont_mul", "sum_mod", "jac_double_k_add",
+                     "jac_double", "fs_round"),
+              "te": ("mont_mul", "sum_mod", "te_double", "fs_round")}
+# The prover's vector phase beyond its products: the field adds and the
+# nine dot products' sums.
+VECTOR_KERNELS = ("mont_mul", "add_sub", "sum_mod")
 # The v1 Pippenger's kernels: its row scan's mixed add, its adds and bit
 # Horner steps (k = 1) on the double-k-add kernel of the model, and its
 # window Horner.
@@ -417,17 +463,23 @@ class PathLanes:
     between paths) that stages D and F's kernels and the three
     double-k-add kernels are launched at in phases 3-13, and every lane
     count sent (at k > 0 apart); and every (rows, lanes) of jac_madd and
-    (steps, lanes) of jac_double, each with the first path that sent it,
+    mont_inv_batch (rows 0: the inverses alone) and (steps, lanes) of
+    jac_double and te_double and rows of sum_mod, each with the first
+    path that sent it,
     which must be among the shapes phase 2 held (`held`, KernelCheck's).
-    The launch helpers of kernels2 and kernels are replaced by recorders
-    that read those launchers' arguments and launch as before (the
-    wrappers and their counts stay as they are)."""
+    The launch helpers of kernels2, kernels and fs are replaced by
+    recorders that read those launchers' arguments and launch as before
+    (the wrappers and their counts stay as they are; ops/field.py looks up
+    kernels' helper at each call)."""
 
-    # name: (what the first number is, (it, lanes) from the arguments)
-    SHAPES = {"jac_madd": ("rows", lambda a: (a[5], a[6])),
-              "jac_double": ("steps", lambda a: (a[3], a[2]))}
+    # name: (what the shape is, the shape from the arguments)
+    SHAPES = {"jac_madd": ("(rows, lanes)", lambda a: (a[5], a[6])),
+              "jac_double": ("(steps, lanes)", lambda a: (a[3], a[2])),
+              "te_double": ("(steps, lanes)", lambda a: (a[3], a[2])),
+              "mont_inv_batch": ("(rows, lanes)", lambda a: (a[4], a[3])),
+              "sum_mod": ("(rows,)", lambda a: (a[2],))}
 
-    def __init__(self, kk, k2, launches: Launches, held: dict):
+    def __init__(self, kk, k2, fsm, launches: Launches, held: dict):
         chain = {L for _, L, _ in CHAIN_SHAPES}
         # name: (module, (lanes, rows or k) from the launch's arguments,
         # what the second number is, the lane counts phase 2 times)
@@ -450,8 +502,8 @@ class PathLanes:
         self.most = {name: (0, 0, None) for name in self.kinds}
         self.seen = {name: set() for name in self.kinds}
         self.seen_k = {name: set() for name in self.kinds}  # at k > 0
-        for mod in (k2, kk):
-            self._record(mod, launches, shapes=mod is kk)
+        for mod in (k2, kk, fsm):
+            self._record(mod, launches, shapes=mod is not k2)
 
     def _record(self, mod, launches: Launches, shapes: bool) -> None:
         launch = mod.launch
@@ -491,7 +543,7 @@ class PathLanes:
         for name, (what, _) in self.SHAPES.items():
             sent = self.sent[name]
             missed = sorted(set(sent) - self.shapes_held[name])
-            print(f"   {name}: ({what}, lanes) sent: "
+            print(f"   {name}: {what} sent: "
                   f"{ {k: sent[k] for k in sorted(sent)} }; not held in "
                   f"phase 2: {missed}", flush=True)
             if missed:
@@ -714,13 +766,12 @@ class KernelCheck:
             if te:
                 self.compare("te_double", kk.te_double(spec, Q),
                              kk.te_double_plain(spec, Q))
+                self.held.setdefault("te_double", set()).add((1, L_MAIN))
             del T, locs, P, Q
             torch.cuda.empty_cache()
             print(f"   {curve.name} R={R} L={L_MAIN}: all "
                   f"{5 if te else 4} bit-equal "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        if timed:
-            self.time_main_shapes(curve, spec, seed)
 
     def run_chains(self, curve, seed: int, timed: bool) -> None:
         """Stages D and F's kernels (suffix_jac_scan, rowsum: a thread
@@ -780,21 +831,6 @@ class KernelCheck:
         print(f"   {curve.name} suffix_jac_scan and rowsum at "
               f"{[(R, L) for R, L, _ in CHAIN_SHAPES]}: bit-equal "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
-
-    def time_main_shapes(self, curve, spec, seed: int) -> None:
-        """te_double at its main-path shape, the commit table's 2 lanes
-        (ops/prove.py::_commit_table)."""
-        from ark_bulletproofs_tpu_torch.ops import kernels as kk
-
-        fe = FE_MULS[model(spec)]
-        if model(spec) == "te":
-            T, _ = self.model_points(curve, spec, 1, 2, seed + 1)
-            P2 = T[:, 0].contiguous()
-            self.times["te_double"] = (
-                graph_ms(lambda: kk.te_double(spec, P2), 100),
-                host_ms(lambda: kk.te_double_plain(spec, P2)),
-                *self.bound(2 * 4 * 16 * 2 * 4,
-                            2 * fe["double"] * MULS_PER_FE_MUL))
 
     def model_points(self, curve, spec, R: int, L: int, seed: int,
                      rcb: bool = False):
@@ -1240,56 +1276,278 @@ class KernelCheck:
         print(f"   {curve.name} fs_round at P = 1, 2, 33 and 128: bit-equal "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    def field_operands(self, fs, rows: int, L: int, seed: int):
+        """(rows, 16, L) int32 canonical field elements from a seeded
+        generator on the card (the top limb below p's), lanes 0-5 of row 0
+        the edges 0, 1, p - 1, p - 2, p - 1, p - 1 (the widest carries and
+        borrows)."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops.limbs import ints_to_limbs
+
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        x = torch.randint(0, 1 << 16, (rows, 16, L), generator=g,
+                          device=self.dev, dtype=torch.int32)
+        x[:, 15] %= fs.p >> 240
+        p = fs.p
+        edge = ints_to_limbs([0, 1, p - 1, p - 2, p - 1, p - 1], self.dev)
+        k = min(L, 6)
+        x[0, :, :k] = edge[:, :k]
+        return x
+
     def run_mont_mul(self, curve, seed: int, timed: bool) -> None:
-        """mont_mul bit-equal to its plain version on curve.fr, flat and at
-        the prover's row shapes, then timed at MM_LANES lanes (the k = 1024
-        fold): the kernel alone from a CUDA graph, and the wrapper's rate
-        with its host work."""
+        """mont_mul bit-equal to its plain version on curve.fr and
+        curve.fq at FIELD_LANES: a * b flat, with a (16, 1) operand on
+        either side and per row, and a * b + c and a * b - c (the fused
+        form: c full, c (16, 1), b (16, 1), per-row b and c), each against
+        add_plain / sub_plain of mont_mul_plain; then the prover's row
+        shapes. Timed at MM_LANES lanes (the k = 1024 fold) and at one lane
+        (a challenge's product), the kernel alone from a CUDA graph beside
+        its bound and the wrapper's rate with its host work."""
         import torch
 
         from ark_bulletproofs_tpu_torch.ops import field as df
-        from ark_bulletproofs_tpu_torch.ops.limbs import ints_to_limbs
 
-        fs = df.spec_for(curve.fr)
-        p = fs.p
-        rng = random.Random(seed)
-
-        def limbs(vals, rows: int, L: int):
-            """(rows, 16, L) limbs of rows * L ints, row-major."""
-            t = ints_to_limbs(vals, self.dev)
-            return t.reshape(16, rows, L).permute(1, 0, 2).contiguous()
-
-        for lanes in (1000, MM_LANES, 9 * 2048):
-            xs = [0, 1, p - 1] + [rng.randrange(p) for _ in range(lanes - 3)]
-            ys = [p - 1, 0, p - 1] + [rng.randrange(p)
-                                      for _ in range(lanes - 3)]
-            a = ints_to_limbs(xs, self.dev)
-            b = ints_to_limbs(ys, self.dev)
-            col = ints_to_limbs([ys[5]], self.dev)  # (16, 1): stride 0
-            rows = limbs(xs, 2, lanes // 2)
-            per_row = limbs(ys[7:9], 2, 1)
-            for x, y in ((a, b), (a, col), (col, a), (rows, per_row)):
-                self.compare("mont_mul", df.mont_mul(fs, x, y).long(),
-                             df.mont_mul_plain(fs, x, y))
+        t0 = time.perf_counter()
+        for field in (curve.fr, curve.fq):
+            fs = df.spec_for(field)
+            for L in FIELD_LANES:
+                a, b, c = self.field_operands(fs, 3, L, seed + L).unbind(0)
+                colb, colc = b[:, L - 1:].contiguous(), c[:, :1].contiguous()
+                A2 = torch.stack([a, c])
+                B2 = torch.stack([colb, colc])
+                for x, y in ((a, b), (a, colb), (colb, a), (A2, B2)):
+                    self.compare("mont_mul", df.mont_mul(fs, x, y).long(),
+                                 df.mont_mul_plain(fs, x, y))
+                for sign, plain in ((1, df.add_plain), (-1, df.sub_plain)):
+                    for x, y, z in ((a, b, c), (a, b, colc), (a, colb, c),
+                                    (A2, B2, torch.stack([b, colc.expand(
+                                        16, L)]))):
+                        self.compare("mont_mul",
+                                     df.mont_mul(fs, x, y, z, sign).long(),
+                                     plain(fs, df.mont_mul_plain(fs, x, y),
+                                           z))
         # The prover's launches at k = 1024: the round scalars' (6, 16,
         # 2048) pair, the fold's (4, 16, 2048) against per-row (4, 16, 1)
         # challenges, and the vector phase's (9, 16, 2048) pair.
+        fs = df.spec_for(curve.fr)
         for R, Rb, Lb in ((6, 6, 2048), (4, 4, 1), (9, 9, 2048)):
-            x = limbs([rng.randrange(p) for _ in range(R * 2048)], R, 2048)
-            y = limbs([rng.randrange(p) for _ in range(Rb * Lb)], Rb, Lb)
+            x = self.field_operands(fs, R, 2048, seed + R)
+            y = self.field_operands(fs, Rb, Lb, seed + R + Lb)
             self.compare("mont_mul", df.mont_mul(fs, x, y).long(),
                          df.mont_mul_plain(fs, x, y))
-        if timed:
-            a, b = a[:, :MM_LANES].contiguous(), b[:, :MM_LANES].contiguous()
-            self.times["mont_mul"] = (
-                graph_ms(lambda: df.mont_mul(fs, a, b), 100),
-                host_ms(lambda: df.mont_mul_plain(fs, a, b)),
-                *self.bound(3 * 64 * MM_LANES, MM_LANES * MULS_PER_FE_MUL))
-            self.wrapper_ms = cuda_ms(lambda: df.mont_mul(fs, a, b), 100)
         torch.cuda.synchronize()
-        print(f"   mont_mul {curve.name} fr: bit-equal at 1000, {MM_LANES}"
-              f" and {9 * 2048} lanes and at (6, 4, 9) x 16 x 2048",
+        print(f"   mont_mul {curve.name} fr and fq: bit-equal at {FIELD_LANES}"
+              f" lanes, with c added and subtracted, and at (6, 4, 9) x 16 x "
+              f"2048 ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not timed:
+            return
+        a, b, c = self.field_operands(fs, 3, MM_LANES, seed).unbind(0)
+        self.times["mont_mul"] = (
+            graph_ms(lambda: df.mont_mul(fs, a, b), 100),
+            host_ms(lambda: df.mont_mul_plain(fs, a, b)),
+            *self.bound(3 * 64 * MM_LANES, MM_LANES * MULS_PER_FE_MUL))
+        self.wrapper_ms = cuda_ms(lambda: df.mont_mul(fs, a, b), 100)
+        fused = graph_ms(lambda: df.mont_mul(fs, a, b, c), 100)
+        one = [t[:, :1].contiguous() for t in (a, b)]
+        ms1 = graph_ms(lambda: df.mont_mul(fs, *one), 100)
+        b1 = self.bound(3 * 64, MULS_PER_FE_MUL)
+        print(f"   mont_mul {curve.name} fr at {MM_LANES} lanes: kernel "
+              f"{self.times['mont_mul'][0]:.4f} ms, with c added "
+              f"{fused:.4f} ms; bound {self.times['mont_mul'][2]:.5g} ms "
+              f"({self.times['mont_mul'][3]}); at 1 lane {ms1:.4f} ms, bound "
+              f"{b1[0]:.3g} ms ({b1[1]}); critical path one product (about "
+              f"1,354 cycles)", flush=True)
+
+    def run_add_sub(self, curve, seed: int, timed: bool) -> None:
+        """add, sub and neg on the card (the add_sub kernel) bit-equal to
+        add_plain, sub_plain and neg_plain on curve.fr and curve.fq at
+        FIELD_LANES, with the edge lanes of field_operands (p - 1 + p - 1:
+        past 2^256 where 2p > 2^256; 0 - (p - 1)) and a (16, 1) operand on
+        either side; timed at MM_LANES lanes."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import field as df
+
+        t0 = time.perf_counter()
+        for field in (curve.fr, curve.fq):
+            fs = df.spec_for(field)
+            for L in FIELD_LANES:
+                a, b = self.field_operands(fs, 2, L, seed + L).unbind(0)
+                b = b.flip(-1).contiguous()  # edge lanes meet other lanes
+                col = a[:, 2:3].contiguous() if L > 2 else a[:, :1]
+                for op, plain, x, y in (
+                        (df.add, df.add_plain, a, b),
+                        (df.add, df.add_plain, a, a),
+                        (df.sub, df.sub_plain, a, b),
+                        (df.sub, df.sub_plain, b, a),
+                        (df.add, df.add_plain, col, b),
+                        (df.sub, df.sub_plain, col, b),
+                        (df.sub, df.sub_plain, b, col)):
+                    self.compare("add_sub", op(fs, x, y).long(),
+                                 plain(fs, x, y))
+                self.compare("add_sub", df.neg(fs, a).long(),
+                             df.neg_plain(fs, a))
+        torch.cuda.synchronize()
+        print(f"   add_sub {curve.name} fr and fq: add, sub, neg bit-equal at "
+              f"{FIELD_LANES} lanes ({time.perf_counter() - t0:.1f} s)",
               flush=True)
+        if timed:
+            fs = df.spec_for(curve.fr)
+            a, b = self.field_operands(fs, 2, MM_LANES, seed).unbind(0)
+            self.times["add_sub"] = (
+                graph_ms(lambda: df.add(fs, a, b), 100),
+                host_ms(lambda: df.add_plain(fs, a, b)),
+                *self.bound(3 * 64 * MM_LANES, 0))
+
+    def run_sum_mod(self, curve, seed: int, timed: bool) -> None:
+        """sum_mod on the card (a torch column sum, then the sum_mod
+        kernel's carries and reduction) bit-equal to sum_mod_plain on
+        curve.fr at SUM_ROWS rows over SUM_LANES lanes (up to 2,048 past
+        9 rows), row 1 all p - 1; timed, the tail kernel alone, at the
+        vector phase's 9 rows of 2,048 lanes beside its bound (the bytes:
+        its 3 products a row take less)."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import field as df
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+        from ark_bulletproofs_tpu_torch.ops.limbs import ints_to_limbs
+
+        fs = df.spec_for(curve.fr)
+        t0 = time.perf_counter()
+        for R in SUM_ROWS:
+            for L in SUM_LANES:
+                if R > 9 and L > 2048:
+                    continue
+                x = self.field_operands(fs, R, L, seed + R + L)
+                if R > 1:
+                    x[1] = ints_to_limbs([fs.p - 1], self.dev)  # -> L
+                self.compare("sum_mod", df.sum_mod(fs, x).long(),
+                             df.sum_mod_plain(fs, x))
+            self.held.setdefault("sum_mod", set()).add((R,))
+        torch.cuda.synchronize()
+        print(f"   sum_mod {curve.name} fr: bit-equal at {SUM_ROWS} rows over "
+              f"{SUM_LANES} lanes ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if not timed:
+            return
+        x = self.field_operands(fs, 9, 2048, seed)
+        cols = x.sum(dim=-1, dtype=torch.int64).contiguous()
+        out = torch.empty(9, 16, 1, dtype=torch.int32, device=self.dev)
+        r2 = df._r2_words(fs).ctypes.data_as(ctypes.c_void_p)
+
+        def tail():
+            kk.launch("sum_mod", fs, self.dev, cols.data_ptr(),
+                      out.data_ptr(), 9, r2)
+
+        self.times["sum_mod"] = (
+            graph_ms(tail, 100), host_ms(lambda: df.sum_mod_plain(fs, x)),
+            *self.bound(9 * (16 * 8 + 64), 9 * 3 * MULS_PER_FE_MUL))
+        print(f"   sum_mod tail at 9 rows (the 2,048-lane dots' column sums "
+              f"in): kernel {self.times['sum_mod'][0]:.4f} ms, with the torch "
+              f"column sum {graph_ms(lambda: df.sum_mod(fs, x), 100):.4f} ms;"
+              f" critical path 2 dependent products (3 in all, on one thread) "
+              f"and an add", flush=True)
+
+    def run_inv_batch(self, curve, seed: int, timed: bool) -> None:
+        """mont_inv_batch on the card (one safegcd inverse a lane) bit-equal
+        to mont_inv_batch_plain (Montgomery's trick and the Fermat power)
+        on curve.fq, the shrink's field, at INV_LANES with every fifth
+        lane zero, alone and with the shrink's two rows multiplied in
+        (lanes are independent: one plain call at the widest, prefixes
+        for the rest); timed at INV_TIMED lanes with two rows beside its
+        bound and critical path."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import field as df
+        from ark_bulletproofs_tpu_torch.ops import fs as dfs
+
+        fq = df.spec_for(curve.fq)
+        t0 = time.perf_counter()
+        B = max(INV_LANES)
+        z, x, y = self.field_operands(fq, 3, B, seed).unbind(0)
+        z[:, ::5] = 0
+        rows = torch.stack([x, y])
+        inv = dfs.mont_inv_batch_plain(fq, z)
+        want = df.mont_mul_plain(fq, rows, inv)
+        for L in INV_LANES:
+            zl, rl = z[:, :L].contiguous(), rows[..., :L].contiguous()
+            self.compare("mont_inv_batch", dfs.mont_inv_batch(fq, zl).long(),
+                         inv[:, :L])
+            self.compare("mont_inv_batch",
+                         dfs.mont_inv_batch(fq, zl, rl).long(),
+                         want[..., :L])
+            self.held.setdefault("mont_inv_batch", set()).update(
+                {(0, L), (2, L)})
+        torch.cuda.synchronize()
+        print(f"   mont_inv_batch {curve.name} fq: bit-equal at {INV_LANES} "
+              f"lanes, with and without 2 rows ({time.perf_counter() - t0:.1f}"
+              f" s)", flush=True)
+        if not timed:
+            return
+        L = INV_TIMED
+        zl, rl = z[:, :L].contiguous(), rows[..., :L].contiguous()
+        self.times["mont_inv_batch"] = (
+            graph_ms(lambda: dfs.mont_inv_batch(fq, zl, rl), 20),
+            host_ms(lambda: dfs.mont_inv_batch_plain(fq, zl, rl)),
+            *self.bound(5 * 64 * L, 3 * L * MULS_PER_FE_MUL))
+        print(f"   mont_inv_batch {curve.name} fq at {L} lanes, 2 rows: kernel "
+              f"{self.times['mont_inv_batch'][0]:.4f} ms, plain "
+              f"{self.times['mont_inv_batch'][1]:.1f} ms; bound "
+              f"{self.times['mont_inv_batch'][2]:.5g} ms (its 3 field "
+              f"products a lane, not the safegcd's word products: a lower "
+              f"bound); critical path one safegcd inverse (about 32,000 "
+              f"cycles) and 2 products", flush=True)
+
+    def run_te_chain(self, curve, seed: int, timed: bool) -> None:
+        """te_double's chain (a group of 8 threads a lane) bit-equal to its
+        plain version at CHAIN_STEPS x TE_CHAIN_LANES, on row 0 of
+        model_points with lane 1 the identity: the kernel on the first L
+        lanes, the plain 255-step chain once on all of them. Timed at the
+        Q table's 255 x 1 and the commit table's 255 x 2 beside the bound
+        and the critical path."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+        from ark_bulletproofs_tpu_torch.ops import proj
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec = spec_for(curve)
+        t0 = time.perf_counter()
+        T, _ = self.model_points(curve, spec, 1, 8 * max(TE_CHAIN_LANES),
+                                 seed)
+        P = T[:, 0, :, 4 * max(TE_CHAIN_LANES):].contiguous()
+        P[..., 1] = proj.point_zero(spec, 1, self.dev)[..., 0]
+        P = P[..., :max(TE_CHAIN_LANES)].contiguous()
+        want = kk.te_double_plain(spec, P, max(CHAIN_STEPS))
+        for L in TE_CHAIN_LANES:
+            P1 = P[..., :L].contiguous()
+            for steps in CHAIN_STEPS:
+                self.compare("te_double", kk.te_double(spec, P1, steps),
+                             want[:, :, 1, :L] if steps == 1 else
+                             want[:, :, :steps + 1, :L])
+                self.held.setdefault("te_double", set()).add((steps, L))
+        torch.cuda.synchronize()
+        print(f"   {curve.name} te_double chain at steps {CHAIN_STEPS} x "
+              f"lanes {TE_CHAIN_LANES}: bit-equal "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not timed:
+            return
+        steps = max(CHAIN_STEPS)
+        dbl = FE_MULS["te"]["double"]
+        for L in (1, 2):
+            P1 = P[..., [0, 2][:L]].contiguous()  # no identity lane
+            ms = graph_ms(lambda: kk.te_double(spec, P1, steps), 5)
+            bound = self.bound((4 + 4 * (steps + 1)) * 64 * L,
+                               L * steps * dbl * MULS_PER_FE_MUL)
+            print(f"   {curve.name} te_double chain {steps} x {L}: kernel "
+                  f"{ms:.4f} ms ({ms * 1e3 / steps:.2f} us a doubling); bound "
+                  f"{bound[0]:.5g} ms ({bound[1]}); critical path (a group of"
+                  f" 8 threads: {steps} x 3 product levels; one thread "
+                  f"{steps} x {dbl} products)", flush=True)
+            if L == 1:
+                self.times["te_double"] = (ms, host_ms(
+                    lambda: kk.te_double_plain(spec, P1, steps)), *bound)
 
     def horner_parts(self, curve, spec, jac: bool, B: int, W: int,
                      seed: int):
@@ -1679,10 +1937,10 @@ def phase_shuffle(curve, launches: Launches) -> tuple:
     msm_kernels = MSM_KERNELS[model(spec)]
     # the per-round route shrinks the IPA table to 16 columns at cur = 16:
     # its last four rounds' MSMs (2 sets of 16 terms) run on v1
-    round_kernels = msm_kernels + ("mont_mul",) + V1_KERNELS[model(spec)]
+    round_kernels = msm_kernels + VECTOR_KERNELS + V1_KERNELS[model(spec)]
     # the FS route's Q table; on curve25519 also the witness commits' 2^i
     # B table (te_double), built by the first prove and kept after it
-    prove_kernels = msm_kernels + FS_KERNELS[model(spec)]
+    prove_kernels = msm_kernels + FS_KERNELS[model(spec)] + VECTOR_KERNELS
     t0 = time.perf_counter()
     pc = PedersenGens.default(curve)
     bp = BulletproofGens(curve, 2 * SHUFFLE_K, 1)
@@ -1910,8 +2168,13 @@ def phase_ipa_routes(curve, n: int, launches: Launches,
     gf, hf, a, b = (random_scalars(curve, n, 300 + i) for i in range(4))
     Q = curve.mul(PedersenGens.default(curve).B, 0x5EED)
     print(f"   inputs: {time.perf_counter() - t0:.1f} s", flush=True)
-    kernels = {"fs": MSM_KERNELS[model(spec)] + FS_KERNELS[model(spec)],
-               "per-round": MSM_KERNELS[model(spec)] + ("mont_mul",)}
+    # past FS_SEG_MIN the FS route shrinks its table on the card, with one
+    # batch inverse a shrink
+    shrink = ("mont_inv_batch",) if n > ipa.FS_SEG_MIN else ()
+    kernels = {"fs": MSM_KERNELS[model(spec)] + FS_KERNELS[model(spec)]
+               + shrink,
+               "per-round": MSM_KERNELS[model(spec)] + ("mont_mul",
+                                                        "sum_mod")}
     saved = ipp.IPA_FS
     out = {}
     try:
@@ -2433,8 +2696,11 @@ def ptxas_report(log: str) -> list[str]:
         if m:
             entry, frame = m.group(1), ""
             kind = next((v for k, v in models.items() if k in entry), "")
-            grp = re.search(r"Li(\d+)EEv", entry)
-            if grp:
+            grp = re.search(r"Li(n?\d+)EEv", entry)
+            if grp and "mont_mul" in entry:  # the template is its OP
+                kind += {"0": " a*b", "1": " a*b+c",
+                         "n1": " a*b-c"}[grp.group(1)]
+            elif grp:
                 kind += f" G={grp.group(1)}"
             dbl = re.search(r"Lb([01])EEv", entry)
             if dbl and "wide" in entry:
@@ -2483,6 +2749,9 @@ def main() -> int:
         "rowsum": k2.rowsum,
         "rcb_double_k_add": kk.rcb_double_k_add,
         "mont_mul": df.mont_mul,
+        "add_sub": df.add_sub,
+        "sum_mod": df.sum_mod,
+        "mont_inv_batch": fs.mont_inv_batch,
         "te_double_k_add": kk.te_double_k_add,
         "te_double": kk.te_double,
         "jac_double_k_add": kk.jac_double_k_add,
@@ -2513,6 +2782,7 @@ def main() -> int:
         print(f"   native host library: {os.path.relpath(host._name, ROOT)}",
               flush=True)
 
+    CURVES_ALL = (curves.secq256k1, curves.zorro, curves.curve25519)
     check = KernelCheck(dev, Bound(clock))
     with phase("2 kernels vs plain versions"):
         check.run_curve(curves.secq256k1, seed=1, timed=True)
@@ -2523,6 +2793,13 @@ def main() -> int:
         check.run_chains(curves.curve25519, seed=21, timed=True)
         check.run_mont_mul(curves.secq256k1, seed=3, timed=True)
         check.run_mont_mul(curves.zorro, seed=4, timed=False)
+        check.run_mont_mul(curves.curve25519, seed=27, timed=False)
+        for seed, curve in enumerate(CURVES_ALL, 28):
+            check.run_add_sub(curve, seed, timed=curve is curves.secq256k1)
+            check.run_sum_mod(curve, seed, timed=curve is curves.secq256k1)
+            check.run_inv_batch(curve, seed,
+                                timed=curve is curves.secq256k1)
+        check.run_te_chain(curves.curve25519, seed=31, timed=True)
         check.run_rcb_te(curves.secq256k1, seed=22, timed=True)
         check.run_rcb_te(curves.zorro, seed=23, timed=False)
         check.run_rcb_te(curves.curve25519, seed=24, timed=True)
@@ -2546,7 +2823,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = Launches(wrappers)
-    path_lanes = PathLanes(kk, k2, launches, check.held)
+    path_lanes = PathLanes(kk, k2, fs, launches, check.held)
     with phase("3 msm n=2^20 secq256k1"):
         phase_msm(curves.secq256k1, launches)
     with phase(f"4 shuffle k={SHUFFLE_K} secq256k1"):

@@ -1064,3 +1064,195 @@ def test_jac_double_chain_matches_plain_version(curve, steps, lanes,
         assert torch.equal(got, want[:, :, 1, :lanes])
     else:
         assert torch.equal(got, want[:, :, :steps + 1, :lanes])
+
+
+def _field_vals(p: int, n: int, seed: int) -> list[int]:
+    """n field elements: 0, 1, p - 1, p - 2 and runs of p - 1 (the
+    widest carries and borrows), then random ones."""
+    rng = random.Random(seed)
+    edge = [0, 1, p - 1, p - 2, p - 1, p - 1, (1 << 240) - 1, 1 << 240]
+    xs = edge + [rng.randrange(p) for _ in range(max(n - len(edge), 0))]
+    return xs[:n]
+
+
+FUSED_LANES = [1, 2, 33, 12288, 1 << 16]
+
+
+@pytest.mark.parametrize("lanes", FUSED_LANES)
+@pytest.mark.parametrize("curve,which", FIELDS,
+                         ids=[f"{c.name}-{f}" for c, f in FIELDS])
+def test_fused_mont_mul_matches_plain(curve, which, lanes, cuda_dev):
+    """mont_mul(a, b, c, +-1) (the product with c added or subtracted in
+    its registers) bit-equal to add_plain / sub_plain of mont_mul_plain,
+    with c full, c broadcast (16, 1), b broadcast, and per-row (rows, 16,
+    1) b and c; each call one launch."""
+    fs_ = df.spec_for(getattr(curve, which))
+    p = fs_.p
+    a, b, c = (ints_to_limbs(_field_vals(p, lanes, 3 * lanes + i), cuda_dev)
+               for i in range(3))
+    col = c[:, :1].contiguous()
+    A2 = torch.stack([a, b])
+    B2, C2 = (torch.stack([t[:, :1], t[:, -1:]]) for t in (b, c))
+    cases = [(a, b, c), (a, b, col), (a, col, c), (A2, B2, C2)]
+    for sign in (1, -1):
+        plain = df.add_plain if sign > 0 else df.sub_plain
+        for x, y, z in cases:
+            before = df.mont_mul.launches
+            got = df.mont_mul(fs_, x, y, z, sign)
+            assert df.mont_mul.launches == before + 1
+            assert got.dtype == torch.int32 and got.is_cuda
+            assert torch.equal(got.long(), plain(
+                fs_, df.mont_mul_plain(fs_, x, y), z))
+
+
+@pytest.mark.parametrize("lanes", [1, 33, 1000])
+@pytest.mark.parametrize("curve,which", FIELDS,
+                         ids=[f"{c.name}-{f}" for c, f in FIELDS])
+def test_add_sub_neg_match_plain(curve, which, lanes, cuda_dev):
+    """add, sub and neg on the card (the add_sub kernel) bit-equal to
+    their plain versions, with carry lanes (p - 1 + p - 1, and sums past
+    2^256 where 2p > 2^256), borrow lanes (0 - (p - 1)), runs of 0xFFFF
+    limbs, and a (16, 1) operand on either side; each call one launch and
+    equal to Python's integers."""
+    fs_ = df.spec_for(getattr(curve, which))
+    p = fs_.p
+    xs = _field_vals(p, lanes, lanes)
+    ys = _field_vals(p, lanes, lanes + 1)[::-1]
+    a, b = ints_to_limbs(xs, cuda_dev), ints_to_limbs(ys, cuda_dev)
+    col = b[:, :1].contiguous()
+    cases = [(df.add, df.add_plain, a, b), (df.sub, df.sub_plain, a, b),
+             (df.add, df.add_plain, col, a), (df.sub, df.sub_plain, col, a),
+             (df.sub, df.sub_plain, a, col)]
+    for op, plain, x, y in cases:
+        before = df.add_sub.launches
+        got = op(fs_, x, y)
+        assert df.add_sub.launches == before + 1
+        assert got.dtype == torch.int32 and got.is_cuda
+        assert torch.equal(got.long(), plain(fs_, x, y))
+    got = df.neg(fs_, a)
+    assert torch.equal(got.long(), df.neg_plain(fs_, a))
+    assert limbs_to_ints(df.add(fs_, a, b)) == [(x + y) % p
+                                                for x, y in zip(xs, ys)]
+    assert limbs_to_ints(df.sub(fs_, a, b)) == [(x - y) % p
+                                                for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("lanes", [1, 2048, 1 << 16])
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_sum_mod_tail_matches_plain(curve, lanes, cuda_dev):
+    """sum_mod on the card (a torch column sum and the sum_mod kernel's
+    carries and reduction) bit-equal to sum_mod_plain and Python's sum,
+    on random rows and on all-(p - 1) rows (the largest carries), one
+    launch a call; dot_mod is a product, a sum and that launch."""
+    fs_ = df.spec_for(curve.fr)
+    p = fs_.p
+    rows = torch.stack([
+        ints_to_limbs(_field_vals(p, lanes, lanes), cuda_dev),
+        ints_to_limbs([p - 1] * lanes, cuda_dev),
+        ints_to_limbs(_field_vals(p, lanes, lanes + 5)[::-1], cuda_dev)])
+    before = df.sum_mod.launches
+    got = df.sum_mod(fs_, rows)
+    assert df.sum_mod.launches == before + 1
+    assert got.shape == (3, 16, 1) and got.dtype == torch.int32
+    assert torch.equal(got.long(), df.sum_mod_plain(fs_, rows))
+    assert [limbs_to_ints(got[r])[0] for r in range(3)] == [
+        sum(limbs_to_ints(rows[r])) % p for r in range(3)]
+    dot = df.dot_mod(fs_, rows, rows)
+    assert torch.equal(dot.long(), df.sum_mod_plain(
+        fs_, df.mont_mul_plain(fs_, rows, rows)))
+
+
+@pytest.mark.parametrize("rows", [128, 129, 256, 512])
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_sum_mod_tail_over_many_rows(curve, rows, cuda_dev):
+    """sum_mod over more rows than one 128-thread block (a batch IPA's 2P
+    at P = 128, the batch verify's 2n g/h sums at n = 256), 64 lanes
+    each, every third row all p - 1: one launch, bit-equal to
+    sum_mod_plain and Python's sum."""
+    fs_ = df.spec_for(curve.fr)
+    p = fs_.p
+    vals = [[p - 1] * 64 if r % 3 == 0 else _field_vals(p, 64, r)
+            for r in range(rows)]
+    x = torch.stack([ints_to_limbs(v, cuda_dev) for v in vals])
+    before = df.sum_mod.launches
+    got = df.sum_mod(fs_, x)
+    assert df.sum_mod.launches == before + 1
+    assert torch.equal(got.long(), df.sum_mod_plain(fs_, x))
+    assert limbs_to_ints(got[..., 0].T.contiguous()) == [sum(v) % p
+                                                         for v in vals]
+
+
+@pytest.mark.parametrize("B", [1, 2, 33, 8192])
+@pytest.mark.parametrize("curve,which", FIELDS,
+                         ids=[f"{c.name}-{f}" for c, f in FIELDS])
+def test_mont_inv_batch_matches_plain(curve, which, B, cuda_dev):
+    """mont_inv_batch on the card (one safegcd inverse a lane) with zero
+    lanes, alone and with two rows multiplied in: bit-equal to its plain
+    version (Montgomery's trick and the Fermat power), one launch a
+    call."""
+    f = getattr(curve, which)
+    fs_ = df.spec_for(f)
+    zs = _field_vals(fs_.p, B, B)
+    zs[::5] = [0] * len(zs[::5])
+    z = ints_to_limbs([v * fs_.R % fs_.p for v in zs], cuda_dev)
+    rows = torch.stack([ints_to_limbs(_field_vals(fs_.p, B, B + i),
+                                      cuda_dev) for i in (1, 2)])
+    before = fs.mont_inv_batch.launches
+    inv = fs.mont_inv_batch(fs_, z)
+    got = fs.mont_inv_batch(fs_, z, rows)
+    assert fs.mont_inv_batch.launches == before + 2
+    want = fs.mont_inv_batch_plain(fs_, z)
+    assert inv.dtype == torch.int32 and torch.equal(inv.long(), want)
+    assert torch.equal(got.long(), df.mont_mul_plain(fs_, rows, want))
+    assert [v * f.R_inv % f.p for v in limbs_to_ints(inv[:, :40])] == [
+        pow(v, -1, f.p) if v else 0 for v in zs[:40]]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 3])
+@pytest.mark.parametrize("steps", [1, 2, 255])
+def test_te_double_chain_matches_plain_version(steps, lanes, cuda_dev):
+    """te_double's chain (a group of 8 threads a lane) with identity
+    lanes: bit-equal to the rows of one plain 255-step chain, one launch
+    counted; steps = 1 gives 2P as (4, 16, lanes)."""
+    curve = curves.curve25519
+    spec = spec_for(curve)
+
+    def make():
+        P = _model_points(curve, spec, 1, cuda_dev, seed=41)[:, 0]
+        P = P[..., L // 2:L // 2 + 3].contiguous()  # random points
+        P[..., 1] = proj.point_zero(spec, 1, cuda_dev)[..., 0]
+        return P, kk.te_double_plain(spec, P, 255)
+
+    P, want = _widest((curve.name, "te chain"), make)
+    P = P[..., :lanes].contiguous()
+    before = kk.te_double.launches
+    got = kk.te_double(spec, P, steps)
+    assert kk.te_double.launches == before + 1
+    if steps == 1:
+        assert got.shape == (4, 16, lanes)
+        assert torch.equal(got, want[:, :, 1, :lanes])
+    else:
+        assert torch.equal(got, want[:, :, :steps + 1, :lanes])
+
+
+def test_field_adds_and_sums_make_no_sync(cuda_dev):
+    """add, sub, neg, a fused product and sum_mod on CUDA tensors queue
+    their launches without a device-to-host sync (the plain adds' carry
+    loop synchronised at every call)."""
+    fs_ = df.spec_for(curves.secq256k1.fr)
+    p = fs_.p
+    a = ints_to_limbs(_field_vals(p, 4096, 1), cuda_dev)
+    b = ints_to_limbs(_field_vals(p, 4096, 2), cuda_dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s = df.add(fs_, a, b)
+        d = df.sub(fs_, s, b)
+        n = df.neg(fs_, d)
+        m = df.mont_mul(fs_, n, b, a, -1)
+        t = df.sum_mod(fs_, m)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(d, a.to(torch.int32))
+    assert torch.equal(t.long(), df.sum_mod_plain(fs_, df.sub_plain(
+        fs_, df.mont_mul_plain(fs_, df.neg_plain(fs_, a), b), a)))
