@@ -15,11 +15,11 @@
 //                        on Jacobian points
 //
 // JacModel<AZ> (a = 0: secq256k1; general a: zorro) instantiates
-// point_kernels.cuh's double-k-add, Horner and doubling chain, and this
-// file's row scan. The launchers follow msm_kernels.cu's conventions:
-// extern "C", device pointers and the stream as void*, the curve
-// constants as a pointer to 45 host words, cudaGetLastError() returned
-// (cudaErrorInvalidValue, without a launch, for a twisted-Edwards curve).
+// point_kernels.cuh's double-k-add, Horner, doubling chain and row scan.
+// The launchers follow msm_kernels.cu's conventions: extern "C", device
+// pointers and the stream as void*, the curve constants as a pointer to
+// 45 host words, cudaGetLastError() returned (cudaErrorInvalidValue,
+// without a launch, for a twisted-Edwards curve).
 #include "jac.cuh"
 #include "point_kernels.cuh"
 
@@ -70,6 +70,10 @@ struct JacModel {
   static constexpr int64_t MADD_GROUP2_MIN_LANES = 8192;
   static constexpr int64_t MADD_ONE_THREAD_MIN_LANES = 65536;
   static constexpr int MADD_MIN_BLOCKS = AZ ? 3 : 2;
+  // The mixed add reads nothing of a row computed ahead (TeModel's t2).
+  static constexpr bool MADD_AHEAD = false;
+  // The doubling chain keeps its group at every lane count.
+  static constexpr bool DBL_WIDE = false;
   template <int G>
   static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
                                            const P& b, const CurveConst& cc) {
@@ -97,81 +101,6 @@ struct JacModel {
     pt_store(base, rows, row, L, lane, a);
   }
 };
-
-// The v1 Pippenger's row scan in one launch: out[:, r] = P + sum_{j >= r}
-// (qx, qy)[j] per lane, added from row R - 1 down to row 0 (the suffix
-// order of the JAX package's lax.scan over sw_madd_tiled). P: (NC, 1, 16,
-// m); qx, qy: (R, 16, m) affine Montgomery coordinates; q_inf: (R, m)
-// bytes, a nonzero row adds the identity; out: (NC, R, 16, m). The
-// accumulator stays in registers across the rows, each row's partial sum
-// is stored as it is made, and the next row's point and flag, which do
-// not depend on the chain, are loaded one add ahead.
-//
-// G = 1: one thread a lane (M::madd), the band of many lanes, where the
-// card is bound by the products' instructions once enough warps hide
-// their latency; __launch_bounds__ keeps M::MADD_MIN_BLOCKS blocks an SM
-// resident. G > 1: a group of G threads a lane (M::gmadd, group.cuh),
-// where few lanes leave the card idle and one thread would wait on each
-// of the mixed add's 12 products in turn: the group waits on its 5 product
-// levels; thread 0 stores.
-template <class M, int G>
-__global__ void __launch_bounds__(HG_THREADS,
-                                  G == 1 ? M::MADD_MIN_BLOCKS : 1)
-    madd_scan_kernel(const int32_t* __restrict__ P,
-                     const int32_t* __restrict__ qx,
-                     const int32_t* __restrict__ qy,
-                     const uint8_t* __restrict__ q_inf,
-                     int32_t* __restrict__ out, int64_t R, int64_t m,
-                     CurveConst cc) {
-  __shared__ uint4 slots[G == 1 ? 1 : HG_THREADS / G][4 * GRP_SLOTS];
-  const int tid = threadIdx.x;
-  const size_t lane = ((size_t)blockIdx.x * HG_THREADS + tid) / G;
-  if (lane >= (size_t)m) return;  // whole groups only: HG_THREADS % G == 0
-  Grp<G> gr = grp_of<G>(slots, tid);
-  typename M::P acc = M::load(P, 1, 0, m, lane);
-  Fe nx = fe_load(qx, R - 1, m, lane);
-  Fe ny = fe_load(qy, R - 1, m, lane);
-  bool ni = q_inf[(size_t)(R - 1) * m + lane] != 0;
-  for (int64_t r = R - 1; r >= 0; --r) {
-    Fe x = nx, y = ny;
-    bool inf = ni;
-    const int64_t r1 = r > 0 ? r - 1 : 0;
-    nx = fe_load(qx, r1, m, lane);
-    ny = fe_load(qy, r1, m, lane);
-    ni = q_inf[(size_t)r1 * m + lane] != 0;
-    if constexpr (G == 1)
-      acc = M::madd(acc, x, y, inf, cc);
-    else
-      acc = M::template gmadd<G>(gr, acc, x, y, inf, cc);
-    if (gr.g == 0) M::store(out, R, r, m, lane, acc);
-  }
-}
-
-// The row scan: a group of M::MADD_GRP threads a lane below
-// M::MADD_GROUP2_MIN_LANES lanes, of 2 below M::MADD_ONE_THREAD_MIN_LANES,
-// one thread a lane from it.
-template <class M>
-static void launch_madd_scan(const void* P, const void* qx, const void* qy,
-                             const void* q_inf, void* out, int64_t R,
-                             int64_t m, const CurveConst& cc,
-                             cudaStream_t s) {
-  constexpr int G = M::MADD_GRP;
-  static_assert(HG_THREADS % G == 0 && 32 % G == 0, "group size");
-  const int32_t* p = (const int32_t*)P;
-  const int32_t* x = (const int32_t*)qx;
-  const int32_t* y = (const int32_t*)qy;
-  const uint8_t* inf = (const uint8_t*)q_inf;
-  int32_t* o = (int32_t*)out;
-  if (m >= M::MADD_ONE_THREAD_MIN_LANES)
-    madd_scan_kernel<M, 1><<<group_blocks(m, 1), HG_THREADS, 0, s>>>(
-        p, x, y, inf, o, R, m, cc);
-  else if (m >= M::MADD_GROUP2_MIN_LANES)
-    madd_scan_kernel<M, 2><<<group_blocks(m, 2), HG_THREADS, 0, s>>>(
-        p, x, y, inf, o, R, m, cc);
-  else
-    madd_scan_kernel<M, G><<<group_blocks(m, G), HG_THREADS, 0, s>>>(
-        p, x, y, inf, o, R, m, cc);
-}
 
 // 2^k P + Q on Jacobian points (k = 0: sw_add_tiled's complete add).
 extern "C" int abtpu_jac_double_k_add(const void* P, const void* Q, void* out,

@@ -1,8 +1,8 @@
 // The group-law kernels on RCB projective and twisted-Edwards extended
 // points: the v2 Pippenger MSM (ops/msm2.py) and the device Pedersen batch
 // (ops/prove.py), for Hopper (sm_90a). The Jacobian kernels are in
-// jac_kernels.cu; the double-k-add and the Horner, which both files
-// instantiate, in point_kernels.cuh.
+// jac_kernels.cu; the double-k-add, the Horner, the doubling chain and
+// the v1 row scan, which both files instantiate, in point_kernels.cuh.
 //
 // Replaces the TPU kernels:
 //   suffix_madd_scan  <- ark_bulletproofs_tpu/ops/kernels2.py::suffix_madd_scan
@@ -17,9 +17,13 @@
 //                        (and the JAX package's scan of it over a 2^i Q
 //                        table: a chain of doublings in one launch)
 //   rcb_double        <- ark_bulletproofs_tpu/ops/kernels.py::rcb_double_tiled
+//                        (the doubling chain at one step: a group of
+//                        RcbModel::GRP threads a lane, one thread from
+//                        DBL_ONE_THREAD_MIN_LANES lanes)
 //   te_madd           <- ark_bulletproofs_tpu/ops/kernels.py::te_madd_tiled
-//                        (its elementwise launcher; the body also runs in
-//                        the TE suffix_madd_scan)
+//                        (and the v1 Pippenger's scan of it over its rows:
+//                        the row scan of point_kernels.cuh in one launch;
+//                        the body also runs in the TE suffix_madd_scan)
 //   horner            <- ark_bulletproofs_tpu/ops/kernels2.py::horner_windows
 //                        (RCB, and here also TE extended points)
 //
@@ -124,6 +128,20 @@ struct RcbModel {
   // (at most 168 registers) for a = 0; 5 (at most 102) for a != 0, which
   // ptxas fits in 96 with no spill.
   static constexpr int DKA_MIN_BLOCKS = AZ ? 3 : 5;
+  // rcb_double's band (launch_double_chain at one step; ops/kernels.py
+  // mirrors the edge in DBL_BANDS, tests/test_torch_msm_plan.py ties the
+  // two): a group of GRP threads a lane (doubling levels of 4 + 4
+  // products, or 6 + 4 + 5) below DBL_ONE_THREAD_MIN_LANES lanes, one
+  // thread a lane from it (double_wide_kernel) under launch bounds that
+  // keep DBL_MIN_BLOCKS blocks an SM resident: the most that ptxas fits
+  // without a spill (96 registers on both branches; at 6, a = 0 spills 16
+  // bytes and zorro 60). On the H100 the group took 3.8-5.3 us at 1-8,192
+  // lanes on a = 0 (the parent's one thread 6.8-7.6), 5.0-11.0 on zorro
+  // (11.0-11.6); one thread a lane is as fast from 16,384 lanes on a = 0
+  // and faster on zorro (PERF.md, bench_kernels.py).
+  static constexpr bool DBL_WIDE = true;
+  static constexpr int64_t DBL_ONE_THREAD_MIN_LANES = 16384;
+  static constexpr int DBL_MIN_BLOCKS = 5;
   template <int G>
   static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
                                            const P& b, const CurveConst& cc) {
@@ -172,6 +190,27 @@ struct TeModel {
   static constexpr int64_t DKA_ONE_THREAD_MIN_LANES = 16384;
   static constexpr bool DKA_WIDE = true;
   static constexpr int DKA_MIN_BLOCKS = 3;
+  // te_madd's row scan (launch_madd_scan; ops/kernels.py mirrors the
+  // edges in MADD_BANDS, tests/test_torch_msm_plan.py ties the two): a
+  // group of MADD_GRP threads a lane (te_madd_grp: levels of 4, 3 and 4
+  // products, the next row's t2 in the second) below MADD_GROUP2_MIN_LANES
+  // lanes, of 2 below MADD_ONE_THREAD_MIN_LANES, one thread a lane from it
+  // under launch bounds that keep MADD_MIN_BLOCKS blocks an SM resident.
+  // On the H100 at 32 rows a group of 4 took 0.091-0.146 ms at 1-8,192
+  // lanes (the parent's launch and copy a row 0.281-0.402; a group of 8
+  // 0.093-0.271, of 2 0.134-0.168, one thread 0.224-0.279), a group of 2
+  // 0.251-0.700 ms at 16,384-49,152 (4: 0.285-0.771), and from 65,536
+  // one thread and a group of 2 are within 4%. Its resident blocks: 2,
+  // which leave ptxas the 190 registers it takes; 3 (168 registers, no
+  // spill) cost up to 20% at 65,536 lanes (a wave tail), 4 spill
+  // (PERF.md, bench_kernels.py).
+  static constexpr int MADD_GRP = 4;
+  static constexpr int64_t MADD_GROUP2_MIN_LANES = 16384;
+  static constexpr int64_t MADD_ONE_THREAD_MIN_LANES = 65536;
+  static constexpr int MADD_MIN_BLOCKS = 2;
+  static constexpr bool MADD_AHEAD = true;  // t2 = qx qy of the next row
+  // The doubling chain keeps its group at every lane count.
+  static constexpr bool DBL_WIDE = false;
   template <int G>
   static __device__ __forceinline__ P gadd(Grp<G>& gr, const P& a,
                                            const P& b, const CurveConst& cc) {
@@ -181,6 +220,14 @@ struct TeModel {
   static __device__ __forceinline__ P gdbl(Grp<G>& gr, const P& a,
                                            const CurveConst& cc) {
     return te_add_grp(gr, a, a, cc);
+  }
+  template <int G>
+  static __device__ __forceinline__ P gmadd(Grp<G>& gr, const P& a,
+                                            const Fe& qx, const Fe& qy,
+                                            const Fe& t2, bool q_inf,
+                                            const Fe& nqx, const Fe& nqy,
+                                            Fe& nt2, const CurveConst& cc) {
+    return te_madd_grp(gr, a, qx, qy, t2, q_inf, nqx, nqy, nt2, cc);
   }
   static __device__ __forceinline__ P load(const int32_t* base, size_t rows,
                                            size_t row, size_t L,
@@ -299,33 +346,6 @@ __global__ void __launch_bounds__(HG_THREADS, 1)
   if (gr.g == 0) M::store(out, 1, 0, L, lane, acc);
 }
 
-// out = P + affine (qx, qy) elementwise; a lane with q_inf[lane] != 0
-// adds the identity. P, out: (NC, 1, 16, m); qx, qy: (16, m); q_inf: (m,)
-// bytes (a torch bool tensor).
-template <class M>
-__global__ void __launch_bounds__(THREADS)
-    madd_kernel(const int32_t* __restrict__ P, const int32_t* __restrict__ qx,
-                const int32_t* __restrict__ qy,
-                const uint8_t* __restrict__ q_inf, int32_t* __restrict__ out,
-                int64_t m, CurveConst cc) {
-  size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (size_t)m) return;
-  typename M::P acc = M::load(P, 1, 0, m, lane);
-  acc = M::madd(acc, fe_load(qx, 0, m, lane), fe_load(qy, 0, m, lane),
-                q_inf[lane] != 0, cc);
-  M::store(out, 1, 0, m, lane, acc);
-}
-
-// out = 2P elementwise; P, out: (NC, 1, 16, m) (rcb_double).
-template <class M>
-__global__ void __launch_bounds__(THREADS)
-    double_kernel(const int32_t* __restrict__ P, int32_t* __restrict__ out,
-                  int64_t m, CurveConst cc) {
-  size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (size_t)m) return;
-  M::store(out, 1, 0, m, lane, M::dbl(M::load(P, 1, 0, m, lane), cc));
-}
-
 // Stages D and F: a group of M::ADD_GRP threads a lane below
 // CHAIN_ONE_THREAD_MIN_LANES lanes, one thread a lane from it.
 template <class M>
@@ -439,33 +459,32 @@ extern "C" int abtpu_te_double_k_add(const void* P, const void* Q, void* out,
   return (int)cudaGetLastError();
 }
 
-// P + affine Q on twisted-Edwards extended points (te_madd_tiled).
+// P + the suffix sums of R rows of affine Q on twisted-Edwards extended
+// points (te_madd_tiled, scanned over the rows; R = 1: the elementwise
+// add): the row scan of point_kernels.cuh.
 extern "C" int abtpu_te_madd(const void* P, const void* qx, const void* qy,
-                             const void* q_inf, void* out, int64_t m,
-                             const void* words, void* stream) {
+                             const void* q_inf, void* out, int64_t R,
+                             int64_t m, const void* words, void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
   if (!cc.te) return (int)cudaErrorInvalidValue;
-  madd_kernel<TeModel><<<blocks_for(m), THREADS, 0, s>>>(
-      (const int32_t*)P, (const int32_t*)qx, (const int32_t*)qy,
-      (const uint8_t*)q_inf, (int32_t*)out, m, cc);
+  launch_madd_scan<TeModel>(P, qx, qy, q_inf, out, R, m, cc, s);
   return (int)cudaGetLastError();
 }
 
 // Complete RCB doubling on projective points (rcb_double_tiled: Alg 9 for
-// a = 0, Alg 3 otherwise); a twisted-Edwards curve is refused, as
-// abtpu_te_double refuses the others.
+// a = 0, Alg 3 otherwise): the doubling chain of point_kernels.cuh at one
+// step, whose (3, 16, m) output is the elementwise 2P. A twisted-Edwards
+// curve is refused, as abtpu_te_double refuses the others.
 extern "C" int abtpu_rcb_double(const void* P, void* out, int64_t m,
                                 const void* words, void* stream) {
   CurveConst cc = load_cc(words);
   cudaStream_t s = (cudaStream_t)stream;
   if (cc.te) return (int)cudaErrorInvalidValue;
   if (cc.a_zero)
-    double_kernel<RcbA0><<<blocks_for(m), THREADS, 0, s>>>(
-        (const int32_t*)P, (int32_t*)out, m, cc);
+    launch_double_chain<RcbA0>(P, out, m, 1, 0, cc, s);
   else
-    double_kernel<RcbA><<<blocks_for(m), THREADS, 0, s>>>(
-        (const int32_t*)P, (int32_t*)out, m, cc);
+    launch_double_chain<RcbA>(P, out, m, 1, 0, cc, s);
   return (int)cudaGetLastError();
 }
 

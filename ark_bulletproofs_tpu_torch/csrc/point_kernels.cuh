@@ -1,10 +1,11 @@
 // Kernel templates over a point model that both group-law sources
 // instantiate (msm_kernels.cu on RCB projective and TE extended points,
 // jac_kernels.cu on Jacobian points): the elementwise 2^k P + Q, the
-// window Horner and the doubling chain, with their launchers, and the
-// launchers' block arithmetic. A model supplies the point type, its identity, add, mixed
-// add, doubling, load and store, and the group forms gadd / gdbl
-// (group.cuh); each source instantiates a template only for its models.
+// window Horner, the doubling chain and the v1 row scan, with their
+// launchers, and the launchers' block arithmetic. A model supplies the
+// point type, its identity, add, mixed add, doubling, load and store, and
+// the group forms gadd / gdbl / gmadd (group.cuh); each source
+// instantiates a template only for its models.
 //
 // The window Horner (horner_group_kernel) is a latency problem: at v2's
 // stage G one chain of W (c + 1) dependent group operations is the
@@ -231,8 +232,10 @@ static void launch_horner(const void* parts, const void* acc0, void* out,
 // is made. A group of G threads a lane (M::gdbl, group.cuh): a Jacobian
 // doubling waits on 3 product levels (4 for a != 0) instead of one
 // thread's 8 (10) products, a twisted-Edwards one (the HWCD add of P and
-// P) on 3 (5, 2 and 4 products at G = 8) instead of 11, and a 255-step
-// table is a chain of 255 dependent doublings; thread 0 stores.
+// P) on 3 (5, 2 and 4 products at G = 8) instead of 11, an RCB one on 2
+// (a = 0: 4 + 4 products at G = 4) or 3 (a != 0: 6 + 4 + 5 at G = 8)
+// instead of 8 or 13, and a 255-step table is a chain of 255 dependent
+// doublings; thread 0 stores.
 template <class M, int G>
 __global__ void __launch_bounds__(HG_THREADS, 1)
     double_chain_kernel(const int32_t* __restrict__ P,
@@ -253,16 +256,128 @@ __global__ void __launch_bounds__(HG_THREADS, 1)
   }
 }
 
-// The doubling chain: a group of M::GRP threads a lane at every lane
-// count. The paths send it one lane (the 2^i Q table of the on-device
-// Fiat-Shamir IPA, JacModel or TeModel) or two (the TE commit table's
-// 2^i B and 2^i B_blinding, TeModel), where a chain waits on latency.
+// The one-thread band of the one-step chain (rcb_double from
+// M::DBL_ONE_THREAD_MIN_LANES lanes): 2P elementwise, one thread a lane,
+// straight-line code under launch bounds that keep M::DBL_MIN_BLOCKS
+// blocks an SM resident. Many lanes hide each product's latency there,
+// and a group's repeated field adds and shared-memory rounds only cost
+// issue slots. The chain kernel run with G = 1 was up to 1.5 times
+// slower on zorro's doubling (its loop over the steps; PERF.md).
+template <class M>
+__global__ void __launch_bounds__(DKA_THREADS, M::DBL_MIN_BLOCKS)
+    double_wide_kernel(const int32_t* __restrict__ P,
+                       int32_t* __restrict__ out, int64_t m,
+                       CurveConst cc) {
+  size_t lane = (size_t)blockIdx.x * DKA_THREADS + threadIdx.x;
+  if (lane >= (size_t)m) return;
+  M::store(out, 1, 0, m, lane, M::dbl(M::load(P, 1, 0, m, lane), cc));
+}
+
+// The doubling chain: a group of M::GRP threads a lane, at every lane
+// count for Jacobian and twisted-Edwards points (DBL_WIDE = false): the
+// paths send them one lane (the 2^i Q table of the on-device Fiat-Shamir
+// IPA, JacModel or TeModel) or two (the TE commit table's 2^i B and 2^i
+// B_blinding, TeModel), where a chain waits on latency. RCB points
+// (rcb_double, which no path calls) run one step from
+// M::DBL_ONE_THREAD_MIN_LANES lanes on double_wide_kernel.
 template <class M>
 static void launch_double_chain(const void* P, void* out, int64_t m,
                                 int32_t steps, int32_t keep,
                                 const CurveConst& cc, cudaStream_t s) {
   constexpr int G = M::GRP;
   static_assert(HG_THREADS % G == 0 && 32 % G == 0, "group size");
+  const int32_t* p = (const int32_t*)P;
+  int32_t* o = (int32_t*)out;
+  if constexpr (M::DBL_WIDE) {
+    if (m >= M::DBL_ONE_THREAD_MIN_LANES && steps == 1 && keep == 0) {
+      double_wide_kernel<M>
+          <<<(unsigned)((m + DKA_THREADS - 1) / DKA_THREADS), DKA_THREADS, 0,
+             s>>>(p, o, m, cc);
+      return;
+    }
+  }
   double_chain_kernel<M, G><<<group_blocks(m, G), HG_THREADS, 0, s>>>(
-      (const int32_t*)P, (int32_t*)out, m, steps, keep, cc);
+      p, o, m, steps, keep, cc);
+}
+
+// The v1 Pippenger's row scan in one launch: out[:, r] = P + sum_{j >= r}
+// (qx, qy)[j] per lane, added from row R - 1 down to row 0 (the suffix
+// order of the JAX package's lax.scan over sw_madd_tiled or te_madd_tiled).
+// P: (NC, 1, 16, m); qx, qy: (R, 16, m) affine Montgomery coordinates;
+// q_inf: (R, m) bytes, a nonzero row adds the identity; out: (NC, R, 16,
+// m). The accumulator stays in registers across the rows, each row's
+// partial sum is stored as it is made, and the next row's point and flag,
+// which do not depend on the chain, are loaded one add ahead.
+//
+// G = 1: one thread a lane (M::madd), the band of many lanes, where the
+// card is bound by the products' instructions once enough warps hide
+// their latency; __launch_bounds__ keeps M::MADD_MIN_BLOCKS blocks an SM
+// resident. G > 1: a group of G threads a lane (M::gmadd, group.cuh),
+// where few lanes leave the card idle and one thread would wait on each
+// of the mixed add's products in turn (12 Jacobian, 11 TE): the group
+// waits on its product levels (5 Jacobian, 3 TE); thread 0 stores. A
+// model with MADD_AHEAD (TeModel) also takes a value of the next row
+// alone (TE: t2 = qx qy), which the group computes inside the current
+// add (the first row's before the loop, on every thread).
+template <class M, int G>
+__global__ void __launch_bounds__(HG_THREADS,
+                                  G == 1 ? M::MADD_MIN_BLOCKS : 1)
+    madd_scan_kernel(const int32_t* __restrict__ P,
+                     const int32_t* __restrict__ qx,
+                     const int32_t* __restrict__ qy,
+                     const uint8_t* __restrict__ q_inf,
+                     int32_t* __restrict__ out, int64_t R, int64_t m,
+                     CurveConst cc) {
+  __shared__ uint4 slots[G == 1 ? 1 : HG_THREADS / G][4 * GRP_SLOTS];
+  const int tid = threadIdx.x;
+  const size_t lane = ((size_t)blockIdx.x * HG_THREADS + tid) / G;
+  if (lane >= (size_t)m) return;  // whole groups only: HG_THREADS % G == 0
+  Grp<G> gr = grp_of<G>(slots, tid);
+  constexpr bool AHEAD = G > 1 && M::MADD_AHEAD;
+  typename M::P acc = M::load(P, 1, 0, m, lane);
+  Fe nx = fe_load(qx, R - 1, m, lane);
+  Fe ny = fe_load(qy, R - 1, m, lane);
+  bool ni = q_inf[(size_t)(R - 1) * m + lane] != 0;
+  Fe na = AHEAD ? fe_mul(nx, ny, cc) : fe_zero();
+  for (int64_t r = R - 1; r >= 0; --r) {
+    Fe x = nx, y = ny, a = na;
+    bool inf = ni;
+    const int64_t r1 = r > 0 ? r - 1 : 0;
+    nx = fe_load(qx, r1, m, lane);
+    ny = fe_load(qy, r1, m, lane);
+    ni = q_inf[(size_t)r1 * m + lane] != 0;
+    if constexpr (G == 1)
+      acc = M::madd(acc, x, y, inf, cc);
+    else if constexpr (AHEAD)
+      acc = M::template gmadd<G>(gr, acc, x, y, a, inf, nx, ny, na, cc);
+    else
+      acc = M::template gmadd<G>(gr, acc, x, y, inf, cc);
+    if (gr.g == 0) M::store(out, R, r, m, lane, acc);
+  }
+}
+
+// The row scan: a group of M::MADD_GRP threads a lane below
+// M::MADD_GROUP2_MIN_LANES lanes, of 2 below M::MADD_ONE_THREAD_MIN_LANES,
+// one thread a lane from it.
+template <class M>
+static void launch_madd_scan(const void* P, const void* qx, const void* qy,
+                             const void* q_inf, void* out, int64_t R,
+                             int64_t m, const CurveConst& cc,
+                             cudaStream_t s) {
+  constexpr int G = M::MADD_GRP;
+  static_assert(HG_THREADS % G == 0 && 32 % G == 0, "group size");
+  const int32_t* p = (const int32_t*)P;
+  const int32_t* x = (const int32_t*)qx;
+  const int32_t* y = (const int32_t*)qy;
+  const uint8_t* inf = (const uint8_t*)q_inf;
+  int32_t* o = (int32_t*)out;
+  if (m >= M::MADD_ONE_THREAD_MIN_LANES)
+    madd_scan_kernel<M, 1><<<group_blocks(m, 1), HG_THREADS, 0, s>>>(
+        p, x, y, inf, o, R, m, cc);
+  else if (m >= M::MADD_GROUP2_MIN_LANES)
+    madd_scan_kernel<M, 2><<<group_blocks(m, 2), HG_THREADS, 0, s>>>(
+        p, x, y, inf, o, R, m, cc);
+  else
+    madd_scan_kernel<M, G><<<group_blocks(m, G), HG_THREADS, 0, s>>>(
+        p, x, y, inf, o, R, m, cc);
 }

@@ -5,7 +5,7 @@
 // Replaces the TPU kernel bodies _k_te_add, _k_te_madd and _k_te_double
 // (ark_bulletproofs_tpu/ops/kernels.py), followed operation for operation,
 // and through them the elementwise kernels te_add_tiled, te_double_tiled,
-// te_double_k_add_tiled and te_madd_tiled. One formula covers the identity
+// te_double_k_add_tiled and te_madd_tiled (here the v1 row scan over it). One formula covers the identity
 // and doubling (complete for curve25519's a and d, the host model's law,
 // curves/models.py::TECurve.proj_add). a and d are applied as full
 // Montgomery products (the JAX package's _k_mul_const(..., None)). The
@@ -97,6 +97,43 @@ __device__ __forceinline__ Pt4 te_add_grp(Grp<G>& gr, const Pt4& P,
   Fe H = fe_sub(m[1], k[1], cc);
   Fe n[4];
   grp_mul<4>(gr, n, {E, Gs, E, F}, {F, H, H, Gs}, cc);
+  Pt4 R;
+  R.X = n[0];
+  R.Y = n[1];
+  R.T = n[2];
+  R.Z = n[3];
+  return R;
+}
+
+// te_madd dealt out over a thread group (group.cuh), for the v1 row scan
+// (madd_scan_kernel, point_kernels.cuh): t2 = qx qy, which depends on the
+// row alone, comes in computed one add ahead, so the chain waits on three
+// product levels: A = X1 qx, B = Y1 qy, T1 t2, (X1 + Y1)(qx + qy); then
+// C = (T1 t2) d and a A, beside which the group computes the next row's
+// t2 (nqx nqy into nt2), a level with a free thread at G = 4; then the
+// four outputs (D = Z1: no fourth product in the first level). Every
+// thread takes part in every level whatever q_inf says; the select comes
+// after them. The values are te_madd's.
+template <int G>
+__device__ __forceinline__ Pt4 te_madd_grp(Grp<G>& gr, const Pt4& P,
+                                           const Fe& qx, const Fe& qy,
+                                           const Fe& t2, bool q_inf,
+                                           const Fe& nqx, const Fe& nqy,
+                                           Fe& nt2, const CurveConst& cc) {
+  Fe m[4];
+  grp_mul<4>(gr, m, {P.X, P.Y, P.T, fe_add(P.X, P.Y, cc)},
+             {qx, qy, t2, fe_add(qx, qy, cc)}, cc);
+  Fe k[3];
+  grp_mul<3>(gr, k, {m[2], m[0], nqx},
+             {fe_from(cc.d_mont), fe_from(cc.a_mont), nqy}, cc);
+  nt2 = k[2];
+  Fe E = fe_sub(m[3], fe_add(m[0], m[1], cc), cc);
+  Fe F = fe_sub(P.Z, k[0], cc);
+  Fe Gs = fe_add(P.Z, k[0], cc);
+  Fe H = fe_sub(m[1], k[1], cc);
+  Fe n[4];
+  grp_mul<4>(gr, n, {E, Gs, E, F}, {F, H, H, Gs}, cc);
+  if (q_inf) return P;
   Pt4 R;
   R.X = n[0];
   R.Y = n[1];

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "abtpu_jac_double_k_add": [_P, _P, _P, _I64, _I32, _P, _P],
     "abtpu_jac_double": [_P, _P, _I64, _I32, _I32, _P, _P],
     "abtpu_jac_madd": [_P, _P, _P, _P, _P, _I64, _I64, _P, _P],
-    "abtpu_te_madd": [_P, _P, _P, _P, _P, _I64, _P, _P],
+    "abtpu_te_madd": [_P, _P, _P, _P, _P, _I64, _I64, _P, _P],
     "abtpu_rcb_double": [_P, _P, _I64, _P, _P],
     "abtpu_horner": [_P, _P, _P, _I64, _I64, _I64, _I32, _P, _P],
     "abtpu_jac_horner": [_P, _P, _P, _I64, _I64, _I64, _I32, _P, _P],

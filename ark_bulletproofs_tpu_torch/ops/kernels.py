@@ -17,8 +17,10 @@ points, csrc/jac_kernels.cu).
       table of that batch (ops/cache.py) and the on-device Fiat-Shamir
       IPA's 2^i Q table (ops/ipa.py);
   rcb_double       <- ::rcb_double_tiled: complete RCB doubling (Alg 9
-      for a = 0, Alg 3 otherwise); as in the JAX package, only `double`
-      reaches it and no path of the port calls that;
+      for a = 0, Alg 3 otherwise), the doubling chain at one step: a
+      group of 4 (a = 0) or 8 threads a lane, one thread a lane from the
+      model's DBL_BANDS edge; as in the JAX package, only `double` reaches
+      it and no path of the port calls that;
   jac_double_k_add <- ::sw_add_tiled (k = 0) and ::sw_double_k_add_tiled:
       Jacobian points (csrc/jac.cuh), the on-device Fiat-Shamir IPA's
       c * Q tree and S = MSM + c * Q on short-Weierstrass curves, and the
@@ -31,9 +33,10 @@ points, csrc/jac_kernels.cu).
       Pippenger (ops/msm.py; the JAX package's lax.scan of the kernel) on
       short-Weierstrass curves (a group of 4 threads a lane, of 2 from
       MADD_BANDS["jac"][0] lanes, one thread a lane from its [1]);
-  te_madd          <- ::te_madd_tiled's elementwise launcher: the same
-      mixed add on a twisted-Edwards curve, one launch a row of the scan
-      (`madd_scan`).
+  te_madd          <- ::te_madd_tiled: the same mixed add, and over R
+      rows the same row scan in one launch, on a twisted-Edwards curve
+      (a group of 4 threads a lane, of 2 from MADD_BANDS["te"][0] lanes,
+      one thread a lane from its [1]).
 
 The v1 Pippenger and the on-device Fiat-Shamir IPA keep their points in
 the model coordinates of the JAX package's group law (Jacobian on a
@@ -107,12 +110,17 @@ DKA_BANDS = {"jac": (4096, 24576), "rcb a=0": (8192, 16384),
              "rcb a": (8192, 16384), "te": (4096, 16384)}
 
 
-# The bands of csrc/jac_kernels.cu's row scan (JacModel::
-# MADD_GROUP2_MIN_LANES, MADD_ONE_THREAD_MIN_LANES: the lane counts from
-# which a group of 2 threads a lane runs instead of 4, and one thread a
-# lane), measured on the H100 (PERF.md; the same test ties them to the
-# model).
-MADD_BANDS = {"jac": (8192, 65536)}
+# The bands of the row scan (csrc/point_kernels.cuh's launch_madd_scan),
+# a pair per point model (M::MADD_GROUP2_MIN_LANES,
+# M::MADD_ONE_THREAD_MIN_LANES: the lane counts from which a group of 2
+# threads a lane runs instead of 4, and one thread a lane), measured on
+# the H100 (PERF.md; the same test ties them to the models).
+MADD_BANDS = {"jac": (8192, 65536), "te": (16384, 65536)}
+
+# The edge of rcb_double's band (RcbModel::DBL_ONE_THREAD_MIN_LANES, the
+# doubling chain's launcher): from this many lanes one thread a lane runs
+# instead of a group (the same test ties them).
+DBL_BANDS = {"rcb a=0": 16384, "rcb a": 16384}
 
 
 def dka_model(spec) -> str:
@@ -310,20 +318,29 @@ def jac_madd_plain(spec, P: torch.Tensor, Qx: torch.Tensor,
     """The plain version of `jac_madd` (ops/curve.py::_sw_add_mixed), over
     the rows of (R, 16, m) Qx and Qy from the last up."""
     if Qx.dim() == 3:
-        out = torch.empty((3, *Qx.shape), dtype=torch.int32,
-                          device=P.device)
-        acc = P
-        for r in range(Qx.shape[0] - 1, -1, -1):
-            acc = jac_madd_plain(spec, acc, Qx[r], Qy[r], q_inf[r])
-            out[:, r] = acc
-        return out
+        return _madd_rows_plain(jac_madd_plain, spec, P, Qx, Qy, q_inf)
     return _by_lanes(lambda p, x, y, i: _sw_add_mixed(spec, p, x, y, i),
                      P, Qx, Qy, q_inf)
 
 
+def _madd_rows_plain(one, spec, P, Qx, Qy, q_inf) -> torch.Tensor:
+    """The one-row mixed add `one` over the rows of (R, 16, m) Qx and Qy
+    from the last up: (NC, R, 16, m), row r = P + sum_{j >= r} Q_j."""
+    out = torch.empty((P.shape[0], *Qx.shape), dtype=torch.int32,
+                      device=P.device)
+    acc = P
+    for r in range(Qx.shape[0] - 1, -1, -1):
+        acc = one(spec, acc, Qx[r], Qy[r], q_inf[r])
+        out[:, r] = acc
+    return out
+
+
 def te_madd_plain(spec, P: torch.Tensor, Qx: torch.Tensor,
                   Qy: torch.Tensor, q_inf: torch.Tensor) -> torch.Tensor:
-    """The plain version of `te_madd` (ops/proj.py::_te_add_mixed)."""
+    """The plain version of `te_madd` (ops/proj.py::_te_add_mixed), over
+    the rows of (R, 16, m) Qx and Qy from the last up."""
+    if Qx.dim() == 3:
+        return _madd_rows_plain(te_madd_plain, spec, P, Qx, Qy, q_inf)
     return _by_lanes(lambda p, x, y, i: proj._te_add_mixed(spec, p, x, y, i),
                      P, Qx, Qy, q_inf)
 
@@ -343,6 +360,26 @@ def _check_madd(name: str, spec, P, Qx, Qy, q_inf, rows: tuple) -> None:
     same_device(P, Qx, Qy, q_inf)
 
 
+def _madd(wrapper, plain, spec, P, Qx, Qy, q_inf):
+    """Checks, then the plain version (CPU) or one launch of the wrapper's
+    row scan (CUDA; one row for (16, m) Qx), counted on the wrapper."""
+    name = wrapper.__name__
+    R = Qx.shape[0] if Qx.dim() == 3 else None
+    rows = () if R is None else (R,)
+    _check_madd(name, spec, P, Qx, Qy, q_inf, rows)
+    m = P.shape[-1]
+    if P.device.type == "cpu":
+        return plain(spec, P, Qx, Qy, q_inf)
+    if m == 0 or R == 0:
+        raise ValueError(f"{name}: empty input")
+    out = torch.empty((P.shape[0], *rows, N_LIMBS, m), dtype=torch.int32,
+                      device=P.device)
+    launch(name, spec, P.device, P.data_ptr(), Qx.data_ptr(),
+           Qy.data_ptr(), q_inf.data_ptr(), out.data_ptr(), R or 1, m)
+    wrapper.launches += 1
+    return out
+
+
 def jac_madd(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
              q_inf: torch.Tensor) -> torch.Tensor:
     """Complete P + affine (Qx, Qy) lane-wise on Jacobian short-Weierstrass
@@ -351,38 +388,17 @@ def jac_madd(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
     m) and q_inf (R, m), the row scan in one launch: (3, R, 16, m) with
     out[:, r] = P + sum_{j >= r} Q_j, added from row R - 1 down to 0."""
     _check_model("jac_madd", spec, te=False)
-    R = Qx.shape[0] if Qx.dim() == 3 else None
-    rows = () if R is None else (R,)
-    _check_madd("jac_madd", spec, P, Qx, Qy, q_inf, rows)
-    m = P.shape[-1]
-    if P.device.type == "cpu":
-        return jac_madd_plain(spec, P, Qx, Qy, q_inf)
-    if m == 0 or R == 0:
-        raise ValueError("jac_madd: empty input")
-    out = torch.empty((3, *rows, N_LIMBS, m), dtype=torch.int32,
-                      device=P.device)
-    launch("jac_madd", spec, P.device, P.data_ptr(), Qx.data_ptr(),
-           Qy.data_ptr(), q_inf.data_ptr(), out.data_ptr(), R or 1, m)
-    jac_madd.launches += 1
-    return out
+    return _madd(jac_madd, jac_madd_plain, spec, P, Qx, Qy, q_inf)
 
 
 def te_madd(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
             q_inf: torch.Tensor) -> torch.Tensor:
     """Complete P + affine (Qx, Qy) lane-wise on twisted-Edwards extended
-    points; P: (4, 16, m) int32; q_inf lanes pass P through."""
+    points; P: (4, 16, m) int32; q_inf lanes pass P through. With R rows,
+    Qx, Qy: (R, 16, m) and q_inf (R, m), the row scan in one launch: (4, R,
+    16, m), as `jac_madd`'s."""
     _check_model("te_madd", spec, te=True)
-    _check_madd("te_madd", spec, P, Qx, Qy, q_inf, ())
-    m = P.shape[-1]
-    if P.device.type == "cpu":
-        return te_madd_plain(spec, P, Qx, Qy, q_inf)
-    if m == 0:
-        raise ValueError("te_madd: empty input")
-    out = torch.empty_like(P)
-    launch("te_madd", spec, P.device, P.data_ptr(), Qx.data_ptr(),
-           Qy.data_ptr(), q_inf.data_ptr(), out.data_ptr(), m)
-    te_madd.launches += 1
-    return out
+    return _madd(te_madd, te_madd_plain, spec, P, Qx, Qy, q_inf)
 
 
 rcb_double_k_add.launches = rcb_double_k_add.doubling_launches = 0
@@ -431,13 +447,8 @@ def madd_scan(spec, P: torch.Tensor, Qx: torch.Tensor, Qy: torch.Tensor,
               q_inf: torch.Tensor) -> torch.Tensor:
     """The suffix sums P + sum_{j >= r} Q_j of (R, 16, m) affine rows, from
     the last row up, in the model coordinates: (NC, R, 16, m). One
-    `jac_madd` launch on a short-Weierstrass curve; on a twisted-Edwards
-    curve one `te_madd` launch a row."""
-    if not is_te(spec):
-        return jac_madd(spec, P, Qx, Qy, q_inf)
-    out = torch.empty((4, *Qx.shape), dtype=torch.int32, device=P.device)
-    acc = P
-    for r in range(Qx.shape[0] - 1, -1, -1):
-        acc = te_madd(spec, acc, Qx[r], Qy[r], q_inf[r])
-        out[:, r] = acc
-    return out
+    `jac_madd` launch on a short-Weierstrass curve, one `te_madd` launch
+    on a twisted-Edwards one."""
+    if is_te(spec):
+        return te_madd(spec, P, Qx, Qy, q_inf)
+    return jac_madd(spec, P, Qx, Qy, q_inf)

@@ -10,7 +10,7 @@ the v2 MSM's widths. Its contract, per window of c bits:
      rows of C columns (R = min(n, 32)), an optional base_map composed
      into the gather;
   2. a row scan of mixed adds (`kernels.madd_scan`: one `jac_madd`
-     launch over the R rows, or one `te_madd` launch a row on a
+     launch over the R rows, or one `te_madd` launch on a
      twisted-Edwards curve) gives each column's suffix sums, and a
      Hillis-Steele suffix over the C column totals (log2 C adds) their
      carries;
@@ -34,8 +34,8 @@ What the JAX version did only for the TPU is dropped: it scanned over
 groups of G = min(B W, 8) windows to bound VMEM and compile size. Here
 all B W windows run in one pass (B W C lanes in the row scan), split only
 when G n would pass V1_MAX_WINDOW_TERMS, so an MSM is about 1 + log2 C +
-1 + log2 S + c + 1 launches whatever B is (R more on a twisted-Edwards
-curve, whose row scan is one launch a row). Windows are independent, so
+1 + log2 S + c + 1 launches whatever B is, on either curve model.
+Windows are independent, so
 every window's coordinates are those of the JAX version.
 
 The host-facing functions take affine int points and int scalars and

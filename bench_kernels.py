@@ -50,9 +50,19 @@ the same turns: its 255 one-step te_double launches and their stack, and
 its mont_inv_batch (Montgomery's trick and a Fermat power on its product
 kernel).
 
+The TE row scan (te_madd over R rows in one launch) as the Jacobian one
+(TE_SCAN_VARIANTS, built from csrc/msm_kernels.cu: a group of 8, 4 or 2
+threads a lane, one thread a lane under 1 to 4 resident blocks) at the
+same shapes on curve25519; and rcb_double (DBL_VARIANTS: a group of 8, 4
+or 2 threads a lane, one thread a lane under 4 to 7 resident blocks or
+with no minimum) at DBL_LANES (1 to 2^20) on secq256k1 and zorro. With
+--parent, a parent whose te_madd takes one row is timed as one launch and
+one copy a row, and its rcb_double as it is, in the same turns. Every
+build's ptxas registers and spills are printed.
+
 --parts picks the comparisons to run (default all): ops (one thread's
 cycles), fs, jac, rcb_te, wide, chains, scan, chain, field, te_chain,
-msm.
+te_scan, rcb_double, msm.
 
 The last line is a JSON object of every number; --out also writes it to
 FILE. Needs one card; exits 1 without.
@@ -155,10 +165,11 @@ MADD_G2 = "static constexpr int64_t MADD_GROUP2_MIN_LANES = "
 MADD_BLOCKS = "static constexpr int MADD_MIN_BLOCKS = "
 
 
-def _member(prefix: str, value: str) -> tuple:
-    """A substitution of JacModel's member `prefix`... = value;, whatever
-    its committed value (read from csrc/jac_kernels.cu)."""
-    with open(os.path.join(CSRC, "jac_kernels.cu")) as fh:
+def _member(prefix: str, value: str, source: str = "jac_kernels.cu") -> tuple:
+    """A substitution of a point model's member `prefix`... = value;,
+    whatever its committed value (read from csrc/`source`: JacModel's in
+    jac_kernels.cu, TeModel's or RcbModel's in msm_kernels.cu)."""
+    with open(os.path.join(CSRC, source)) as fh:
         text = fh.read()
     line = text[text.index(prefix):]
     return (line[:line.index(";") + 1], f"{prefix}{value};")
@@ -176,6 +187,42 @@ SCAN_VARIANTS.update({
 # paths send (chip_smoke.SCAN_LANES), and the per-round route's small
 # rounds (n rows of 8,192 lanes) and prove_batch's one-term MSMs
 SCAN_EXTRA = [(16, 8192), (8, 8192), (2, 8192), (1, 8192), (1, 24576)]
+# te_madd's row scan (TeModel in msm_kernels.cu) the same way: a group of
+# 8, 4 or 2 threads a lane at every lane count, or one thread a lane under
+# launch bounds of 1 to 4 resident blocks
+TE_SCAN_VARIANTS = {
+    f"te scan group {G}": ("msm_kernels.cu", [
+        _member(MADD_GRP, str(G), "msm_kernels.cu"),
+        _member(MADD_G2, "0x7fffffffffffffffLL", "msm_kernels.cu"),
+        _member(MADD_ONE, "0x7fffffffffffffffLL", "msm_kernels.cu")])
+    for G in (8, 4, 2)}
+TE_SCAN_VARIANTS.update({
+    f"te scan one thread {n} blocks": ("msm_kernels.cu", [
+        _member(MADD_ONE, "0", "msm_kernels.cu"),
+        _member(MADD_BLOCKS, str(n), "msm_kernels.cu")])
+    for n in (1, 2, 3, 4)})
+# rcb_double (the doubling chain at one step on RcbModel) under each
+# mapping at every lane count: a group of 8, 4 or 2 threads a lane, or one
+# thread a lane (double_wide_kernel) under launch bounds of 4 to 7
+# resident blocks or with no minimum
+DBL_ONE = "static constexpr int64_t DBL_ONE_THREAD_MIN_LANES = "
+DBL_BLOCKS = "static constexpr int DBL_MIN_BLOCKS = "
+RCB_GRP = "static constexpr int GRP = AZ ? 4 : 8;"
+DBL_VARIANTS = {
+    f"dbl group {G}": ("msm_kernels.cu", [
+        (RCB_GRP, f"static constexpr int GRP = {G};"),
+        _member(DBL_ONE, "0x7fffffffffffffffLL", "msm_kernels.cu")])
+    for G in (8, 4, 2)}
+DBL_VARIANTS.update({
+    f"dbl one thread {n} blocks": ("msm_kernels.cu", [
+        _member(DBL_ONE, "0", "msm_kernels.cu"),
+        _member(DBL_BLOCKS, str(n), "msm_kernels.cu")])
+    for n in (4, 5, 6, 7)})
+DBL_VARIANTS["dbl one thread no minimum"] = ("msm_kernels.cu", [
+    _member(DBL_ONE, "0", "msm_kernels.cu"),
+    ("__launch_bounds__(DKA_THREADS, M::DBL_MIN_BLOCKS)",
+     "__launch_bounds__(DKA_THREADS)")])
+DBL_LANES = [1, 1024, 4096, 8192, 16384, 32768, 65536, 1 << 20]
 CHAIN_LANES = [1, 2, 8, 64, 512, 2048, 4096, 8192, 16384, 32768, 65536]
 # mont_mul's block (csrc/field_kernels.cu's MM_THREADS) at 256 and 64
 # threads beside the committed 128, at the paths' lane counts
@@ -632,19 +679,20 @@ def chain_compare(res: dict, variants: dict, dev) -> None:
             torch.cuda.empty_cache()
 
 
-def scan_launcher(path: str):
-    """jac_madd over rows of the kernel library at `path`, taking the
-    wrapper's arguments."""
+def scan_launcher(path: str, name: str = "jac_madd"):
+    """jac_madd (or `name`: te_madd) over rows of the kernel library at
+    `path`, taking the wrapper's arguments."""
     import ctypes
 
     import torch
 
     lib = ctypes.CDLL(path)
-    madd_fn = launcher(lib, "jac_madd")
+    madd_fn = launcher(lib, name)
 
     def scan(spec, P, qx, qy, qi):
         R, _, m = qx.shape
-        out = torch.empty((3, R, 16, m), dtype=torch.int32, device=P.device)
+        out = torch.empty((P.shape[0], R, 16, m), dtype=torch.int32,
+                          device=P.device)
         madd_fn(spec, P.data_ptr(), qx.data_ptr(), qy.data_ptr(),
                 qi.data_ptr(), out.data_ptr(), R, m)
         return out
@@ -653,14 +701,22 @@ def scan_launcher(path: str):
 
 
 def parent_launchers(parent: str, build_dir: str) -> dict:
-    """The parent commit's forms of this slice's kernels, built from its
-    csrc/msm_kernels.cu and csrc/field_kernels.cu (one nvcc each, in
-    parallel): "te_chain", `steps` launches of its one-step te_double
-    kernel (one thread a lane) and one stack of the rows, as its
+    """A parent commit's forms of kernels that a later tree replaced,
+    built from its csrc/msm_kernels.cu and csrc/field_kernels.cu (one nvcc
+    each, in parallel). Each form calls the parent's launchers with the
+    signatures they had before the replacement, so each is for a parent
+    of that age: "te_chain" (parts te_chain: a parent whose
+    abtpu_te_double takes no step count), `steps` launches of its
+    one-step te_double kernel and one stack of the rows, as
     ops/ipa.py::_q_doubles and ops/cache.py::commit_table made the TE
-    tables; "inv", its ops/fs.py::mont_inv_batch (Montgomery's trick and
-    the Fermat power) on its product kernel (256 threads a block), then
-    the rows' product, as its ops/ipa.py::_shrink_fs_dev made them."""
+    tables; "inv" (parts field: a parent whose abtpu_mont_mul takes no
+    third operand), mont_inv_batch by Montgomery's trick and the Fermat
+    power on its product kernel, then the rows' product, as
+    ops/ipa.py::_shrink_fs_dev made them; "te_scan" (parts te_scan: a
+    parent whose abtpu_te_madd takes no row count), one one-row te_madd
+    launch a row and a copy of each row's sum into the output, as
+    kernels.madd_scan made the TE row scan; "rcb_double" (parts
+    rcb_double), its rcb_double launcher as it is."""
     import ctypes
 
     import torch
@@ -683,11 +739,17 @@ def parent_launchers(parent: str, build_dir: str) -> dict:
         if p.returncode:
             raise RuntimeError(f"nvcc failed on the parent:\n{log}")
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    dbl_fn = ctypes.CDLL(libs["msm_kernels"]).abtpu_te_double
+    msm_lib = ctypes.CDLL(libs["msm_kernels"])
+    dbl_fn = msm_lib.abtpu_te_double
     mm_fn = ctypes.CDLL(libs["field_kernels"]).abtpu_mont_mul
+    madd_fn = msm_lib.abtpu_te_madd
+    rdbl_fn = msm_lib.abtpu_rcb_double
     dbl_fn.argtypes = [vp, vp, i64, vp, vp]
     mm_fn.argtypes = [vp, vp, vp, i64, i64, i64, i64, vp, vp]
+    madd_fn.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp]
+    rdbl_fn.argtypes = [vp, vp, i64, vp, vp]
     dbl_fn.restype = mm_fn.restype = ctypes.c_int
+    madd_fn.restype = rdbl_fn.restype = ctypes.c_int
 
     def words(spec):
         return _build.curve_words(spec).ctypes.data_as(vp)
@@ -748,7 +810,30 @@ def parent_launchers(parent: str, build_dir: str) -> dict:
         out = mont_mul(fs, mont_mul(fs, pre_prev, suf_next), tot_inv)
         return mont_mul(fs, rows, df.select(iz, torch.zeros_like(out), out))
 
-    return {"te_chain": te_chain, "inv": inv}
+    def te_scan(spec, P, qx, qy, qi):
+        """One one-row te_madd launch a row, from row R - 1 up, each
+        row's sum copied into the (4, R, 16, m) output."""
+        R, _, m = qx.shape
+        out = torch.empty((4, R, 16, m), dtype=torch.int32, device=P.device)
+        acc = P
+        for r in range(R - 1, -1, -1):
+            nxt = torch.empty_like(P)
+            _build.check(madd_fn(acc.data_ptr(), qx[r].data_ptr(),
+                                 qy[r].data_ptr(), qi[r].data_ptr(),
+                                 nxt.data_ptr(), m, words(spec), stream()),
+                         "parent te_madd")
+            out[:, r] = nxt
+            acc = nxt
+        return out
+
+    def rcb_double(spec, P):
+        out = torch.empty_like(P)
+        _build.check(rdbl_fn(P.data_ptr(), out.data_ptr(), P.shape[-1],
+                             words(spec), stream()), "parent rcb_double")
+        return out
+
+    return {"te_chain": te_chain, "inv": inv, "te_scan": te_scan,
+            "rcb_double": rcb_double}
 
 
 def scan_compare(res: dict, variants: dict, dev) -> None:
@@ -925,8 +1010,98 @@ def te_chain_compare(res: dict, parent, dev) -> None:
             flush=True)
 
 
+def te_scan_compare(res: dict, variants: dict, parent, dev) -> None:
+    """te_madd's row scan on curve25519, committed and each variant (and
+    the parent's one launch and one copy a row), at 32 rows of
+    chip_smoke.SCAN_LANES and at SCAN_EXTRA (chip_smoke's scan_operands:
+    doubling, cancelling, identity and (0, 1) lanes): bit-equal, then ms
+    from CUDA graphs in turns into res["te_scan"]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import kernels as kk
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    runs = {"committed": kk.te_madd, **variants}
+    if parent:
+        runs["parent"] = parent["te_scan"]
+    check = cs.KernelCheck(dev, cs.Bound(1980))
+    res["te_scan"] = {}
+    curve = curves.curve25519
+    spec = spec_for(curve)
+    for R, L in [(32, L) for L in cs.SCAN_LANES] + SCAN_EXTRA:
+        ops = check.scan_operands(curve, spec, R, L, R + L)
+        want = kk.te_madd(spec, *ops)
+        for name, run in runs.items():
+            if not torch.equal(run(spec, *ops), want):
+                res["failures"].append(f"te scan {R} x {L}: {name} differs")
+        times = in_turns(runs, lambda run: run(spec, *ops), 5)
+        key = f"{R} x {L}"
+        res["te_scan"][key] = times
+        print(f"  te_madd scan {key} (ms, mean of 2): " + "; ".join(
+            f"{name} {statistics.mean(t):.4f}" for name, t in times.items()),
+            flush=True)
+        del ops, want
+    torch.cuda.empty_cache()
+
+
+def rcb_double_launcher(path: str):
+    """rcb_double of the kernel library at `path`, taking (spec, P)."""
+    import ctypes
+
+    import torch
+
+    fn = launcher(ctypes.CDLL(path), "rcb_double")
+
+    def run(spec, P):
+        out = torch.empty_like(P)
+        fn(spec, P.data_ptr(), out.data_ptr(), P.shape[-1])
+        return out
+
+    return run
+
+
+def rcb_double_compare(res: dict, variants: dict, parent, dev) -> None:
+    """rcb_double, committed and each variant (and the parent's), at
+    DBL_LANES on secq256k1 and zorro (row 0 of chip_smoke's model_points
+    in RCB coordinates, identity lanes among them): bit-equal, then ms
+    from CUDA graphs in turns into res["rcb_double"]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import kernels as kk
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    runs = {"committed": kk.rcb_double, **variants}
+    if parent:
+        runs["parent"] = parent["rcb_double"]
+    check = cs.KernelCheck(dev, cs.Bound(1980))
+    res["rcb_double"] = {}
+    for curve in (curves.secq256k1, curves.zorro):
+        spec = spec_for(curve)
+        for L in DBL_LANES:
+            T, _ = check.model_points(curve, spec, 1, L, L, rcb=True)
+            P = T[:, 0].contiguous()
+            del T
+            want = kk.rcb_double(spec, P)
+            for name, run in runs.items():
+                if not torch.equal(run(spec, P), want):
+                    res["failures"].append(f"rcb_double {curve.name} {L}: "
+                                           f"{name} differs")
+            times = in_turns(runs, lambda run: run(spec, P), 20)
+            key = f"{curve.name} {L}"
+            res["rcb_double"][key] = times
+            print(f"  rcb_double {key} lanes (ms, mean of 2): " + "; ".join(
+                f"{name} {statistics.mean(t):.4f}"
+                for name, t in times.items()), flush=True)
+            del P, want
+        torch.cuda.empty_cache()
+
+
 PARTS = ("ops", "fs", "jac", "rcb_te", "wide", "chains", "scan", "chain",
-         "field", "te_chain", "msm")
+         "field", "te_chain", "te_scan", "rcb_double", "msm")
 
 
 def main() -> int:
@@ -964,32 +1139,40 @@ def main() -> int:
                            ("rcb_te", RCB_TE_VARIANTS),
                            ("wide", WIDE_VARIANTS), ("fs", FS_VARIANTS),
                            ("scan", SCAN_VARIANTS),
+                           ("te_scan", TE_SCAN_VARIANTS),
+                           ("rcb_double", DBL_VARIANTS),
                            ("field", FIELD_VARIANTS)):
         if part in parts:
             wanted.update(variants)
     bench_dir = os.path.join(_build.BUILD_DIR, "bench")
     procs = build_variants(bench_dir, wanted)
     parent = (parent_launchers(args.parent, bench_dir) if args.parent
-              and parts & {"field", "te_chain"} else None)
+              and parts & {"field", "te_chain", "te_scan", "rcb_double"}
+              else None)
     _build.lib()
     res["build_s"] = time.perf_counter() - t0
     ptx = [line for line in cs.ptxas_report(_build.build_log or "")
            if re.match(r"(suffix_|rowsum|horner|mont_mul|double_k_add|fs_|"
-                       r"madd_scan|double_chain)", line)]
+                       r"madd_scan|double_chain|double_wide)", line)]
     chains, dkas, fss, scans, fields = {}, {}, {}, {}, {}
+    te_scans, dbls = {}, {}
     for name, (p, lib) in procs.items():
         log = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         ptx += [f"{name}: {line}" for line in cs.ptxas_report(log)
                 if re.match(r"(suffix_jac|rowsum|double_k_add|fs_|madd_scan|"
-                            r"double_chain|mont_mul)", line)]
+                            r"double_chain|double_wide|mont_mul)", line)]
         if name in CHAIN_VARIANTS:
             chains[name] = chain_launchers(lib)
         elif name in FS_VARIANTS:
             fss[name] = fs_launcher(lib)
         elif name in SCAN_VARIANTS:
             scans[name] = scan_launcher(lib)
+        elif name in TE_SCAN_VARIANTS:
+            te_scans[name] = scan_launcher(lib, "te_madd")
+        elif name in DBL_VARIANTS:
+            dbls[name] = rcb_double_launcher(lib)
         elif name in FIELD_VARIANTS:
             fields[name] = mont_mul_launcher(lib)
         else:
@@ -1020,6 +1203,10 @@ def main() -> int:
         field_compare(res, fields, parent, dev)
     if "te_chain" in parts:
         te_chain_compare(res, parent, dev)
+    if "te_scan" in parts:
+        te_scan_compare(res, te_scans, parent, dev)
+    if "rcb_double" in parts:
+        rcb_double_compare(res, dbls, parent, dev)
     if "ops" in parts:
         res["sass_mont_mul"] = sass_mix(_build.library_path(),
                                         "mont_mul_kernel")

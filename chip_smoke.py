@@ -32,14 +32,13 @@ Phases, each printed with its seconds:
      curve25519 in microseconds beside the bound and the critical path;
      fs_round at P = 1, 2, 33 and 128 transcripts on the three curves,
      with L = O, R = O and both on secq256k1 and zorro; the v1
-     Pippenger's row scan, jac_madd over 1 to 32 rows (secq256k1, zorro),
-     at every (rows, lanes) a path sends (SCAN_ROWS x SCAN_LANES: up to
-     32 x 131,072) and both sides of its band edge, one launch a shape,
-     with doubling, cancelling, P = O and q_inf lanes, its one-row form,
+     Pippenger's row scan, jac_madd over 1 to 32 rows (secq256k1, zorro)
+     and te_madd (curve25519), at every (rows, lanes) a path sends
+     (SCAN_ROWS x SCAN_LANES: up to 32 x 131,072) and both sides of each
+     band edge, one launch a shape, with doubling, cancelling, P = O and
+     q_inf lanes (on curve25519 also (0, 1) rows), its one-row form,
      timed at 32 x 32,768 and 32 x 512 beside the bound and the critical
-     path; te_madd (curve25519), one launch a row of the TE scan, at
-     65,536 and 1 lanes with P = O, Q = O, P = Q and P = -Q lanes
-     (te_double_k_add also at k = 1 and 4); the field kernels on the
+     path; the field kernels on the
      fr and fq of the three curves at FIELD_LANES (1 to 65,536), with 0,
      1, p - 1 and p - 2 lanes: mont_mul with a (16, 1) operand on either
      side and per row, and with a third operand added or subtracted (c
@@ -59,8 +58,9 @@ Phases, each printed with its seconds:
      set, W = 22, c = 12) and the create_batch v1 shape (256 sets,
      W = 64, c = 4) with identity parts, from the identity and from the
      top window, also equal to the W-step double-k-add loop on the card;
-     rcb_double on secq256k1 and zorro at 65,536 and 1 lanes with
-     identity lanes; row_gather against index_select at the DMA probe's
+     rcb_double on secq256k1 and zorro at 1, 2, 3, 65,536 and 2^20 lanes
+     and its band edge and the lane on each side, with identity lanes,
+     each timed beside the bound and the critical path; row_gather against index_select at the DMA probe's
      shape (2^22 rows of a 2^20-row table) and stage B's row count
      (22 x 2^20 rows); stages D and F's suffix_jac_scan and rowsum on the
      three curves at every (rows, lanes) the paths launch them at
@@ -75,8 +75,8 @@ Phases, each printed with its seconds:
      mont_inv_batch at 1,024 lanes; te_double's chain at 255 x 1;
      jac_double_k_add at the P = 128 batch tree's first 32,768 lanes,
      jac_double's chain at 255 steps of one lane, fs_round at P = 1 and
-     128, jac_madd's scan at create_batch's 32 rows of 32,768 lanes and
-     te_madd at its 32,768 lanes, horner_windows
+     128, jac_madd's and te_madd's scans at create_batch's 32 rows of
+     32,768 lanes, horner_windows
      at the stage-G shape and against its loop (also in microseconds a
      group operation of the chain), jac_horner_windows at the v1 shape,
      rcb_double at 65,536 lanes, row_gather at both shapes beside
@@ -136,9 +136,11 @@ Phases, each printed with its seconds:
      double-k-add kernel at k > 0; and the most lanes suffix_jac_scan,
      rowsum and the three double-k-add kernels were launched at over
      those paths, no more than phase 2 held them at, with every lane
-     count sent; and every (rows, lanes) of jac_madd and mont_inv_batch,
-     (steps, lanes) of jac_double and te_double and rows of sum_mod a
-     path sent, each among the shapes phase 2 held;
+     count sent; and every (rows, lanes) of jac_madd, te_madd and
+     mont_inv_batch, (steps, lanes) of jac_double and te_double and rows
+     of sum_mod a path sent, each among the shapes phase 2 held; then
+     te_madd's scan timed at the largest (rows, lanes) a path sent it,
+     beside the bound and the critical path;
  15. traces: the card prove (secq256k1 and curve25519) and the verify
      once more each under torch.profiler, which splits card time from
      host time and names the largest kernels (last, so that no timing
@@ -262,6 +264,10 @@ FIELD_LANES = (1, 2, 33, 2048, MM_LANES, 9 * 2048, 1 << 16)
 # with its two rows (X, Y) multiplied in; held with and without rows.
 INV_LANES = (1, 2, 33, 512, 1024, 8192)
 INV_TIMED = 1024
+# rcb_double's lane counts (no path sends it): 1 to 3, 65,536 (the
+# table's) and 2^20, and its band edge (kk.DBL_BANDS) with the lane on
+# each side.
+RCB_DBL_LANES = (1, 2, 3, 1 << 16, 1 << 20)
 # sum_mod's rows (one thread a row, 128 a block): a single proof's dot
 # (1), an IPA round's c_L, c_R (2), the vector phase's nine dots (9), a
 # batch IPA's 2P at P = 128 (create_batch, prove_batch: 256) and the
@@ -462,8 +468,9 @@ class PathLanes:
     """The most lanes (with the rows or k, and the counted path then, None
     between paths) that stages D and F's kernels and the three
     double-k-add kernels are launched at in phases 3-13, and every lane
-    count sent (at k > 0 apart); and every (rows, lanes) of jac_madd and
-    mont_inv_batch (rows 0: the inverses alone) and (steps, lanes) of
+    count sent (at k > 0 apart); and every (rows, lanes) of jac_madd,
+    te_madd and mont_inv_batch (rows 0: the inverses alone) and (steps,
+    lanes) of
     jac_double and te_double and rows of sum_mod, each with the first
     path that sent it,
     which must be among the shapes phase 2 held (`held`, KernelCheck's).
@@ -474,6 +481,7 @@ class PathLanes:
 
     # name: (what the shape is, the shape from the arguments)
     SHAPES = {"jac_madd": ("(rows, lanes)", lambda a: (a[5], a[6])),
+              "te_madd": ("(rows, lanes)", lambda a: (a[5], a[6])),
               "jac_double": ("(steps, lanes)", lambda a: (a[3], a[2])),
               "te_double": ("(steps, lanes)", lambda a: (a[3], a[2])),
               "mont_inv_batch": ("(rows, lanes)", lambda a: (a[4], a[3])),
@@ -1003,11 +1011,14 @@ class KernelCheck:
               flush=True)
 
     def scan_operands(self, curve, spec, R: int, L: int, seed: int):
-        """jac_madd's row-scan operands: P (3, 16, L) Jacobian with a
-        random Z, rows qx, qy (R, 16, L) of affine points from a pool of
-        256 chain points and their negatives, q_inf (R, L); by lane % 6 (so
-        that every prefix of the lanes holds each kind): 0 random; 1 P = O
-        and Q_{R-2} = Q_{R-1} (a doubling at the second add); 2 P = O and
+        """The row scan's operands (jac_madd, or te_madd on a
+        twisted-Edwards curve): P (NC, 16, L) Jacobian (x Z^2, y Z^3, Z)
+        or extended (x Z, y Z, x y Z, Z) with a random Z, rows qx, qy (R,
+        16, L) of affine points from a pool of 256 chain points and their
+        negatives, q_inf (R, L); by lane % 6 (so that every prefix of the
+        lanes holds each kind): 0 random, on TE every other such lane with
+        (0, 1) as an ordinary affine point in row R - 1; 1 P = O and
+        Q_{R-2} = Q_{R-1} (a doubling at the second add); 2 P = O and
         Q_{R-2} = -Q_{R-1} (a cancellation, then adds from O); 3 Q_{R-1}
         = P (a doubling at the first add); 4 Q_{R-1} = -P; 5 about 40% of
         the rows the identity (y = 0, q_inf), P = O on every other such
@@ -1016,6 +1027,7 @@ class KernelCheck:
 
         from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
         from ark_bulletproofs_tpu_torch.ops import field as df
+        from ark_bulletproofs_tpu_torch.ops import proj
         from ark_bulletproofs_tpu_torch.ops.curve import affine_to_device
 
         fq = spec.fq
@@ -1043,33 +1055,45 @@ class KernelCheck:
         z[15] = 0  # below p
         z[0] |= 1  # not zero
         mm = lambda a, b: df.mont_mul(fq, a, b).to(torch.int32)  # noqa
-        z2 = mm(z, z)
-        P = torch.stack([mm(pool[0][:, ip], z2),
-                         mm(pool[1][:, ip], mm(z2, z)), z])
         p_inf = (kind == 1) | (kind == 2) | ((kind == 5) & (lane // 6 % 2
                                                              == 1))
-        P = torch.where(p_inf, 0, P).contiguous()
+        x, y = pool[0][:, ip], pool[1][:, ip]
+        if model(spec) == "te":
+            zy = (kind == 0) & (lane // 6 % 2 == 1)  # (0, 1) in row R - 1
+            xy[0, R - 1].masked_fill_(zy, 0)
+            xy[1, R - 1] = torch.where(zy, df.const(fq.r_limbs, self.dev)
+                                       .to(torch.int32), xy[1, R - 1])
+            P = torch.stack([mm(x, z), mm(y, z), mm(mm(x, y), z), z])
+            zero = proj.point_zero(spec, L, self.dev).to(torch.int32)
+            P = torch.where(p_inf, zero, P).contiguous()
+        else:
+            z2 = mm(z, z)
+            P = torch.stack([mm(x, z2), mm(y, mm(z2, z)), z])
+            P = torch.where(p_inf, 0, P).contiguous()
         return P, xy[0].contiguous(), xy[1].contiguous(), q_inf.contiguous()
 
     def run_madd_scan(self, curve, seed: int, timed: bool) -> None:
-        """jac_madd's row scan, one launch a (rows, lanes), bit-equal to
-        its plain version at every row count of SCAN_ROWS and lane count of
-        SCAN_LANES (up to 32,768 lanes below 32 rows) and at the band edges
+        """The v1 row scan, one launch a (rows, lanes): jac_madd, or
+        te_madd on a twisted-Edwards curve, bit-equal to its plain version
+        at every row count of SCAN_ROWS and lane count of SCAN_LANES (up to
+        32,768 lanes below 32 rows) and at the model's band edges
         (kk.MADD_BANDS) and the lanes below them, on scan_operands: the
         kernel runs on the first L lanes of one operand set per row count,
         the plain scan once on all of them. Timed at create_batch's
         32 x 32,768 (the table's shape) and one set's 32 x 512 (n = 256),
-        beside the bound and the critical path."""
+        beside the bound (a TE mixed add is 11 products on every lane and
+        row but the q_inf rows) and the critical path."""
         import torch
 
         from ark_bulletproofs_tpu_torch.ops import kernels as kk
         from ark_bulletproofs_tpu_torch.ops.curve import spec_for
 
         spec = spec_for(curve)
-        g2, one = kk.MADD_BANDS["jac"]
-        fe = FE_MULS["jac"]
-        dbl = fe["double"] if spec.is_a_zero else fe["double_a"]
-        dbl_lv = 3 if spec.is_a_zero else 4
+        te = model(spec) == "te"
+        name = "te_madd" if te else "jac_madd"
+        wrapper = kk.te_madd if te else kk.jac_madd
+        plain = kk.te_madd_plain if te else kk.jac_madd_plain
+        g2, one = kk.MADD_BANDS["te" if te else "jac"]
         t0 = time.perf_counter()
         shapes = []
         for R in SCAN_ROWS:
@@ -1079,46 +1103,74 @@ class KernelCheck:
                               if L <= top})
             P, qx, qy, qi = self.scan_operands(curve, spec, R, max(lanes),
                                                seed + R)
-            want = kk.jac_madd_plain(spec, P, qx, qy, qi)
+            want = plain(spec, P, qx, qy, qi)
             for L in lanes:
                 ops = [t[..., :L].contiguous() for t in (P, qx, qy, qi)]
-                self.compare("jac_madd", kk.jac_madd(spec, *ops),
-                             want[..., :L])
-                self.held.setdefault("jac_madd", set()).add((R, L))
+                self.compare(name, wrapper(spec, *ops), want[..., :L])
+                self.held.setdefault(name, set()).add((R, L))
                 if R == 1:  # the one-row form
-                    self.compare("jac_madd", kk.jac_madd(
+                    self.compare(name, wrapper(
                         spec, ops[0], *(t[0] for t in ops[1:])),
                         want[:, 0, :, :L])
-                if not timed or (R, L) not in ((32, TREE_LANES), (32, 512)):
-                    continue
-                ms = graph_ms(lambda: kk.jac_madd(spec, *ops), 5)
-                # the lanes that double (kinds 3, and 1 from two rows)
-                doubling = sum(1 for j in range(L)
-                               if j % 6 == 3 or (j % 6 == 1 and R > 1))
-                bound = self.bound(
-                    (3 * 64 + R * (2 * 64 + 1) + 3 * R * 64) * L,
-                    (R * L * fe["madd"] + doubling * dbl) * MULS_PER_FE_MUL)
-                if L >= one:
-                    path = (f"one thread a lane: {R} x {fe['madd']} "
-                            f"products")
-                else:  # levels of 2, 2, 4, 2, 2 products
-                    G, levels = (4, 5) if L < g2 else (2, 6)
-                    path = (f"a group of {G} threads a lane: {R} x "
-                            f"{levels} product levels")
-                print(f"   {curve.name} jac_madd scan {R} x {L}: kernel "
-                      f"{ms:.4f} ms ({ms * 1e3 / R:.2f} us a row); bound "
-                      f"{bound[0]:.5g} ms ({bound[1]}); critical path "
-                      f"({path}, {dbl_lv} levels or {dbl} products more on "
-                      f"a doubling lane)", flush=True)
-                if L == TREE_LANES:
-                    self.times["jac_madd"] = (ms, host_ms(
-                        lambda: kk.jac_madd_plain(spec, *ops)), *bound)
+                if timed and (R, L) in ((32, TREE_LANES), (32, 512)):
+                    ms, bound = self.time_madd_scan(spec, ops)
+                    if L == TREE_LANES:
+                        self.times[name] = (ms, host_ms(
+                            lambda: plain(spec, *ops)), *bound)
             shapes += [(R, L) for L in lanes]
             del P, qx, qy, qi, want
             torch.cuda.empty_cache()
-        print(f"   {curve.name} jac_madd row scan at {len(shapes)} (rows, "
+        print(f"   {curve.name} {name} row scan at {len(shapes)} (rows, "
               f"lanes) from {shapes[0]} to {shapes[-1]}: bit-equal "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def time_madd_scan(self, spec, ops) -> tuple:
+        """The row scan's ms on operands `ops` (P, qx, qy, q_inf) from a
+        CUDA graph, printed beside its bound and critical path; returns
+        (ms, (bound ms, bound_by))."""
+        from ark_bulletproofs_tpu_torch.ops import kernels as kk
+
+        te = model(spec) == "te"
+        wrapper = kk.te_madd if te else kk.jac_madd
+        R, _, L = ops[1].shape
+        ms = graph_ms(lambda: wrapper(spec, *ops), 5)
+        g2, one = kk.MADD_BANDS["te" if te else "jac"]
+        nc = 4 if te else 3
+        nbytes = (nc * 64 + R * (2 * 64 + 1) + nc * R * 64) * L
+        if te:  # 11 products an add, the q_inf rows none
+            adds = R * L - int(ops[3].sum())
+            bound = self.bound(nbytes, adds * FE_MULS["te"]["madd"]
+                               * MULS_PER_FE_MUL)
+            if L >= one:
+                path = f"one thread a lane: {R} x 11 products"
+            elif L >= g2:  # levels of 4, 3, 4 products
+                path = f"a group of 2 threads a lane: {R} x 6 product rounds"
+            else:
+                path = (f"a group of 4 threads a lane: {R} x 3 product "
+                        f"levels, and the first row's t2")
+            extra = ""
+        else:
+            fe = FE_MULS["jac"]
+            dbl = fe["double"] if spec.is_a_zero else fe["double_a"]
+            dbl_lv = 3 if spec.is_a_zero else 4
+            # the lanes that double (kinds 3, and 1 from two rows)
+            doubling = sum(1 for j in range(L)
+                           if j % 6 == 3 or (j % 6 == 1 and R > 1))
+            bound = self.bound(nbytes, (R * L * fe["madd"] + doubling * dbl)
+                               * MULS_PER_FE_MUL)
+            if L >= one:
+                path = f"one thread a lane: {R} x {fe['madd']} products"
+            else:  # levels of 2, 2, 4, 2, 2 products
+                G, levels = (4, 5) if L < g2 else (2, 6)
+                path = (f"a group of {G} threads a lane: {R} x {levels} "
+                        f"product levels")
+            extra = (f", {dbl_lv} levels or {dbl} products more on a "
+                     f"doubling lane")
+        print(f"   {spec.name} {wrapper.__name__} scan {R} x {L}: kernel "
+              f"{ms:.4f} ms ({ms * 1e3 / R:.2f} us a row); bound "
+              f"{bound[0]:.5g} ms ({bound[1]}); critical path ({path}"
+              f"{extra})", flush=True)
+        return ms, bound
 
     def run_double_chain(self, curve, seed: int, timed: bool) -> None:
         """jac_double's chain (a group of 4 threads a lane) bit-equal to
@@ -1168,44 +1220,6 @@ class KernelCheck:
         if spec.is_a_zero:
             self.times["jac_double"] = (ms, host_ms(
                 lambda: kk.jac_double_plain(spec, P1, steps)), *bound)
-
-    def run_te_madd(self, curve, seed: int, timed: bool) -> None:
-        """te_madd (one launch a row of the TE v1 Pippenger's scan)
-        bit-equal to its plain version at 65,536 and 1 lanes: P = row 0 of
-        model_points, Q the affine row 1 of affine_rows, so the lanes hold
-        P = Q (doubling), P = -Q, P = O and Q = O (y = 0 rows); timed at the
-        create_batch row scan's 32,768 lanes (n = 64: 256 sets x 64
-        windows x 2 columns)."""
-        import torch
-
-        from ark_bulletproofs_tpu_torch.ops import kernels as kk
-        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
-
-        spec = spec_for(curve)
-        t0 = time.perf_counter()
-
-        def operands(L: int, seed: int):
-            T, ident = self.model_points(curve, spec, 2, L, seed)
-            xy = self.affine_rows(curve, spec, 2, L, seed)
-            return (T[:, 0].contiguous(), xy[0, 1].contiguous(),
-                    xy[1, 1].contiguous(), ident[1].contiguous())
-
-        for L in (2 * 128 * 256, 1):
-            ops = operands(L, seed + L)
-            self.compare("te_madd", kk.te_madd(spec, *ops),
-                         kk.te_madd_plain(spec, *ops))
-        torch.cuda.synchronize()
-        print(f"   {curve.name} te_madd at 65536 and 1 lanes: bit-equal "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        if not timed:
-            return
-        m = TREE_LANES
-        ops = operands(m, seed)
-        self.times["te_madd"] = (
-            graph_ms(lambda: kk.te_madd(spec, *ops), 20),
-            host_ms(lambda: kk.te_madd_plain(spec, *ops)),
-            *self.bound((2 * 4 * 16 * 4 + 2 * 16 * 4 + 1) * m,
-                        m * FE_MULS["te"]["madd"] * MULS_PER_FE_MUL))
 
     @staticmethod
     def fs_round_muls(spec, P: int) -> int:
@@ -1652,32 +1666,55 @@ class KernelCheck:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     def run_rcb_double(self, curve, seed: int, timed: bool) -> None:
-        """rcb_double (through kernels.double) bit-equal to its plain
-        version on scan output at 65,536 and 1 lanes, the first sixteenth
-        of the lanes the identity; timed at 65,536 lanes. No path calls
-        it, as in the JAX package."""
+        """rcb_double (kernels.double at 65,536 lanes, and the wrapper)
+        bit-equal to its plain version at RCB_DBL_LANES and at the model's
+        band edge (kk.DBL_BANDS) and the lane on each side: the kernel on
+        the first L lanes of row 0 of model_points (RCB projective with a
+        random Z, about a third of the lanes the identity), the plain
+        version once on all of them. Timed at those lane counts from a
+        CUDA graph beside the bound and the critical path; the table keeps
+        65,536 lanes. No path calls it, as in the JAX package."""
+        import torch
+
         from ark_bulletproofs_tpu_torch.ops import kernels as kk
-        from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
-        from ark_bulletproofs_tpu_torch.ops import proj
         from ark_bulletproofs_tpu_torch.ops.curve import spec_for
 
         spec = spec_for(curve)
-        for L in (1 << 16, 1):
-            T = k2.suffix_madd_scan(spec, self.affine_rows(curve, spec, 2, L,
-                                                           seed + L))
-            P = T[:, 0].contiguous()
-            ident = max(L // 16, 1) if L > 1 else 0
-            P[..., :ident] = proj.point_zero(spec, ident, self.dev)
-            self.compare("rcb_double", kk.double(spec, P),
-                         kk.rcb_double_plain(spec, P))
-            if timed and L > 1:
-                self.times["rcb_double"] = (
-                    graph_ms(lambda: kk.rcb_double(spec, P), 20),
-                    host_ms(lambda: kk.rcb_double_plain(spec, P)),
-                    *self.bound(2 * 3 * 16 * L * 4, L * FE_MULS["sw"][
-                        "double"] * MULS_PER_FE_MUL))
-        print(f"   {curve.name} rcb_double at 65536 and 1 lanes: bit-equal",
-              flush=True)
+        key = kk.dka_model(spec)
+        edge = kk.DBL_BANDS[key]
+        G = 4 if spec.is_a_zero else 8
+        # product levels of a group, products of one thread (csrc/rcb.cuh;
+        # zorro's a by double-and-add)
+        levels, products = (2, 8) if spec.is_a_zero else (3, 13)
+        lanes = sorted({*RCB_DBL_LANES, edge - 1, edge, edge + 1})
+        t0 = time.perf_counter()
+        T, _ = self.model_points(curve, spec, 1, max(lanes), seed, rcb=True)
+        P = T[:, 0].contiguous()
+        del T
+        want = kk.rcb_double_plain(spec, P)
+        for L in lanes:
+            P1 = P[..., :L].contiguous()
+            got = kk.double(spec, P1) if L == 1 << 16 else kk.rcb_double(
+                spec, P1)
+            self.compare("rcb_double", got, want[..., :L])
+            if not timed:
+                continue
+            ms = graph_ms(lambda: kk.rcb_double(spec, P1), 20)
+            bound = self.bound(2 * 3 * 16 * L * 4,
+                               L * products * MULS_PER_FE_MUL)
+            path = (f"one thread a lane: {products} products" if L >= edge
+                    else f"a group of {G} threads a lane: {levels} product "
+                    f"levels")
+            print(f"   {curve.name} rcb_double {L} lanes: kernel {ms:.4f} ms "
+                  f"({ms * 1e3:.2f} us); bound {bound[0]:.5g} ms "
+                  f"({bound[1]}); critical path ({path})", flush=True)
+            if L == 1 << 16 and spec.is_a_zero:
+                self.times["rcb_double"] = (ms, host_ms(
+                    lambda: kk.rcb_double_plain(spec, P1)), *bound)
+        del P, want
+        torch.cuda.empty_cache()
+        print(f"   {curve.name} rcb_double at {lanes} lanes: bit-equal "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     def run_row_gather(self) -> None:
         """row_gather bit-equal to index_select at the DMA probe's shape
@@ -2740,6 +2777,7 @@ def main() -> int:
     from ark_bulletproofs_tpu_torch.ops import fs, gather
     from ark_bulletproofs_tpu_torch.ops import kernels as kk
     from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
 
     engine.config.device = "cuda"
     dev = engine.torch_device()
@@ -2809,7 +2847,7 @@ def main() -> int:
         check.run_madd_scan(curves.zorro, seed=12, timed=False)
         check.run_double_chain(curves.secq256k1, seed=25, timed=True)
         check.run_double_chain(curves.zorro, seed=26, timed=True)
-        check.run_te_madd(curves.curve25519, seed=13, timed=True)
+        check.run_madd_scan(curves.curve25519, seed=13, timed=True)
         check.run_fs_round(curves.secq256k1, seed=8, timed=True)
         check.run_fs_round(curves.zorro, seed=9, timed=False)
         check.run_fs_round(curves.curve25519, seed=10, timed=False)
@@ -2817,7 +2855,7 @@ def main() -> int:
         check.run_horner(curves.zorro, seed=15, timed=False)
         check.run_horner(curves.curve25519, seed=16, timed=True)
         check.run_rcb_double(curves.secq256k1, seed=17, timed=True)
-        check.run_rcb_double(curves.zorro, seed=18, timed=False)
+        check.run_rcb_double(curves.zorro, seed=18, timed=True)
         check.run_row_gather()
         check.report()
     torch.cuda.empty_cache()
@@ -2850,6 +2888,16 @@ def main() -> int:
     with phase("14 launches"):
         launches.check()
         path_lanes.check()
+        te_sent = path_lanes.sent["te_madd"]
+        if not te_sent:
+            raise AssertionError("no curve25519 path sent te_madd")
+        R, L = max(te_sent, key=lambda s: (s[1] * s[0], s[1]))
+        print(f"   te_madd at the largest (rows, lanes) a path sent, "
+              f"{(R, L)} ({te_sent[(R, L)]}):", flush=True)
+        P, qx, qy, qi = check.scan_operands(
+            curves.curve25519, spec_for(curves.curve25519), R, L, seed=41)
+        check.time_madd_scan(spec_for(curves.curve25519), (P, qx, qy, qi))
+        del P, qx, qy, qi
     with phase("15 traces"):
         traced(f"secq256k1 card prove k={SHUFFLE_K}", prove)
         traced(f"secq256k1 verify k={SHUFFLE_K}", verify)

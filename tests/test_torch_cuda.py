@@ -951,12 +951,14 @@ def test_chain_kernels_on_both_sides_of_the_crossover(curve, lanes,
 
 
 def _scan_operands(curve, spec, R, lanes, dev, seed):
-    """jac_madd's row-scan operands: P (3, 16, lanes) Jacobian with a
-    random Z, rows qx, qy (R, 16, lanes) affine, q_inf (R, lanes); by
-    lane % 6: random; P = O and Q_{R-2} = Q_{R-1} (a doubling at the
-    second add); P = O and Q_{R-2} = -Q_{R-1} (a cancellation); Q_{R-1}
-    = P (a doubling at the first add); Q_{R-1} = -P; about 40% of the rows
-    the identity, P = O on every other such lane."""
+    """The row scan's operands (jac_madd, or te_madd on curve25519): P
+    (NC, 16, lanes) Jacobian or extended with a random Z, rows qx, qy (R,
+    16, lanes) affine, q_inf (R, lanes); by lane % 6: random (on
+    curve25519 every other such lane with (0, 1) as an ordinary point in
+    row R - 1); P = O and Q_{R-2} = Q_{R-1} (a doubling at the second
+    add); P = O and Q_{R-2} = -Q_{R-1} (a cancellation); Q_{R-1} = P (a
+    doubling at the first add); Q_{R-1} = -P; about 40% of the rows the
+    identity, P = O on every other such lane."""
     fq = spec.fq
     rng = seeded_rng(seed)
     X, Y, _ = affine_to_device(curve, [curve.rand(rng) for _ in range(32)],
@@ -986,10 +988,19 @@ def _scan_operands(curve, spec, R, lanes, dev, seed):
     def mm(a, b):
         return df.mont_mul(fq, a, b).to(torch.int32)
 
-    z2 = mm(z, z)
-    P = torch.stack([mm(pool[0][:, ip], z2), mm(pool[1][:, ip], mm(z2, z)),
-                     z])
+    x, y = pool[0][:, ip], pool[1][:, ip]
     p_inf = (kind == 1) | (kind == 2) | ((kind == 5) & (lane // 6 % 2 == 1))
+    if is_te(spec):
+        zy = (kind == 0) & (lane // 6 % 2 == 1)
+        xy[0, R - 1].masked_fill_(zy, 0)
+        xy[1, R - 1] = torch.where(zy, df.const(fq.r_limbs, dev)
+                                   .to(torch.int32), xy[1, R - 1])
+        P = torch.stack([mm(x, z), mm(y, z), mm(mm(x, y), z), z])
+        zero = proj.point_zero(spec, lanes, dev).to(torch.int32)
+        return (torch.where(p_inf, zero, P).contiguous(), xy[0].contiguous(),
+                xy[1].contiguous(), q_inf.contiguous())
+    z2 = mm(z, z)
+    P = torch.stack([mm(x, z2), mm(y, mm(z2, z)), z])
     P = torch.where(p_inf, 0, P).contiguous()
     return P, xy[0].contiguous(), xy[1].contiguous(), q_inf.contiguous()
 
@@ -1036,6 +1047,64 @@ def test_jac_madd_scan_on_both_sides_of_the_bands(curve, rows, lanes,
     assert kk.jac_madd.launches == before + 1
     assert got.shape == (3, rows, 16, lanes)
     assert torch.equal(got, want[..., :lanes])
+
+
+TE_SCAN_TEST_LANES = [1, 3, 128, 512, kk.MADD_BANDS["te"][0] - 1,
+                      kk.MADD_BANDS["te"][0], 32768,
+                      kk.MADD_BANDS["te"][1] - 1, kk.MADD_BANDS["te"][1],
+                      131072]
+
+
+@pytest.mark.parametrize("lanes", TE_SCAN_TEST_LANES)
+@pytest.mark.parametrize("rows", [1, 2, 16, 32])
+def test_te_madd_scan_on_both_sides_of_the_bands(rows, lanes, cuda_dev):
+    """te_madd's row scan on curve25519 (a group of 4 threads a lane, of 2
+    from kk.MADD_BANDS["te"][0] lanes, one thread from its [1]) with
+    doubling, cancelling, identity and (0, 1) lanes: bit-equal to its
+    plain version (the rows of one plain scan over the widest lanes), one
+    launch counted; madd_scan launches it once too."""
+    curve = curves.curve25519
+    spec = spec_for(curve)
+
+    def make():
+        ops = _scan_operands(curve, spec, rows, max(TE_SCAN_TEST_LANES),
+                             cuda_dev, seed=rows)
+        return ops, kk.te_madd_plain(spec, *ops)
+
+    ops, want = _widest((curve.name, "te scan", rows), make)
+    ops = [t[..., :lanes].contiguous() for t in ops]
+    before = kk.te_madd.launches
+    got = kk.te_madd(spec, *ops)
+    assert kk.te_madd.launches == before + 1
+    assert got.shape == (4, rows, 16, lanes)
+    assert torch.equal(got, want[..., :lanes])
+    assert torch.equal(kk.madd_scan(spec, *ops), got)
+    assert kk.te_madd.launches == before + 2
+
+
+@pytest.mark.parametrize("curve", CURVES[:2], ids=lambda c: c.name)
+def test_rcb_double_on_both_sides_of_the_band(curve, cuda_dev):
+    """rcb_double (a group of 4 threads a lane on a = 0, of 8 on zorro;
+    one thread from kk.DBL_BANDS) bit-equal to its plain version at 1, 2,
+    3, the band edge and the lane on each side, 65,536 and 2^20 lanes,
+    about a third of the lanes the identity: the kernel on a prefix of
+    one operand set, the plain version once on all of it; one launch a
+    lane count."""
+    spec = spec_for(curve)
+    edge = kk.DBL_BANDS[kk.dka_model(spec)]
+    lanes = sorted({1, 2, 3, edge - 1, edge, edge + 1, 1 << 16, 1 << 20})
+    xy = _affine_rows(curve, spec, 1, cuda_dev, seed=23)[:, 0]
+    reps = -(-max(lanes) // L)
+    X, Y = (c.repeat(1, reps)[:, :max(lanes)] for c in xy)
+    P = k2.suffix_madd_scan(spec, torch.stack([X, Y]).unsqueeze(1)
+                            .contiguous())[:, 0].contiguous()
+    P[..., 1::3] = proj.point_zero(spec, 1, cuda_dev).to(torch.int32)
+    want = kk.rcb_double_plain(spec, P)
+    for n in lanes:
+        before = kk.rcb_double.launches
+        got = kk.rcb_double(spec, P[..., :n].contiguous())
+        assert kk.rcb_double.launches == before + 1
+        assert torch.equal(got, want[..., :n]), n
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 65536])

@@ -269,7 +269,8 @@ def test_jac_madd_scan_and_double_chain_bands_follow_the_launcher():
     MADD_ONE_THREAD_MIN_LANES: csrc/jac_kernels.cu's row-scan launcher
     runs one thread a lane from the second edge, a group of 2 threads a
     lane from the first, a group of MADD_GRP = 4 below it; its chain
-    launcher runs a group of GRP = 4 threads a lane at every lane count.
+    launcher runs a group of GRP = 4 threads a lane at every lane count
+    (the chain's one-thread band is RcbModel's alone: DBL_WIDE is false).
     Both extern launchers go through them for both Jacobian models and
     launch nothing themselves. A group of 4 holds a level of the mixed add
     (at most 4 products: madd-2007-bl's HH, I, rr^2, (Z1 + H)^2) and of
@@ -284,6 +285,7 @@ def test_jac_madd_scan_and_double_chain_bands_follow_the_launcher():
     blocks = re.search(r"static constexpr int MADD_MIN_BLOCKS = ([^;]+);",
                        jac).group(1)
     assert min(map(int, re.findall(r"\d+", blocks))) >= 1
+    assert "static constexpr bool DBL_WIDE = false;" in jac
     for launcher, edges, group, kernel, sizes in (
             ("launch_madd_scan", ["MADD_ONE_THREAD_MIN_LANES",
                                   "MADD_GROUP2_MIN_LANES"], "MADD_GRP",
@@ -295,6 +297,10 @@ def test_jac_madd_scan_and_double_chain_bands_follow_the_launcher():
         assert f"constexpr int G = M::{group};" in body
         assert re.findall(r"if \(m >= M::(\w+)\)", body) == edges
         assert re.findall(rf"{kernel}<M, (\w+)>", body) == sizes
+        if launcher == "launch_double_chain":  # RcbModel's band only
+            assert ("if constexpr (M::DBL_WIDE) {\n    if (m >= "
+                    "M::DBL_ONE_THREAD_MIN_LANES && steps == 1 && keep == 0)"
+                    " {\n      double_wide_kernel<M>") in body
     for name, launcher in (("jac_madd", "launch_madd_scan"),
                            ("jac_double", "launch_double_chain")):
         body = _extern(src, name)
@@ -303,6 +309,52 @@ def test_jac_madd_scan_and_double_chain_bands_follow_the_launcher():
         assert "<<<" not in body
     g2, one = kk.MADD_BANDS["jac"]
     assert 32 * 16 < g2 <= one
+
+
+def test_te_madd_scan_and_rcb_double_bands_follow_the_launcher():
+    """kernels.MADD_BANDS["te"] holds TeModel's MADD_GROUP2_MIN_LANES and
+    MADD_ONE_THREAD_MIN_LANES, and kernels.DBL_BANDS RcbModel's
+    DBL_ONE_THREAD_MIN_LANES (a = 0, a != 0): abtpu_te_madd runs the row
+    scan of point_kernels.cuh on TeModel (a group of MADD_GRP = 4 threads
+    a lane, whose te_madd_grp levels hold at most 4 products, with the
+    next row's t2 computed ahead: MADD_AHEAD), abtpu_rcb_double the
+    doubling chain at one step on both RCB models (a group of GRP threads
+    a lane, and from the edge double_wide_kernel, one thread a lane under
+    launch bounds of DBL_MIN_BLOCKS resident blocks), and neither launches
+    a kernel itself; TeModel's chain keeps its group at every lane count.
+    The one-thread point kernels madd_kernel and double_kernel are gone.
+    One set's TE scan at n = 256 (32 x 512) is in the band of a group of
+    4."""
+    src = _src()
+    models = _models(src)
+    te, rcb = models["TeModel"], models["RcbModel"]
+    assert (_member(te, "MADD_GROUP2_MIN_LANES"),
+            _member(te, "MADD_ONE_THREAD_MIN_LANES")) == kk.MADD_BANDS["te"]
+    assert _member(te, "MADD_GRP") == 4
+    assert _member(te, "MADD_MIN_BLOCKS") >= 1
+    assert "static constexpr bool MADD_AHEAD = true;" in te
+    assert "static constexpr bool DBL_WIDE = false;" in te
+    assert "static constexpr bool DBL_WIDE = true;" in rcb
+    edge = re.search(r"static constexpr int64_t DBL_ONE_THREAD_MIN_LANES ="
+                     r"\s*([^;]+);", rcb).group(1).strip()
+    pair = (re.fullmatch(r"AZ \? (\d+) : (\d+)", edge).groups()
+            if edge.startswith("AZ") else (edge, edge))
+    assert {"rcb a=0": int(pair[0]), "rcb a": int(pair[1])} == kk.DBL_BANDS
+    blocks = re.search(r"static constexpr int DBL_MIN_BLOCKS = ([^;]+);",
+                       rcb).group(1)
+    assert min(map(int, re.findall(r"\d+", blocks))) >= 1
+    body = _extern(src, "te_madd")
+    assert re.findall(r"launch_madd_scan<(\w+)>", body) == ["TeModel"]
+    body = _extern(src, "rcb_double")
+    assert re.findall(r"launch_double_chain<(\w+)>\(P, out, m, 1, 0,",
+                      body) == ["RcbA0", "RcbA"]
+    assert "<<<" not in _extern(src, "te_madd") + body
+    assert "madd_kernel<" not in src.replace("madd_scan_kernel<", "")
+    assert "double_kernel<" not in src
+    g2, one = kk.MADD_BANDS["te"]
+    assert 32 * 16 < g2 <= one
+    for key, L in kk.DBL_BANDS.items():
+        assert 1 < L <= 1 << 20, key
 
 
 def _case(curve, n, seed):
