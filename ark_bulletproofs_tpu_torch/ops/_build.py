@@ -54,6 +54,9 @@ _SIGNATURES = {
     "abtpu_horner": [_P, _P, _P, _I64, _I64, _I64, _I32, _P, _P],
     "abtpu_jac_horner": [_P, _P, _P, _I64, _I64, _I64, _I32, _P, _P],
     "abtpu_row_gather": [_P, _P, _P, _I64, _I64, _I32, _P],
+    "abtpu_stage_table": [_P, _P, _P, _I64, _I64, _I64, _P, _P],
+    "abtpu_stage_gather": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                           _I64, _I32, _P],
     "abtpu_fs_round": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P,
                        _P],
     "abtpu_mont_mul": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,

@@ -8,9 +8,10 @@ bases:
   B. one sort per window row on int64 keys digit << lg n | index (c + lg n
      reaches 32 bits at n = 2^20, c = 12, so 32-bit keys would overflow):
      the sorted digits and the permutation from a single torch.sort;
-  C. the sorted points gathered into the (R, 16, L) layout, L = B W C
-     lanes of R = n / C rows, and suffix-summed per column by
-     `suffix_madd_scan` (W n mixed adds, the Pippenger work floor);
+  C. the sorted points gathered into the (2, R, 16, L) layout, L = B W C
+     lanes of R = n / C rows, by one `stage_gather` launch that reads the
+     sort order (and the base map) directly, and suffix-summed per column
+     by `suffix_madd_scan` (W n mixed adds, the Pippenger work floor);
   D. column carries, two levels: `suffix_jac_scan` over the c2 columns of
      each chunk, then over the c1 chunk totals, joined by one add;
   E. the window sum sum_j j B_j telescopes to sum_{j >= 1} T[pos_j], T the
@@ -23,11 +24,13 @@ bases:
      TPU and had no caller).
 
 The glue between the kernels is plain torch. What the JAX version did
-only for the TPU is re-decided: the x | y << 16 packed gather rows, the
-16-ary searchsorted pyramid, the one-hot-matmul bucket select and the
-C <= 64 carry layout are gone (C >= 256 here, so only the two-level carry
-and the gather paths exist), and the small Hillis-Steele chunk-carry
-suffix is a second `suffix_jac_scan`. PyTorch runs eagerly, so there is
+only for the TPU is re-decided: the x | y << 16 packed gather rows stay
+(on the H100 they halve the gather's random reads; the kernel unpacks
+them as it writes), while the 16-ary searchsorted pyramid, the
+one-hot-matmul bucket select and the C <= 64 carry layout are gone
+(C >= 256 here, so only the two-level carry and the gather paths
+exist), and the small Hillis-Steele chunk-carry suffix is a second
+`suffix_jac_scan`. PyTorch runs eagerly, so there is
 no fused-vs-staged split.
 
 The column plan (`plan_columns`) is this card's, not the TPU's. The W n
@@ -53,6 +56,7 @@ from __future__ import annotations
 
 import torch
 
+from . import gather
 from . import kernels as kk
 from . import kernels2 as k2
 from . import proj
@@ -171,21 +175,10 @@ def _stage_sort(g: _Cfg, scal: torch.Tensor):
 
 
 def _stage_gather(g: _Cfg, X, Y, inf, order, base_map=None):
-    """Sorted affine points -> (2, R, 16, L), identity rows with y = 0.
-    Sorted flat index i = col * R + r; lane = row * C + col.
-
-    base_map (B, n), optional: scalar j of set b multiplies table row
-    base_map[b, j] of a table that may be wider than n. It is composed
-    into the sort order (the table row of sorted slot i in row b * W + w
-    is base_map[b, order[i]]), so the one gather below stays the only
-    pass over the table and no gathered table is materialised."""
-    Yz = torch.where(inf, 0, Y)
-    table = torch.stack([X, Yz]).permute(2, 0, 1).contiguous()  # (m, 2, 16)
-    if base_map is not None:
-        bm = base_map.long().repeat_interleave(g.W, dim=0)  # (BW, n)
-        order = torch.gather(bm, 1, order)
-    ord_r = order.reshape(g.BW, g.C, g.R).permute(2, 0, 1).reshape(g.R, g.L)
-    return table[ord_r].permute(2, 0, 3, 1).contiguous()
+    """Sorted affine points -> (2, R, 16, L), identity rows with y = 0:
+    one `stage_gather` launch, straight from the sort order (base_map
+    composed in the kernel)."""
+    return gather.stage_gather(X, Y, inf, order, g.R, g.C, g.W, base_map)
 
 
 def _stage_carries(g: _Cfg, spec, locs: torch.Tensor) -> torch.Tensor:

@@ -60,9 +60,20 @@ with no minimum) at DBL_LANES (1 to 2^20) on secq256k1 and zorro. With
 one copy a row, and its rcb_double as it is, in the same turns. Every
 build's ptxas registers and spills are printed.
 
+The v2 MSM's stage-B gather (stage_gather: csrc/gather_kernels.cu's
+table kernel and gather kernel) at n = 2^20, B = 1 from a real sort and at
+the largest base-map shape a path sends (1,024 sets of 256), against
+GATHER_VARIANTS (tiles of 2 to 16 rows and of 512 points, the other block
+order, the (m, 2, 16) table of 128-byte rows, no L2 hint or another
+evict_last fraction, write-back stores) and the
+committed gather kernel on a table packed in torch, with the table's
+build and alone; the table kernel against its torch form; the gather
+kernel over tables of GATHER_SWEEP rows (what L2 misses cost); with
+--parent, the parent's torch stage B in the same turns.
+
 --parts picks the comparisons to run (default all): ops (one thread's
 cycles), fs, jac, rcb_te, wide, chains, scan, chain, field, te_chain,
-te_scan, rcb_double, msm.
+te_scan, rcb_double, stage_gather, msm.
 
 The last line is a JSON object of every number; --out also writes it to
 FILE. Needs one card; exits 1 without.
@@ -245,6 +256,68 @@ NEWTON = """    const int limit = min(eta + 1, i);
     fi *= 2u - f * fi;
     fi *= 2u - f * fi;"""
 FS_VARIANTS = {"fs newton step": ("fs_kernels.cu", [(FIVE_BIT, NEWTON)])}
+# stage_gather (csrc/gather_kernels.cu) under other tiles, row widths,
+# block orders, L2 hints and stores: each a text substitution of the
+# committed source. "rows fast" puts a lane tile's row tiles in
+# consecutive blocks; "128-byte rows" builds and reads an (m, 2, 16)
+# table of x and y limbs as the torch stage built it; "no L2 hint" loads
+# the table rows with __ldg, not under the evict_last policy;
+# "evict_last 0.5" and "0.25" give the policy (createpolicy.fractional)
+# to half and to a quarter of the lines, where the committed source gives
+# it to all. (An L2 persisting window over the table, which needs the
+# context's persisting set-aside, ran 2.3 times slower: PERF.md.)
+STAGE_KEEP = "evict_last.b64 %0, 1.0;"
+STAGE_STORE = """      const uint32_t w = s[k];
+      __stcs(out + o, (int32_t)(w & 0xFFFF));
+      __stcs(out + plane + o, (int32_t)(w >> 16));"""
+
+
+def _stage(a: str, b: str) -> list:
+    return [(f"#define {a}", f"#define {b}")]
+
+
+GATHER_VARIANTS = {
+    "rows 4 (64 x 4)": ("gather_kernels.cu",
+                        _stage("STAGE_ROWS 8", "STAGE_ROWS 4")),
+    "rows 2 (128 x 2)": ("gather_kernels.cu",
+                         _stage("STAGE_ROWS 8", "STAGE_ROWS 2")),
+    "rows 16 (16 x 16)": ("gather_kernels.cu",
+                          _stage("STAGE_ROWS 8", "STAGE_ROWS 16")),
+    "512 points (64 x 8)": ("gather_kernels.cu",
+                            _stage("STAGE_POINTS 256", "STAGE_POINTS 512")),
+    "rows fast": ("gather_kernels.cu", [(
+        """  // A row tile's lane tiles in consecutive blocks.
+  const int64_t nlt = ((int64_t)L + tl - 1) >> lg_tl;
+  const int64_t rt = blockIdx.x / nlt, lt = blockIdx.x - rt * nlt;""",
+        """  const int64_t ntr = (R + tr - 1) >> lg_tr;
+  const int64_t lt = blockIdx.x / ntr, rt = blockIdx.x - lt * ntr;""")]),
+    "128-byte rows": ("gather_kernels.cu", [
+        ("constexpr int RW = 16;", "constexpr int RW = 32;"),
+        ("      s[t * (RW + 1) + k] = x | (y << 16);",
+         """      s[t * (RW + 1) + k] = x;
+      s[t * (RW + 1) + 16 + k] = y;"""),
+        (STAGE_STORE, """      __stcs(out + o, (int32_t)s[k]);
+      __stcs(out + plane + o, (int32_t)s[16 + k]);""")]),
+    "no L2 hint": ("gather_kernels.cu", [
+        ("q[j] = ld_keep(tbl + (int64_t)row * VEC + f % VEC, keep);",
+         "q[j] = __ldg(tbl + (int64_t)row * VEC + f % VEC);")]),
+    "evict_last 0.5": ("gather_kernels.cu", [
+        (STAGE_KEEP, STAGE_KEEP.replace("1.0", "0.5"))]),
+    "evict_last 0.25": ("gather_kernels.cu", [
+        (STAGE_KEEP, STAGE_KEEP.replace("1.0", "0.25"))]),
+    "write-back stores": ("gather_kernels.cu", [
+        ("__stcs(out + o, (int32_t)(w & 0xFFFF));",
+         "out[o] = (int32_t)(w & 0xFFFF);"),
+        ("__stcs(out + plane + o, (int32_t)(w >> 16));",
+         "out[plane + o] = (int32_t)(w >> 16);")]),
+}
+# The table sizes of the miss sweep: stage B at n = 2^20 with its order
+# taken mod m' over a table of m' rows (64 bytes each, packed).
+GATHER_SWEEP = (1 << 12, 1 << 16, 1 << 18, 1 << 19, 1 << 20)
+# stage_gather's shapes: (n, B, mapped); the largest base_map batch a path
+# sends, then stage B at n = 2^20 (the order of a real _stage_sort).
+GATHER_SHAPES = [(256, 1024, True), (N_MSM, 1, False)]
+
 # One thread's latency, in SM cycles (clock64), of fs_round's parts:
 # Keccak-f[1600] on shared lanes, a chain of fe_mul, a chain of fe_inv_var.
 OP_PROBE = r"""
@@ -1100,8 +1173,196 @@ def rcb_double_compare(res: dict, variants: dict, parent, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def stage_gather_launcher(path: str):
+    """The stage-B gather of the kernel library at `path`, taking the
+    wrapper's arguments: its table kernel (abtpu_stage_table) builds the
+    table its gather kernel reads, then abtpu_stage_gather launches; also
+    `run.table(X, Y, inf, words)` and `run.kernel(tbl, m, order, R, C, W,
+    bm)` alone."""
+    import ctypes
+
+    import torch
+
+    from ark_bulletproofs_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(path)
+    fns = {}
+    for name in ("stage_table", "stage_gather"):
+        fns[name] = getattr(lib, f"abtpu_{name}")
+        fns[name].argtypes = _build._SIGNATURES[f"abtpu_{name}"]
+        fns[name].restype = ctypes.c_int
+
+    def stream():
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def table(X, Y, inf, words=16):
+        tbl = torch.empty(X.shape[1], words, dtype=torch.int32,
+                          device=X.device)
+        _build.check(fns["stage_table"](
+            X.data_ptr(), Y.data_ptr(), inf.data_ptr(), X.stride(0),
+            Y.stride(0), X.shape[1], tbl.data_ptr(), stream()),
+            "stage_table")
+        return tbl
+
+    def kernel(tbl, m, order, R, C, W, bm):
+        BW, n = order.shape
+        out = torch.empty(2, R, 16, BW * C, dtype=torch.int32,
+                          device=order.device)
+        _build.check(fns["stage_gather"](
+            tbl.data_ptr(), order.data_ptr(),
+            0 if bm is None else bm.data_ptr(), out.data_ptr(), m, n, R, C,
+            W, BW, int(order.dtype == torch.int64), stream()),
+            "stage_gather")
+        return out
+
+    def run(X, Y, inf, order, R, C, W, bm=None, words=16):
+        return kernel(table(X, Y, inf, words), X.shape[1], order, R, C, W,
+                      bm)
+
+    run.table, run.kernel = table, kernel
+    return run
+
+
+def parent_stage_gather(parent: str):
+    """The parent's torch stage B: `_stage_gather` of its
+    ark_bulletproofs_tpu_torch/ops/msm2.py, compiled alone (it needs only
+    torch), called with this tree's plan; or None where the parent's
+    stage B is no longer torch (it calls the gather module)."""
+    import ast
+
+    import torch
+
+    path = os.path.join(parent, "ark_bulletproofs_tpu_torch", "ops",
+                        "msm2.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    fn = next(f for f in tree.body if isinstance(f, ast.FunctionDef)
+              and f.name == "_stage_gather")
+    if "gather." in ast.unparse(fn):
+        return None
+    ns = {"torch": torch, "_Cfg": object}
+    exec(compile(ast.Module([fn], []), path, "exec"), ns)
+    return ns["_stage_gather"]
+
+
+def stage_gather_compare(res: dict, variants: dict, parent, dev) -> None:
+    """stage_gather at GATHER_SHAPES under msm2's plan (random 16-bit limbs,
+    a tenth of them identity rows; a random permutation a row, at n = 2^20
+    the order of a real _stage_sort; a base map into 2 n + 3 rows): the
+    committed wrapper, each variant, the committed gather kernel on a
+    torch-built table and the parent's torch stage B (each bit-equal to
+    the plain version first), from CUDA graphs in turns, the table's build
+    included; then each build's gather kernel alone on its table, and the
+    table kernel against its torch form, in turns; at n = 2^20 also the
+    committed gather kernel over tables of GATHER_SWEEP rows (the order
+    mod m'), into res["stage_gather"]."""
+    import torch
+
+    import chip_smoke as cs
+    from ark_bulletproofs_tpu_torch.ops import _build, gather, msm2
+
+    own = stage_gather_launcher(_build.library_path())
+    gen = torch.Generator(device=dev).manual_seed(51)
+    res["stage_gather"] = {}
+    for n, B, mapped in GATHER_SHAPES:
+        g = msm2._Cfg(n, msm2.window_bits(n), B, dev)
+        m = 2 * n + 3 if mapped else n
+        X, Y = (torch.randint(0, 1 << 16, (16, m), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(2))
+        inf = torch.rand(m, generator=gen, device=dev) < 0.1
+        if mapped:
+            order = torch.argsort(torch.rand(g.BW, n, generator=gen,
+                                             device=dev), dim=1)
+        else:
+            scal = torch.randint(0, 1 << 16, (B, 16, n), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            order, _ = msm2._stage_sort(g, scal)
+        bm = (torch.randint(0, m, (B, n), generator=gen, device=dev)
+              if mapped else None)
+        bm32 = None if bm is None else bm.to(torch.int32)
+        args = (X, Y, inf, order, g.R, g.C, g.W)
+        words = {name: 32 if name == "128-byte rows" else 16
+                 for name in variants}
+        runs = {"committed": lambda: gather.stage_gather(*args, bm),
+                "torch table": lambda: own.kernel(
+                    gather.stage_table_plain(X, Y, inf), m, order, g.R,
+                    g.C, g.W,
+                    bm32)}
+        for name, run in variants.items():
+            runs[name] = (lambda run=run, w=words[name]: run(
+                *args, bm32, words=w))
+        if parent:
+            runs["parent torch"] = lambda: parent(g, X, Y, inf, order, bm)
+        want = gather.stage_gather_plain(*args, bm)
+        for name, run in list(runs.items()):
+            try:
+                same = torch.equal(run(), want)
+            except RuntimeError as e:  # a variant the card refused
+                same = f"{e}"
+            if same is not True:
+                res["failures"].append(f"stage_gather {n} {B}: {name} "
+                                       f"differs or fails: {same}")
+                del runs[name]
+                variants = {k: v for k, v in variants.items() if k != name}
+        del want
+        torch.cuda.empty_cache()
+        key = f"n={n} B={B}{' mapped' if mapped else ''}"
+        times = in_turns(runs, lambda run: run(), 2)
+        alone = {"committed": own, **variants}
+        tables = {name: run.table(X, Y, inf, words.get(name, 16))
+                  for name, run in alone.items()}
+        kernels = {name: (lambda run=run, name=name: run.kernel(
+            tables[name], m, order, g.R, g.C, g.W, bm32))
+            for name, run in alone.items()}
+        kernel_times = in_turns(kernels, lambda run: run(), 3)
+        kernel_times["committed (events)"] = [
+            cs.cuda_ms(kernels["committed"], 5)]
+        table_times = in_turns(
+            {"table kernel": lambda: own.table(X, Y, inf),
+             "torch stage_table_plain": lambda: gather.stage_table_plain(
+                 X, Y, inf)},
+            lambda run: run(), 5)
+        out_bytes = 2 * g.R * 16 * g.L * 4
+        distinct = int(torch.unique(
+            order if bm is None else bm).numel())
+        bound = (out_bytes + distinct * 128 + order.numel() * 8
+                 + (0 if bm is None else bm32.numel() * 4)
+                 ) / cs.HBM_BYTES_PER_S
+        entry = {"plan": {"R": g.R, "C": g.C, "W": g.W, "L": g.L},
+                 "bound_ms": bound * 1e3, "with_table": times,
+                 "kernel_alone": kernel_times, "table": table_times}
+        print(f"  stage_gather {key} (R = {g.R}, L = {g.L}; bound "
+              f"{bound * 1e3:.4f} ms), ms, mean of 2, table built in the "
+              f"call: " + "; ".join(
+                  f"{name} {statistics.mean(t):.4f}"
+                  for name, t in times.items()), flush=True)
+        for what, ts in (("the gather kernel alone on its table",
+                          kernel_times), ("the table", table_times)):
+            print(f"    {what}: " + "; ".join(
+                f"{name} {statistics.mean(t):.4f}"
+                for name, t in ts.items()), flush=True)
+        del tables, kernels
+        if not mapped:
+            sweep = {}
+            for rows in GATHER_SWEEP:
+                o = order % rows
+                tbl = own.table(X[:, :rows], Y[:, :rows], inf[:rows])
+                sweep[rows] = cs.graph_ms(lambda: own.kernel(
+                    tbl, rows, o, g.R, g.C, g.W, None), 3)
+                del o, tbl
+            entry["table_rows_sweep"] = sweep
+            print("    the committed gather kernel over m' table rows (the "
+                  "order mod m'): " + "; ".join(
+                      f"{rows} rows ({rows * 64 / 2**20:.2f} MiB) "
+                      f"{ms:.4f}" for rows, ms in sweep.items()),
+                  flush=True)
+        res["stage_gather"][key] = entry
+        del X, Y, inf, order, bm, bm32
+        torch.cuda.empty_cache()
+
+
 PARTS = ("ops", "fs", "jac", "rcb_te", "wide", "chains", "scan", "chain",
-         "field", "te_chain", "te_scan", "rcb_double", "msm")
+         "field", "te_chain", "te_scan", "rcb_double", "stage_gather", "msm")
 
 
 def main() -> int:
@@ -1141,7 +1402,8 @@ def main() -> int:
                            ("scan", SCAN_VARIANTS),
                            ("te_scan", TE_SCAN_VARIANTS),
                            ("rcb_double", DBL_VARIANTS),
-                           ("field", FIELD_VARIANTS)):
+                           ("field", FIELD_VARIANTS),
+                           ("stage_gather", GATHER_VARIANTS)):
         if part in parts:
             wanted.update(variants)
     bench_dir = os.path.join(_build.BUILD_DIR, "bench")
@@ -1153,16 +1415,22 @@ def main() -> int:
     res["build_s"] = time.perf_counter() - t0
     ptx = [line for line in cs.ptxas_report(_build.build_log or "")
            if re.match(r"(suffix_|rowsum|horner|mont_mul|double_k_add|fs_|"
-                       r"madd_scan|double_chain|double_wide)", line)]
+                       r"madd_scan|double_chain|double_wide|stage_|row_)",
+                       line)]
     chains, dkas, fss, scans, fields = {}, {}, {}, {}, {}
-    te_scans, dbls = {}, {}
+    te_scans, dbls, gathers = {}, {}, {}
     for name, (p, lib) in procs.items():
         log = p.communicate()[0]
+        if p.returncode and name in GATHER_VARIANTS:
+            res["failures"].append(f"nvcc failed on variant {name}")
+            print(f"  nvcc failed on variant {name}:\n{log}", flush=True)
+            continue
         if p.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         ptx += [f"{name}: {line}" for line in cs.ptxas_report(log)
                 if re.match(r"(suffix_jac|rowsum|double_k_add|fs_|madd_scan|"
-                            r"double_chain|double_wide|mont_mul)", line)]
+                            r"double_chain|double_wide|mont_mul|stage_)",
+                            line)]
         if name in CHAIN_VARIANTS:
             chains[name] = chain_launchers(lib)
         elif name in FS_VARIANTS:
@@ -1175,6 +1443,8 @@ def main() -> int:
             dbls[name] = rcb_double_launcher(lib)
         elif name in FIELD_VARIANTS:
             fields[name] = mont_mul_launcher(lib)
+        elif name in GATHER_VARIANTS:
+            gathers[name] = stage_gather_launcher(lib)
         else:
             dkas[name] = dka_launchers(lib)
     res["ptxas"] = ptx
@@ -1207,6 +1477,9 @@ def main() -> int:
         te_scan_compare(res, te_scans, parent, dev)
     if "rcb_double" in parts:
         rcb_double_compare(res, dbls, parent, dev)
+    if "stage_gather" in parts:
+        stage_gather_compare(res, gathers, args.parent
+                             and parent_stage_gather(args.parent), dev)
     if "ops" in parts:
         res["sass_mont_mul"] = sass_mix(_build.library_path(),
                                         "mont_mul_kernel")

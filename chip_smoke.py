@@ -60,9 +60,15 @@ Phases, each printed with its seconds:
      top window, also equal to the W-step double-k-add loop on the card;
      rcb_double on secq256k1 and zorro at 1, 2, 3, 65,536 and 2^20 lanes
      and its band edge and the lane on each side, with identity lanes,
-     each timed beside the bound and the critical path; row_gather against index_select at the DMA probe's
-     shape (2^22 rows of a 2^20-row table) and stage B's row count
-     (22 x 2^20 rows); stages D and F's suffix_jac_scan and rowsum on the
+     each timed beside the bound and the critical path; row_gather
+     against index_select at the DMA probe's shape (2^22 rows of a
+     2^20-row table) and stage B's row count (22 x 2^20 rows); the v2
+     MSM's stage-B gather, stage_gather, and its table, stage_table,
+     against their plain versions at every (n, B, mapped) a path sends
+     (GATHER_SHAPES: n = 2^20 from a real sort, R = 1, B = 2, base maps
+     over tables wider than n), timed at n = 2^20 beside the bound, the
+     plain version and (the gather) index_select of the 128-byte rows;
+     stages D and F's suffix_jac_scan and rowsum on the
      three curves at every (rows, lanes) the paths launch them at
      (CHAIN_SHAPES: 64 x 1,408 and 64 x 22 at n = 2^20; 16 x 1,024,
      16 x 64 and 1 x 64 at n = 256; 16 x 1,048,576, the most lanes a
@@ -80,12 +86,16 @@ Phases, each printed with its seconds:
      at the stage-G shape and against its loop (also in microseconds a
      group operation of the chain), jac_horner_windows at the v1 shape,
      rcb_double at 65,536 lanes, row_gather at both shapes beside
-     index_select), the kernel alone by replaying a CUDA graph of
-     its launches, beside its plain version and its bound;
+     index_select, stage_table and stage_gather at n = 2^20), the kernel
+     alone by replaying a CUDA graph of its launches (stage_gather with
+     its table launch, by CUDA events around its calls), beside its plain
+     version and its bound;
   3. msm: n = 2^20 secq256k1 through the port's `msm`, equal to the native
      host Pippenger, then timed (median of 5) with its peak memory, and
-     its stage split (sort, gather, C, D, E, F, G) by CUDA events, the
-     median of 3 staged calls, whose sum equals the host Pippenger too;
+     its stage split (sort, gather: one stage_gather call, its table
+     included, C, D, E, F,
+     G) by CUDA events, the median of 3 staged calls, whose sum equals
+     the host Pippenger too;
   4. shuffle: a k = 1024 secq256k1 shuffle proved on the card through the
      device branches (tabled phase MSMs, vector phase, the IPA on the
      on-device Fiat-Shamir route), with its protocol phases on the host
@@ -132,13 +142,16 @@ Phases, each printed with its seconds:
      rejected;
  14. launches: each path of phases 3-13 runs with every launch count set
      to 0 just before it and read just after; each of its kernels
-     launched (the window Horner on every MSM path), and the v1 paths'
-     double-k-add kernel at k > 0; and the most lanes suffix_jac_scan,
-     rowsum and the three double-k-add kernels were launched at over
+     launched (the window Horner, stage_table and stage_gather on every
+     v2 MSM path),
+     and the v1 paths' double-k-add kernel at k > 0; and the most lanes
+     suffix_jac_scan, rowsum and the three double-k-add kernels were
+     launched at over
      those paths, no more than phase 2 held them at, with every lane
      count sent; and every (rows, lanes) of jac_madd, te_madd and
-     mont_inv_batch, (steps, lanes) of jac_double and te_double and rows
-     of sum_mod a path sent, each among the shapes phase 2 held; then
+     mont_inv_batch, (steps, lanes) of jac_double and te_double, rows
+     of sum_mod and (n, B, mapped) of stage_gather a path sent, each
+     among the shapes phase 2 held; then
      te_madd's scan timed at the largest (rows, lanes) a path sent it,
      beside the bound and the critical path;
  15. traces: the card prove (secq256k1 and curve25519) and the verify
@@ -275,6 +288,23 @@ RCB_DBL_LANES = (1, 2, 3, 1 << 16, 1 << 20)
 # edges 128 and 129; each held over SUM_LANES (to 65,536 up to 9 rows).
 SUM_ROWS = (1, 2, 9, 128, 129, 256, 512)
 SUM_LANES = (1, 2, 64, 2048, 1 << 16)
+# stage_gather's (n, B, mapped) on the paths (as phase 14 records them):
+# the v2 MSM's scalar count n, its sets B and whether a base map selects
+# the bases, each under msm2's plan (one (R, C, W) each). One
+# set: the n = 2^20 MSM of phases 3 and 6 (held with the order of a real
+# _stage_sort, and timed), the ragged chunks and padded remainders of the
+# verifiers' mega-MSMs (256 to 131,072), the IPA's and the prover's phase
+# MSMs; base maps: the provers' and the IPA rounds' (B = 2 to 4 at n = 256
+# to 65,536), the per-round batch IPA's (32, 128 and 256 sets of 256) and
+# the on-device Fiat-Shamir IPA's table shrink (1,024 sets of 256); and
+# B = 2 without one. Phase 14 checks that every (n, B, mapped) a path sent
+# was held here.
+GATHER_SHAPES = [(1 << 20, 1, False), (1024, 2, False)] + [
+    (n, 1, False) for n in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768,
+                            131072)] + [
+    (256, B, True) for B in (2, 32, 128, 256, 1024)] + [
+    (512, 2, True), (1024, 2, True), (2048, 2, True), (4096, 2, True),
+    (4096, 3, True), (65536, 2, True)]
 # Product latencies on a double-k-add lane's critical path, per model:
 # one thread runs every product of the add and of a doubling; a group of G
 # threads waits on their levels (csrc/rcb.cuh, te.cuh: ceil(N / G) a level
@@ -330,7 +360,13 @@ ENTRIES = [
     # no path, as in the JAX package (only its proj.double reaches it)
     ("rcb_double", "rcb_double", "sw", MSM_CU,
      "ark_bulletproofs_tpu/ops/kernels.py:730"),
-    # a probe beside stage B, on no path
+    # the v2 MSM's stage B, the probe's redesign: its table, then its
+    # gather (the gather's times include its table launch)
+    ("stage_table", "stage_table", None, GATHER_CU,
+     "tools/probe_dma_gather.py:67"),
+    ("stage_gather", "stage_gather", None, GATHER_CU,
+     "tools/probe_dma_gather.py:67"),
+    # the probe's flat form, on no path
     ("row_gather", "row_gather", None, GATHER_CU,
      "tools/probe_dma_gather.py:67"),
     # port-only: the JAX package runs this round body as XLA ops
@@ -363,9 +399,12 @@ FE_MULS = {"sw": {"add": 12, "madd": 11, "double": 8},
            "te": {"add": 11, "madd": 11, "double": 11},
            "jac": {"add": 16, "madd": 12, "double": 8, "double_a": 10}}
 # v2's kernels; its double-k-add kernel launches at k = 0 only (stages
-# D and E), its window Horner is one horner_windows launch
-MSM_KERNELS = {"sw": SCANS + ("rcb_double_k_add", "horner_windows"),
-               "te": SCANS + ("te_double_k_add", "horner_windows")}
+# D and E), its window Horner is one horner_windows launch, its stage B
+# one stage_table and one stage_gather launch
+MSM_KERNELS = {"sw": SCANS + ("rcb_double_k_add", "horner_windows",
+                              "stage_table", "stage_gather"),
+               "te": SCANS + ("te_double_k_add", "horner_windows",
+                              "stage_table", "stage_gather")}
 # The on-device Fiat-Shamir IPA's kernels beyond the MSM's: the c * Q
 # tree and the 2^i Q table, and the round's transcript step.
 FS_KERNELS = {"sw": ("mont_mul", "sum_mod", "jac_double_k_add",
@@ -469,12 +508,11 @@ class PathLanes:
     between paths) that stages D and F's kernels and the three
     double-k-add kernels are launched at in phases 3-13, and every lane
     count sent (at k > 0 apart); and every (rows, lanes) of jac_madd,
-    te_madd and mont_inv_batch (rows 0: the inverses alone) and (steps,
-    lanes) of
-    jac_double and te_double and rows of sum_mod, each with the first
-    path that sent it,
+    te_madd and mont_inv_batch (rows 0: the inverses alone), (steps,
+    lanes) of jac_double and te_double, rows of sum_mod and (n, B,
+    mapped) of stage_gather, each with the first path that sent it,
     which must be among the shapes phase 2 held (`held`, KernelCheck's).
-    The launch helpers of kernels2, kernels and fs are replaced by
+    The launch helpers of kernels2, kernels, fs and gather are replaced by
     recorders that read those launchers' arguments and launch as before
     (the wrappers and their counts stay as they are; ops/field.py looks up
     kernels' helper at each call)."""
@@ -485,9 +523,11 @@ class PathLanes:
               "jac_double": ("(steps, lanes)", lambda a: (a[3], a[2])),
               "te_double": ("(steps, lanes)", lambda a: (a[3], a[2])),
               "mont_inv_batch": ("(rows, lanes)", lambda a: (a[4], a[3])),
-              "sum_mod": ("(rows,)", lambda a: (a[2],))}
+              "sum_mod": ("(rows,)", lambda a: (a[2],)),
+              "stage_gather": ("(n, B, mapped)",
+                               lambda a: (a[5], a[9] // a[8], a[2] != 0))}
 
-    def __init__(self, kk, k2, fsm, launches: Launches, held: dict):
+    def __init__(self, kk, k2, fsm, gm, launches: Launches, held: dict):
         chain = {L for _, L, _ in CHAIN_SHAPES}
         # name: (module, (lanes, rows or k) from the launch's arguments,
         # what the second number is, the lane counts phase 2 times)
@@ -510,7 +550,7 @@ class PathLanes:
         self.most = {name: (0, 0, None) for name in self.kinds}
         self.seen = {name: set() for name in self.kinds}
         self.seen_k = {name: set() for name in self.kinds}  # at k > 0
-        for mod in (k2, kk, fsm):
+        for mod in (k2, kk, fsm, gm):
             self._record(mod, launches, shapes=mod is not k2)
 
     def _record(self, mod, launches: Launches, shapes: bool) -> None:
@@ -1764,6 +1804,103 @@ class KernelCheck:
                 self.library_ms["row_gather"] = lib
             torch.cuda.empty_cache()
 
+    def run_stage_gather(self) -> None:
+        """stage_gather bit-equal to stage_gather_plain, and stage_table
+        to stage_table_plain, at every (n, B, mapped) of GATHER_SHAPES,
+        under msm2's plan for each: random 16-bit
+        limbs with identity rows (about a tenth), the order a random
+        permutation a row (at n = 2^20 the order of a real _stage_sort of
+        random scalars), with a base map a table of 2 n + 3 rows. Timed at
+        stage B's n = 2^20, B = 1: the wrapper (the table kernel and the
+        gather kernel, by CUDA events around 5 calls, its host work and the
+        allocator's cached blocks as on the path), and from CUDA graphs the
+        gather kernel alone, the table kernel alone, and index_select of
+        the 128-byte rows at the R L rows (the one PyTorch call that
+        gathers them, without the transpose), beside the bound: the
+        output, the distinct table rows at 128 bytes a point and the
+        order, read and written once; the table kernel beside its plain
+        version and its bound (the two planes and the flags read, the
+        packed rows written)."""
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import gather, msm2
+        from ark_bulletproofs_tpu_torch.ops.kernels import launch
+
+        gen = torch.Generator(device=self.dev).manual_seed(51)
+        held = self.held.setdefault("stage_gather", set())
+
+        def limbs(m):
+            return torch.randint(0, 1 << 16, (16, m), generator=gen,
+                                 device=self.dev, dtype=torch.int32)
+
+        for n, B, mapped in GATHER_SHAPES:
+            t0 = time.perf_counter()
+            g = msm2._Cfg(n, msm2.window_bits(n), B, self.dev)
+            m = 2 * n + 3 if mapped else n
+            X, Y = limbs(m), limbs(m)
+            inf = torch.rand(m, generator=gen, device=self.dev) < 0.1
+            timed = (n, B, mapped) == (N_MSM, 1, False)
+            if timed:
+                order, _ = msm2._stage_sort(g, limbs(B * n).reshape(B, 16, n))
+            else:
+                order = torch.argsort(torch.rand(
+                    g.BW, n, generator=gen, device=self.dev), dim=1)
+            bm = (torch.randint(0, m, (B, n), generator=gen, device=self.dev)
+                  if mapped else None)
+            args = (X, Y, inf, order, g.R, g.C, g.W, bm)
+            self.compare("stage_table", gather.stage_table(X, Y, inf),
+                         gather.stage_table_plain(X, Y, inf))
+            got = gather.stage_gather(*args)
+            self.compare("stage_gather", got, gather.stage_gather_plain(*args))
+            held.add((n, B, mapped))
+            print(f"   stage_gather n = {n}, B = {B}"
+                  f"{', base map' if mapped else ''} (R = {g.R}, C = {g.C}, "
+                  f"W = {g.W}, L = {g.L}): bit-equal "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            del got
+            torch.cuda.empty_cache()
+            if not timed:
+                continue
+            out_bytes = 2 * g.R * 16 * g.L * 4
+            distinct = int(torch.unique(order).numel())
+            bound = self.bound(out_bytes + distinct * 128
+                               + order.numel() * order.element_size(), 0)
+            ms = cuda_ms(lambda: gather.stage_gather(*args), 5)
+            tbl = gather.stage_table_plain(X, Y, inf)
+            table_ms = graph_ms(lambda: launch(
+                "stage_table", None, self.dev, X.data_ptr(), Y.data_ptr(),
+                inf.data_ptr(), m, m, m, tbl.data_ptr()), 3)
+            table_plain = host_ms(lambda: gather.stage_table_plain(X, Y,
+                                                                   inf))
+            # the planes and the identity flags read, the rows written
+            table_bound = self.bound(2 * 16 * m * 4 + m + m * 16 * 4, 0)
+            out = torch.empty(2, g.R, 16, g.L, dtype=torch.int32,
+                              device=self.dev)
+            kernel_ms = graph_ms(lambda: launch(
+                "stage_gather", None, self.dev, tbl.data_ptr(),
+                order.data_ptr(), 0, out.data_ptr(), m, n, g.R, g.C, g.W,
+                g.BW, 1), 3)
+            del out, tbl
+            plain = host_ms(lambda: gather.stage_gather_plain(*args))
+            wide = torch.stack([X, torch.where(inf, 0, Y)]).permute(
+                2, 0, 1).reshape(m, 32).contiguous()
+            rows = order.reshape(g.BW, g.C, g.R).permute(2, 0, 1).reshape(-1)
+            lib = graph_ms(lambda: wide.index_select(0, rows), 3)
+            del wide, rows
+            print(f"   stage_gather n = 2^20, B = 1 ({g.R} x {g.L} points, "
+                  f"{out_bytes / 1e9:.3f} GB out, {distinct} distinct rows):"
+                  f" wrapper {ms:.4f} ms ({out_bytes / ms / 1e9:.3f} TB/s "
+                  f"of output), gather kernel alone {kernel_ms:.4f} ms, "
+                  f"table kernel alone {table_ms:.4f} ms (plain "
+                  f"{table_plain:.3f} ms, bound {table_bound[0]:.5g} ms); "
+                  f"plain {plain:.1f} ms; "
+                  f"index_select of the 128-byte rows {lib:.4f} ms; bound "
+                  f"{bound[0]:.5g} ms ({bound[1]})", flush=True)
+            self.times["stage_table"] = (table_ms, table_plain, *table_bound)
+            self.times["stage_gather"] = (ms, plain, *bound)
+            self.library_ms["stage_gather"] = lib
+            torch.cuda.empty_cache()
+
     def report(self) -> None:
         for name, (ms, pms, bms, by) in self.times.items():
             print(f"   {name}: kernel {ms:.4f} ms, plain {pms:.1f} ms, "
@@ -2801,6 +2938,8 @@ def main() -> int:
         "jac_horner_windows": k2.jac_horner_windows,
         "rcb_double": kk.rcb_double,
         "row_gather": gather.row_gather,
+        "stage_table": gather.stage_table,
+        "stage_gather": gather.stage_gather,
     }
 
     with phase("1 build"):
@@ -2808,6 +2947,9 @@ def main() -> int:
         clock = float(smi_query("clocks.max.sm", units=False))
         print(f"   card: {smi}, max SM clock {clock:.0f} MHz; torch "
               f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+        state = ("clocks.sm,clocks.mem,clocks.max.mem,temperature.gpu,"
+                 "power.draw")
+        print(f"   {state}: {smi_query(state)}", flush=True)
         _build.lib()
         print(f"   nvcc sm_90a build: {_build.build_seconds} s -> "
               f"{os.path.relpath(_build.library_path(), ROOT)}", flush=True)
@@ -2857,11 +2999,12 @@ def main() -> int:
         check.run_rcb_double(curves.secq256k1, seed=17, timed=True)
         check.run_rcb_double(curves.zorro, seed=18, timed=True)
         check.run_row_gather()
+        check.run_stage_gather()
         check.report()
     torch.cuda.empty_cache()
 
     launches = Launches(wrappers)
-    path_lanes = PathLanes(kk, k2, fs, launches, check.held)
+    path_lanes = PathLanes(kk, k2, fs, gather, launches, check.held)
     with phase("3 msm n=2^20 secq256k1"):
         phase_msm(curves.secq256k1, launches)
     with phase(f"4 shuffle k={SHUFFLE_K} secq256k1"):

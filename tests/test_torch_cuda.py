@@ -32,6 +32,7 @@ from ark_bulletproofs_tpu_torch.ops import ipa
 from ark_bulletproofs_tpu_torch.ops import kernels as kk
 from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
 from ark_bulletproofs_tpu_torch.ops import msm as v1
+from ark_bulletproofs_tpu_torch.ops import msm2
 from ark_bulletproofs_tpu_torch.ops import proj
 from ark_bulletproofs_tpu_torch.ops.curve import (affine_to_device, is_te,
                                                   point_batch_to_host,
@@ -727,6 +728,89 @@ def test_row_gather_matches_index_select(dtype, cuda_dev):
     got = gather.row_gather(tbl, idx)
     assert got.is_cuda and torch.equal(got, tbl.index_select(0, idx))
     assert gather.row_gather.launches == before + 1
+
+
+@pytest.mark.parametrize("n,R,B,W,mapped,dtype", [
+    (256, 1, 1, 3, False, torch.int64),    # R = 1
+    (1024, 4, 1, 3, False, torch.int64),   # R = 4
+    (4096, 256, 1, 2, False, torch.int64),  # R = 256
+    (1024, 4, 2, 3, False, torch.int32),   # B = 2
+    (64, 2, 256, 2, True, torch.int64),    # B = 256, a base map
+    (512, 8, 3, 4, True, torch.int64),     # a base map over m > n
+    (512, 8, 3, 4, True, torch.int32),
+    (24, 6, 2, 3, False, torch.int64),     # a row tile that does not divide R
+], ids=lambda v: str(v))
+def test_stage_gather_matches_plain(n, R, B, W, mapped, dtype, cuda_dev):
+    """The stage-B gather bit-equal to its plain version (random 16-bit
+    limbs, identity rows, a random permutation a row as the order), one
+    launch of the table kernel and one of the gather kernel a call."""
+    g = torch.Generator(device=cuda_dev).manual_seed(n + B)
+    m = n + 77 if mapped else n
+    X, Y = (torch.randint(0, 1 << 16, (16, m), generator=g, device=cuda_dev,
+                          dtype=torch.int32) for _ in range(2))
+    inf = torch.rand(m, generator=g, device=cuda_dev) < 0.2
+    order = torch.argsort(torch.rand(B * W, n, generator=g, device=cuda_dev),
+                          dim=1).to(dtype)
+    bm = (torch.randint(0, m, (B, n), generator=g, device=cuda_dev)
+          if mapped else None)
+    args = (X, Y, inf, order, R, n // R, W, bm)
+    before = gather.stage_gather.launches, gather.stage_table.launches
+    got = gather.stage_gather(*args)
+    assert got.is_cuda and got.shape == (2, R, 16, B * W * n // R)
+    assert torch.equal(got, gather.stage_gather_plain(*args))
+    assert (gather.stage_gather.launches,
+            gather.stage_table.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_stage_gather_reads_sliced_planes(cuda_dev):
+    """X and Y as column slices of wider planes (msm_device_ragged's
+    chunks): the table kernel reads them at their row stride."""
+    g = torch.Generator(device=cuda_dev).manual_seed(3)
+    wide = torch.randint(0, 1 << 16, (2, 16, 1500), generator=g,
+                         device=cuda_dev, dtype=torch.int32)
+    X, Y = wide[0, :, 300:1324], wide[1, :, 300:1324]
+    inf = torch.rand(1500, generator=g, device=cuda_dev)[300:1324] < 0.2
+    order = torch.argsort(torch.rand(6, 1024, generator=g, device=cuda_dev),
+                          dim=1)
+    args = (X, Y, inf, order, 4, 256, 3)
+    assert torch.equal(gather.stage_gather(*args),
+                       gather.stage_gather_plain(*args))
+    assert torch.equal(gather.stage_table(X, Y, inf),
+                       gather.stage_table_plain(X, Y, inf))
+
+
+@pytest.mark.parametrize("m", [1, 127, 129, 1 << 20])
+def test_stage_table_matches_plain(m, cuda_dev):
+    """The table kernel bit-equal to its plain version, at a partial last
+    block of 128 points and at stage B's table, one launch a call."""
+    g = torch.Generator(device=cuda_dev).manual_seed(m)
+    X, Y = (torch.randint(0, 1 << 16, (16, m), generator=g, device=cuda_dev,
+                          dtype=torch.int32) for _ in range(2))
+    inf = torch.rand(m, generator=g, device=cuda_dev) < 0.2
+    before = gather.stage_table.launches
+    got = gather.stage_table(X, Y, inf)
+    assert gather.stage_table.launches == before + 1
+    assert got.shape == (m, 16)
+    assert torch.equal(got, gather.stage_table_plain(X, Y, inf))
+
+
+@pytest.mark.parametrize("n,B", [(256, 1), (1 << 20, 1), (1024, 2)])
+def test_msm2_stage_gather_from_a_real_sort(n, B, cuda_dev):
+    """msm2's stage B under its plan, from `_stage_sort` of random scalars,
+    bit-equal to the plain version."""
+    g = torch.Generator(device=cuda_dev).manual_seed(7)
+    cfg = msm2._Cfg(n, msm2.window_bits(n), B, cuda_dev)
+    scal = torch.randint(0, 1 << 16, (B, 16, n), generator=g,
+                         device=cuda_dev, dtype=torch.int32)
+    order, _ = msm2._stage_sort(cfg, scal)
+    X, Y = (torch.randint(0, 1 << 16, (16, n), generator=g, device=cuda_dev,
+                          dtype=torch.int32) for _ in range(2))
+    inf = torch.rand(n, generator=g, device=cuda_dev) < 0.1
+    before = gather.stage_gather.launches
+    got = msm2._stage_gather(cfg, X, Y, inf, order)
+    assert gather.stage_gather.launches == before + 1
+    assert torch.equal(got, gather.stage_gather_plain(
+        X, Y, inf, order, cfg.R, cfg.C, cfg.W))
 
 
 FIELDS = [(c, f) for c in CURVES for f in ("fq", "fr")]
