@@ -15,11 +15,14 @@ Generator tables are deterministic, precomputable artifacts; `save`/`load`
 persist them (the checkpoint/resume analog, SURVEY.md §5). The device MSM
 path caches limb-decomposed copies of these tables on the card (ops/cache.py).
 
-The port's copy of the JAX package's generators.py: host branches, and the
-device Pedersen batch of a twisted-Edwards curve (ops/prove.py).
+The port's copy of the JAX package's generators.py: host branches, the
+generator farm (GeneratorsChain on ops/gens.py) and the device Pedersen
+batch of a twisted-Edwards curve (ops/prove.py).
 """
 
 from __future__ import annotations
+
+import math
 
 from .hashes.chacha import ChaChaRng
 from .hashes.keccak import sha3_512
@@ -105,10 +108,34 @@ class GeneratorsChain:
     """Deterministic unbounded generator stream for one label
     (reference src/generators.rs:78-121).
 
-    Host sampling only. The JAX package moves requests of 4096 and more
-    generators to a batched device farm (its ops/gens.py), bit-identical to
-    this sequential path; the port has no such farm yet.
+    Requests of `_DEVICE_MIN` generators or more on a short-Weierstrass
+    curve of cofactor 1 over a field of more than 240 bits go through the
+    generator farm on `engine.torch_device()` (ops/gens.py: the card's
+    gen_candidates kernel, or its plain version where the engine's device
+    is the CPU; a CUDA device without a card raises). The farm draws the
+    ChaCha attempt stream in bulk, nine words an attempt, evaluates a
+    chunk of attempts in one launch, and rewinds the stream to just after
+    the attempt that yields the n-th point, so interleaved take and
+    fast_forward calls stay bit-identical to the sequential path.
+
+    The fixed framing holds only while no x of the chunk is >= p (an
+    `Fp::rand` redraw shifts every later attempt): where one is, the chain
+    restores the chunk's snapshot and finishes the request sequentially on
+    the host, counted in `GeneratorsChain.replays`. That happens with
+    probability about 2^-128 an attempt on secq256k1, whose p is just below
+    2^256, and about 1/2 on zorro, whose p is just above 2^255: there the
+    first chunk replays and the farm gives no speed, only the same points.
     """
+
+    # The JAX package's crossover (set there by XLA compile cost); moving
+    # it needs a measured cell.
+    _DEVICE_MIN = 4096
+    # Attempts a chunk at most: 4,194,304, so one chunk carries a 2^20
+    # request (about 2^21 attempts). On the card a chunk holds its 36 bytes
+    # of words and 65 of results an attempt: 151 MB in and 273 MB out at
+    # the cap; the host holds the words and the accepted points.
+    _DEVICE_CHUNK = 1 << 22
+    replays = 0
 
     def __init__(self, curve, label: bytes):
         self.curve = curve
@@ -116,12 +143,103 @@ class GeneratorsChain:
         self._rng = ChaChaRng(seed)
 
     def fast_forward(self, n: int) -> "GeneratorsChain":
+        if self._device_ok(n):
+            self._batched(n, keep=False)
+            return self
         for _ in range(n):
             self.curve.rand(self._rng)
         return self
 
     def take(self, n: int) -> list:
+        if self._device_ok(n):
+            return self._batched(n, keep=True)
         return [self.curve.rand(self._rng) for _ in range(n)]
+
+    # --- the generator farm ----------------------------------------------
+
+    def _device_ok(self, n: int) -> bool:
+        c = self.curve
+        return (n >= self._DEVICE_MIN
+                and hasattr(c, "b")  # short-Weierstrass
+                and c.cofactor == 1
+                and c.fq.num_bits > 240)  # framing assumes 4 x u64 draws
+
+    def _batched(self, n: int, keep: bool):
+        import numpy as np
+
+        from . import engine
+        from .ops.gens import candidate_points
+        from .utils.profiling import phase
+
+        dev = engine.torch_device()
+        c = self.curve
+        p = c.fq.p
+        mask64 = ((1 << 64) - 1) >> (64 * 4 - c.fq.num_bits)
+        p_words = [(p >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+        out: list = []
+        got = 0
+        rng = self._rng
+        while got < n:
+            todo = n - got
+            # successes are binomial at about 1/2 an attempt: 8 standard
+            # deviations of margin, so one chunk nearly always suffices
+            m = min(2 * todo + 8 * math.isqrt(2 * todo) + 256,
+                    self._DEVICE_CHUNK)
+            snap = rng.state_snapshot()
+            with phase("gens:chacha"):
+                words = rng.next_u32_array(9 * m).reshape(m, 9)
+            with phase("gens:frame"):
+                words[:, 6] &= np.uint32(mask64 & 0xFFFFFFFF)
+                words[:, 7] &= np.uint32(mask64 >> 32)
+                rejected = _any_at_least(words[:, :8], p_words)
+            if rejected:
+                # an Fp::rand redraw breaks the fixed framing: finish the
+                # request sequentially from this chunk's start
+                GeneratorsChain.replays += 1
+                rng.state_restore(snap)
+                rest = [c.rand(rng) for _ in range(n - got)]
+                return out + rest if keep else None
+            with phase("gens:h2d"):  # the copy, and the launch queued
+                xy, ok_dev = candidate_points(c, words, dev)
+            with phase("gens:kernel"):
+                ok = ok_dev.cpu().numpy()  # waits for the launch
+            seen = np.cumsum(ok)
+            done = int(seen[-1]) >= todo
+            # attempts used: through the todo-th success, or all of them
+            used = int(np.searchsorted(seen, todo)) + 1 if done else m
+            if keep:
+                with phase("gens:d2h"):
+                    acc = xy[:used][ok_dev[:used]].cpu().numpy()
+                with phase("gens:ints"):
+                    out.extend(zip(_ints(acc[:, :8]), _ints(acc[:, 8:])))
+            got += min(int(seen[-1]), todo)
+            if done:
+                rng.state_restore(snap)
+                rng.skip_words(9 * used)
+        return out if keep else None
+
+
+def _any_at_least(xw, p_words: list[int]) -> bool:
+    """Whether any row of xw (m, 8) uint32, little-endian words, is >= p:
+    compared from the top word down."""
+    import numpy as np
+
+    gt = np.zeros(xw.shape[0], dtype=bool)
+    eq = np.ones(xw.shape[0], dtype=bool)
+    for i in range(7, -1, -1):
+        col, pw = xw[:, i], np.uint32(p_words[i])
+        gt |= eq & (col > pw)
+        eq &= col == pw
+    return bool((gt | eq).any())
+
+
+def _ints(words) -> list[int]:
+    """(k, 8) 32-bit little-endian words -> k ints."""
+    import numpy as np
+
+    b = np.ascontiguousarray(words).view("<u4").tobytes()
+    return [int.from_bytes(b[i:i + 32], "little")
+            for i in range(0, len(b), 32)]
 
 
 def _party_label(prefix: bytes, party: int) -> bytes:

@@ -47,7 +47,7 @@ def chacha20_block_words(key_words: tuple[int, ...], counter: int) -> list[int]:
 
     fast = chacha20_blocks_native(key_words, counter, 1)
     if fast is not None:
-        return fast
+        return fast.tolist()
     init = list(_SIGMA) + list(key_words) + [
         counter & MASK32,
         (counter >> 32) & MASK32,
@@ -128,36 +128,34 @@ class ChaChaRng:
             self._idx = 0
 
     def next_u32_array(self, k: int):
-        """k keystream words as a numpy uint32 array (state advances by k)."""
+        """k keystream words as a numpy uint32 array (state advances by k);
+        the blocks come from the native library as one array."""
         import numpy as np
 
         from ..native import chacha20_blocks_native
 
-        lead = self._buf[self._idx:] if self._buf else []
-        lead = lead[:k]
+        lead = np.array(self._buf[self._idx:self._idx + k] if self._buf
+                        else [], dtype=np.uint32)
         need = k - len(lead)
         nblk = (need + 15) // 16
-        if nblk:
-            words = chacha20_blocks_native(self._key, self._counter, nblk)
-            if words is None:
-                words = []
-                for i in range(nblk):
-                    words.extend(
-                        chacha20_block_words(self._key, self._counter + i)
-                    )
-            self._counter += nblk
-            used = need % 16
-            if used:
-                self._buf = words[-16:]
-                self._idx = used
-            else:
-                self._buf = []
-                self._idx = 0
-            stream = lead + words[:need]
-        else:
-            stream = lead
+        if not nblk:
             self._idx += len(lead)
-        return np.array(stream, dtype=np.uint32)
+            return lead
+        words = chacha20_blocks_native(self._key, self._counter, nblk)
+        if words is None:
+            words = np.array(
+                [w for i in range(nblk)
+                 for w in chacha20_block_words(self._key, self._counter + i)],
+                dtype=np.uint32)
+        self._counter += nblk
+        used = need % 16
+        if used:
+            self._buf = words[-16:].tolist()
+            self._idx = used
+        else:
+            self._buf = []
+            self._idx = 0
+        return np.concatenate([lead, words[:need]])
 
     def fill_bytes(self, n: int) -> bytes:
         """n keystream bytes, little-endian word order (word-aligned reads only

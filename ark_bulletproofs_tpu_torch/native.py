@@ -251,14 +251,19 @@ def strobe_rand_fp_native(strobe, p: int, num_bits: int, n_limbs: int,
 
 
 def chacha20_blocks_native(key_words, counter0: int, nblocks: int):
-    """Returns a list of 16*nblocks u32 keystream words, or None."""
+    """Returns the 16*nblocks u32 keystream words as a numpy uint32 array,
+    or None."""
     L = lib()
     if L is None:
         return None
+    import numpy as np
+
     key = (ctypes.c_uint32 * 8)(*key_words)
-    out = (ctypes.c_uint32 * (16 * nblocks))()
-    L.abtpu_chacha20_blocks(key, counter0, nblocks, out)
-    return list(out)
+    out = np.empty(16 * nblocks, dtype=np.uint32)
+    L.abtpu_chacha20_blocks(
+        key, counter0, nblocks,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    return out
 
 
 def sha3_native(data: bytes, rate: int, domain: int, out_len: int) -> bytes | None:

@@ -64,6 +64,7 @@ _SIGNATURES = {
     "abtpu_add_sub": [_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P, _P],
     "abtpu_sum_mod": [_P, _P, _I64, _P, _P, _P],
     "abtpu_mont_inv_batch": [_P, _P, _P, _I64, _I64, _P, _P, _P],
+    "abtpu_gen_candidates": [_P, _P, _P, _I64, _P, _P, _P],
 }
 
 

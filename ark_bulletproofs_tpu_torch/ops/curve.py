@@ -53,6 +53,7 @@ class CurveSpec:
     # JAX package (the values are the same either way).
     a_small: int | None
     b3_small: int | None
+    b_mont_limbs: tuple  # b * R mod p (the generator farm's curve equation)
 
     @classmethod
     def create(cls, name: str, fq: FieldSpec, a: int, b: int) -> "CurveSpec":
@@ -67,6 +68,7 @@ class CurveSpec:
             b3_mont_limbs=_limbs_of(b3 * R % fq.p),
             a_small=(a if 0 < a < (1 << 14) else None),
             b3_small=(3 * b if 0 < b < (1 << 14) else None),
+            b_mont_limbs=_limbs_of(b % fq.p * R % fq.p),
         )
 
 

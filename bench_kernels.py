@@ -71,9 +71,15 @@ build and alone; the table kernel against its torch form; the gather
 kernel over tables of GATHER_SWEEP rows (what L2 misses cost); with
 --parent, the parent's torch stage B in the same turns.
 
+The generator farm's kernel (gen_candidates, csrc/gens_kernels.cu) with
+the exponent raised in other fixed windows than the committed POW_WIN
+(GENS_VARIANTS: 1, 2, 3 and 5 bits; 1 is the plain bit scan that skips
+zero bits), each bit-equal to the committed kernel, timed at 2^21 attempts
+on secq256k1 and zorro.
+
 --parts picks the comparisons to run (default all): ops (one thread's
 cycles), fs, jac, rcb_te, wide, chains, scan, chain, field, te_chain,
-te_scan, rcb_double, stage_gather, msm.
+te_scan, rcb_double, stage_gather, gens, msm.
 
 The last line is a JSON object of every number; --out also writes it to
 FILE. Needs one card; exits 1 without.
@@ -1361,8 +1367,77 @@ def stage_gather_compare(res: dict, variants: dict, parent, dev) -> None:
         torch.cuda.empty_cache()
 
 
+# gens_kernels.cu's window of exponent bits, as ops/gens.py's POW_WIN
+# states it (a test ties the two)
+GENS_WINDOW = "#define POW_WIN 4"
+GENS_VARIANTS = {
+    f"gens window {w}": ("gens_kernels.cu",
+                         [(GENS_WINDOW, f"#define POW_WIN {w}")])
+    for w in (1, 2, 3, 5) if f"#define POW_WIN {w}" != GENS_WINDOW}
+GENS_ATTEMPTS = 1 << 21
+
+
+def gens_launcher(path: str):
+    """gen_candidates of the kernel library at `path`, taking (spec, sq,
+    words) as the wrapper does."""
+    import ctypes
+
+    import torch
+
+    from ark_bulletproofs_tpu_torch.ops import gens
+
+    fn = launcher(ctypes.CDLL(path), "gen_candidates")
+
+    def run(spec, sq, words):
+        m = words.shape[0]
+        xy = torch.empty(m, 16, dtype=torch.int32, device=words.device)
+        ok = torch.empty(m, dtype=torch.bool, device=words.device)
+        fn(spec, words.data_ptr(), xy.data_ptr(), ok.data_ptr(), m,
+           gens.gen_words(spec, sq).ctypes.data_as(ctypes.c_void_p))
+        return xy, ok
+
+    return run
+
+
+def gens_compare(res: dict, variants: dict, dev) -> None:
+    """gen_candidates, committed and each window variant, at GENS_ATTEMPTS
+    random attempts (x below p) on secq256k1 and zorro: bit-equal, then ms
+    from CUDA graphs in turns into res["gens"]."""
+    import numpy as np
+    import torch
+
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.ops import gens
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+    runs = {"committed": lambda spec, sq, w: gens.gen_candidates(spec, sq, w),
+            **variants}
+    res["gens"] = {}
+    for curve in (curves.secq256k1, curves.zorro):
+        spec, sq = spec_for(curve), gens.sqrt_spec_for(curve.fq)
+        w = np.random.default_rng(5).integers(
+            0, 1 << 32, size=(GENS_ATTEMPTS, 9),
+            dtype=np.uint64).astype(np.uint32)
+        w[:, 7] %= np.uint32(curve.fq.p >> 224)
+        w = torch.from_numpy(w.view(np.int32)).to(dev)
+        want = gens.gen_candidates(spec, sq, w)
+        for name, run in runs.items():
+            got = run(spec, sq, w)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                res["failures"].append(f"gens {curve.name}: {name} differs")
+        times = in_turns(runs, lambda run: run(spec, sq, w), 3)
+        res["gens"][curve.name] = times
+        print(f"  gen_candidates {curve.name} {GENS_ATTEMPTS} attempts (ms, "
+              f"mean of 2): " + "; ".join(
+                  f"{name} {statistics.mean(t):.4f}"
+                  for name, t in times.items()), flush=True)
+        del w, want
+        torch.cuda.empty_cache()
+
+
 PARTS = ("ops", "fs", "jac", "rcb_te", "wide", "chains", "scan", "chain",
-         "field", "te_chain", "te_scan", "rcb_double", "stage_gather", "msm")
+         "field", "te_chain", "te_scan", "rcb_double", "stage_gather", "gens",
+         "msm")
 
 
 def main() -> int:
@@ -1403,7 +1478,8 @@ def main() -> int:
                            ("te_scan", TE_SCAN_VARIANTS),
                            ("rcb_double", DBL_VARIANTS),
                            ("field", FIELD_VARIANTS),
-                           ("stage_gather", GATHER_VARIANTS)):
+                           ("stage_gather", GATHER_VARIANTS),
+                           ("gens", GENS_VARIANTS)):
         if part in parts:
             wanted.update(variants)
     bench_dir = os.path.join(_build.BUILD_DIR, "bench")
@@ -1415,10 +1491,11 @@ def main() -> int:
     res["build_s"] = time.perf_counter() - t0
     ptx = [line for line in cs.ptxas_report(_build.build_log or "")
            if re.match(r"(suffix_|rowsum|horner|mont_mul|double_k_add|fs_|"
-                       r"madd_scan|double_chain|double_wide|stage_|row_)",
+                       r"madd_scan|double_chain|double_wide|stage_|row_|"
+                       r"gen_)",
                        line)]
     chains, dkas, fss, scans, fields = {}, {}, {}, {}, {}
-    te_scans, dbls, gathers = {}, {}, {}
+    te_scans, dbls, gathers, gensv = {}, {}, {}, {}
     for name, (p, lib) in procs.items():
         log = p.communicate()[0]
         if p.returncode and name in GATHER_VARIANTS:
@@ -1429,7 +1506,8 @@ def main() -> int:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         ptx += [f"{name}: {line}" for line in cs.ptxas_report(log)
                 if re.match(r"(suffix_jac|rowsum|double_k_add|fs_|madd_scan|"
-                            r"double_chain|double_wide|mont_mul|stage_)",
+                            r"double_chain|double_wide|mont_mul|stage_|"
+                            r"gen_)",
                             line)]
         if name in CHAIN_VARIANTS:
             chains[name] = chain_launchers(lib)
@@ -1445,6 +1523,8 @@ def main() -> int:
             fields[name] = mont_mul_launcher(lib)
         elif name in GATHER_VARIANTS:
             gathers[name] = stage_gather_launcher(lib)
+        elif name in GENS_VARIANTS:
+            gensv[name] = gens_launcher(lib)
         else:
             dkas[name] = dka_launchers(lib)
     res["ptxas"] = ptx
@@ -1480,6 +1560,8 @@ def main() -> int:
     if "stage_gather" in parts:
         stage_gather_compare(res, gathers, args.parent
                              and parent_stage_gather(args.parent), dev)
+    if "gens" in parts:
+        gens_compare(res, gensv, dev)
     if "ops" in parts:
         res["sass_mont_mul"] = sass_mix(_build.library_path(),
                                         "mont_mul_kernel")

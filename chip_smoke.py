@@ -15,7 +15,8 @@ Phases, each printed with its seconds:
      scans, te_double_k_add and te_double) with identity, doubling and
      P + (-P) lanes, suffix_madd_scan also at the n = 2^20 plan's shape
      (256 rows x 90,112 lanes) and at the 2048-column plan's (512 x
-     45,056), timed at both and at the JAX plan's (1024 x 22,528); the
+     45,056), timed at both and at the JAX plan's (1024 x 22,528: timed
+     only; the JAX plan's 22,528 lanes are held at 64 rows); the
      Jacobian jac_double_k_add (k = 0, 1, 4) on secq256k1 and zorro with
      doubling, P + (-P), O + P and P + O lanes at every lane count the
      paths send (DKA_HELD: 1 to 2^20 lanes, and both sides of the lane
@@ -90,8 +91,18 @@ Phases, each printed with its seconds:
      alone by replaying a CUDA graph of its launches (stage_gather with
      its table launch, by CUDA events around its calls), beside its plain
      version and its bound;
-  3. msm: n = 2^20 secq256k1 through the port's `msm`, equal to the native
-     host Pippenger, then timed (median of 5) with its peak memory, and
+  gens: the generator farm: gen_candidates against its plain version
+     (x, y, ok bit-equal) at 1 to 2^21 attempts on secq256k1 and zorro,
+     timed at 2^21 beside the bound; GeneratorsChain fast_forward(4096)
+     then take(4096) through the farm on secq256k1 and take(4096) on
+     zorro (its first chunk holds an x >= p: replayed on the host), each
+     equal to the host chain; the farm (gate lowered) against the host
+     chain at 256 to 1,024 generators; take(2^20), timed with its split
+     (ChaCha, framing and the >= p test, host to device, kernel, device
+     to host, ints), whose points are phase 3's bases;
+  3. msm: n = 2^20 secq256k1 through the port's `msm` on the farm's 2^20
+     distinct points, equal to the native host Pippenger over them, then
+     timed (median of 5) with its peak memory, and
      its stage split (sort, gather: one stage_gather call, its table
      included, C, D, E, F,
      G) by CUDA events, the median of 3 staged calls, whose sum equals
@@ -109,12 +120,15 @@ Phases, each printed with its seconds:
      swapped commitments rejected;
   5. batch_verify: the 1024 cached k = 8 proofs accepted, a batch with one
      tampered proof rejected;
-  6. msm curve25519: as phase 3, the oracle the pure-Python host
-     Pippenger (the native library has no twisted-Edwards branch);
+  6. msm curve25519: as phase 3 on 2^13 chain points tiled 128 times
+     (twisted-Edwards: the farm does not sample it), the oracle the
+     pure-Python host Pippenger over the 2^13 points (the native library
+     has no twisted-Edwards branch);
   7. shuffle curve25519: as phase 4 (the witness commitments through the
      device Pedersen batch on the card; on the host route through the
      host's double-and-add);
-  8. ipa n=2^16 secq256k1: one IPA on the on-device Fiat-Shamir route
+  8. ipa n=2^16 secq256k1: G and H from BulletproofGens(secq256k1,
+     2^16) (the farm); one IPA on the on-device Fiat-Shamir route
      and on the per-round route, byte-equal, each run twice, with the
      device-to-host syncs of one run of each; then verified with its g/h
      scalars and their MSM on the card (`ipa_gh_msm`) and with the host
@@ -140,8 +154,9 @@ Phases, each printed with its seconds:
      batch verified with the g/h scalars made and summed on the card
      (padded_n = 256) and with the host assembly, a tampered proof
      rejected;
- 14. launches: each path of phases 3-13 runs with every launch count set
-     to 0 just before it and read just after; each of its kernels
+ 14. launches: each path of the gens phase and phases 3-13 runs with
+     every launch count set to 0 just before it and read just after
+     (gen_candidates on the farm's paths); each of its kernels
      launched (the window Horner, stage_table and stage_gather on every
      v2 MSM path),
      and the v1 paths' double-k-add kernel at k > 0; and the most lanes
@@ -186,6 +201,10 @@ SHUFFLE_K = 1024
 BATCH_CACHE = os.path.join(ROOT, "benches",
                            ".cache_batch_secq256k1_k8_n1024.pkl")
 L_MAIN = 22 * 1024  # scan lanes at n = 2^20 under the JAX plan (C = 1024)
+# The JAX plan's scan rows at n = 2^20: no path sends 1024 x L_MAIN, so
+# the scan is only timed there (holding it and the kernels after it took
+# about 140 s of the smoke's time limit); L_MAIN is held at R_HELD rows.
+R_JAX, R_HELD = 1024, 64
 # The n = 2^20 MSM's scan under the port's plan (ops/msm2.py::plan_columns:
 # C = 4096): 256 rows of W * C = 22 * 4096 lanes; and under the 2048-column
 # plan it was measured against (512 x 22 * 2048).
@@ -210,6 +229,13 @@ FIELD_CU = "ark_bulletproofs_tpu_torch/csrc/field_kernels.cu"
 JAC_CU = "ark_bulletproofs_tpu_torch/csrc/jac_kernels.cu"
 FS_CU = "ark_bulletproofs_tpu_torch/csrc/fs_kernels.cu"
 GATHER_CU = "ark_bulletproofs_tpu_torch/csrc/gather_kernels.cu"
+GENS_CU = "ark_bulletproofs_tpu_torch/csrc/gens_kernels.cu"
+# gen_candidates's attempt counts held against its plain version: 1 to a
+# 256-attempt chunk, 65,536 (about a 2^15 request) and 2^21 (a 2^20
+# request's chunk is 2,108,992 attempts: timed there at 2^21). The farm's
+# requests of 256 to 4,096 generators are timed against the host chain.
+GEN_ATTEMPTS = (1, 33, 256, 1 << 16, 1 << 21)
+GEN_RATE_SIZES = (256, 512, 1024)
 TREE_LANES = 128 * 256  # the first step of the P = 128 batch's c * Q tree
 # jac_double_k_add's lane counts on the paths: the on-device Fiat-Shamir
 # IPA's c * Q tree (2 P h lanes, h = n / 2 ... 1: 256 ... 2 for one proof
@@ -380,6 +406,11 @@ ENTRIES = [
      "ark_bulletproofs_tpu/ops/field.py:319"),
     ("mont_inv_batch", "mont_inv_batch", None, FIELD_CU,
      "ark_bulletproofs_tpu/ops/fs.py:467"),
+    # the generator farm: the JAX farm's chain of mont_mul_tiled launches
+    # (pow_bits) and the XLA tail around it, one launch a chunk here
+    ("gen_candidates", "gen_candidates", None, GENS_CU,
+     "ark_bulletproofs_tpu/ops/kernels.py:303 mont_mul_tiled via "
+     "ark_bulletproofs_tpu/ops/gens.py:99 pow_bits"),
 ]
 SCANS = ("suffix_madd_scan", "suffix_jac_scan", "rowsum")
 PER_MODEL = SCANS + ("horner_windows",)  # entries split by point model
@@ -506,8 +537,9 @@ class Launches:
 class PathLanes:
     """The most lanes (with the rows or k, and the counted path then, None
     between paths) that stages D and F's kernels and the three
-    double-k-add kernels are launched at in phases 3-13, and every lane
-    count sent (at k > 0 apart); and every (rows, lanes) of jac_madd,
+    double-k-add kernels are launched at in the gens phase and phases
+    3-13, and every lane count sent (at k > 0 apart); and every (rows,
+    lanes) of jac_madd,
     te_madd and mont_inv_batch (rows 0: the inverses alone), (steps,
     lanes) of jac_double and te_double, rows of sum_mod and (n, B,
     mapped) of stage_gather, each with the first path that sent it,
@@ -764,35 +796,40 @@ class KernelCheck:
         te = model(spec) == "te"
         nc = 4 if te else 3
         dka = kk.te_double_k_add if te else kk.rcb_double_k_add
-        for R, L in ((R_PLAN, L_PLAN), (R_MID, L_MID), (8, L_MAIN),
-                     (1024, L_MAIN)):
+        for R, L in ((R_PLAN, L_PLAN), (R_MID, L_MID), (R_HELD, L_MAIN),
+                     (R_JAX, L_MAIN)):
+            if R == R_JAX and not timed:
+                continue
             t0 = time.perf_counter()
             xy = self.affine_rows(curve, spec, R, L, seed + R)
             locs = k2.suffix_madd_scan(spec, xy)
-            plain_ms = host_ms(lambda: self.compare(
-                entry("suffix_madd_scan", spec), locs,
-                k2.suffix_madd_scan_plain(spec, xy)))
-            if timed and R > 8:
+            plain_ms = None
+            if R != R_JAX:
+                plain_ms = host_ms(lambda: self.compare(
+                    entry("suffix_madd_scan", spec), locs,
+                    k2.suffix_madd_scan_plain(spec, xy)))
+            if timed and R != R_HELD:
                 ms = graph_ms(lambda: k2.suffix_madd_scan(spec, xy), 3)
                 bound = self.bound((2 + nc) * R * 16 * L * 4,
                                    R * L * FE_MULS[model(spec)]["madd"]
                                    * MULS_PER_FE_MUL)
                 plan = {R_PLAN: "the port's", R_MID: "the 2048-column",
-                        1024: "the JAX"}[R]
+                        R_JAX: "the JAX"}[R]
+                plain = ("not held" if plain_ms is None
+                         else f"plain {plain_ms:.1f} ms")
                 print(f"   {curve.name} suffix_madd_scan at {plan} plan "
-                      f"({R} rows x {L} lanes): kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.1f} ms, bound {bound[0]:.5g} ms "
-                      f"({bound[1]})", flush=True)
+                      f"({R} rows x {L} lanes): kernel {ms:.4f} ms, {plain}, "
+                      f"bound {bound[0]:.5g} ms ({bound[1]})", flush=True)
                 if R == R_PLAN:  # the main path's shape
                     self.times[entry("suffix_madd_scan", spec)] = (
                         ms, plain_ms, *bound)
             del xy
-            if R in (R_PLAN, R_MID):  # the others are held at L_MAIN
+            if R != R_HELD:  # the kernels after the scan: at R_HELD rows
                 del locs
                 torch.cuda.empty_cache()
                 print(f"   {curve.name} suffix_madd_scan R={R} L={L}: "
-                      f"bit-equal ({time.perf_counter() - t0:.1f} s)",
-                      flush=True)
+                      f"{'timed' if R == R_JAX else 'bit-equal'} "
+                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
                 continue
             T = self.special_rows(spec, locs)
             self.compare(entry("suffix_jac_scan", spec),
@@ -1901,6 +1938,55 @@ class KernelCheck:
             self.library_ms["stage_gather"] = lib
             torch.cuda.empty_cache()
 
+    def run_gens(self, curve, timed: bool) -> None:
+        """gen_candidates bit-equal (x, y, ok) to its plain version at
+        GEN_ATTEMPTS attempts (x = 0, 1, p - 1 and about half non-squares;
+        the root picked by the sign word); timed at 2^21 attempts from a
+        CUDA graph beside the plain version and the bound (the multiplies
+        the function needs, from the exponent and the field:
+        ops/gens.py::least_muls; the kernel's own field products, from its
+        window schedule, printed beside it)."""
+        import numpy as np
+        import torch
+
+        from ark_bulletproofs_tpu_torch.ops import gens
+        from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+
+        spec, sq = spec_for(curve), gens.sqrt_spec_for(curve.fq)
+        p = curve.fq.p
+        t0 = time.perf_counter()
+        for m in GEN_ATTEMPTS:
+            w = np.random.default_rng(m).integers(
+                0, 1 << 32, size=(m, 9), dtype=np.uint64).astype(np.uint32)
+            w[:, 7] %= np.uint32(p >> 224)  # x below p
+            for i, x in enumerate([0, 1, p - 1][:m]):
+                w[i, :8] = [(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+            w = torch.from_numpy(w.view(np.int32)).to(self.dev)
+            got = gens.gen_candidates(spec, sq, w)
+            t1 = time.perf_counter()
+            want = gens.gen_candidates_plain(spec, sq, w)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t1) * 1e3
+            self.compare("gen_candidates", got, want)
+            if m != GEN_ATTEMPTS[-1] or not timed:
+                continue
+            products = gens.kernel_products(spec, sq)
+            least = gens.least_muls(spec, sq)
+            ms = graph_ms(lambda: gens.gen_candidates(spec, sq, w), 3)
+            bound = self.bound(m * (36 + 65), m * least)
+            print(f"   {curve.name} gen_candidates {m} attempts: kernel "
+                  f"{ms:.4f} ms ({ms * 1e6 / m:.2f} ns an attempt; "
+                  f"{products} field products, "
+                  f"{products * MULS_PER_FE_MUL} multiplies each, against "
+                  f"the {least} the function needs), plain {plain_ms:.1f} "
+                  f"ms, bound {bound[0]:.5g} ms ({bound[1]}, "
+                  f"{ms / bound[0]:.2f} times); "
+                  f"{int(got[1].sum())} on the curve", flush=True)
+            if curve.name == "secq256k1":
+                self.times["gen_candidates"] = (ms, plain_ms, *bound)
+        print(f"   {curve.name} gen_candidates at {GEN_ATTEMPTS} attempts: "
+              f"bit-equal ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     def report(self) -> None:
         for name, (ms, pms, bms, by) in self.times.items():
             print(f"   {name}: kernel {ms:.4f} ms, plain {pms:.1f} ms, "
@@ -1913,16 +1999,19 @@ def path_name(what: str, curve) -> str:
     return what if curve.name == "secq256k1" else f"{what} {curve.name}"
 
 
-def phase_msm(curve, launches: Launches) -> None:
-    """n = 2^20 MSM through `msm`, equal to the host Pippenger (native
-    C++, or for curve25519 pure Python), then the device MSM timed (median
-    of 5) with its peak memory, and its stage split by CUDA events (equal
-    to the host Pippenger too)."""
+def phase_msm(curve, launches: Launches, pts=None) -> None:
+    """n = 2^20 MSM through `msm`, equal to the host Pippenger: on `pts`,
+    2^20 distinct points (the farm's), against the native host Pippenger
+    over them; else on 2^13 chain points tiled 128 times, against the host
+    Pippenger (pure Python on curve25519) over the 2^13 points with the
+    sums of their scalars. Then the device MSM timed (median of 5) with
+    its peak memory, and its stage split by CUDA events (equal to the host
+    Pippenger too)."""
     import numpy as np
     import torch
 
     import ark_bulletproofs_tpu_torch as port
-    from ark_bulletproofs_tpu_torch import engine
+    from ark_bulletproofs_tpu_torch import engine, native
     from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
     from ark_bulletproofs_tpu_torch.ops.curve import (affine_to_device,
                                                       point_batch_to_host,
@@ -1931,18 +2020,27 @@ def phase_msm(curve, launches: Launches) -> None:
     from ark_bulletproofs_tpu_torch.parallel.msm import msm_device_ragged
 
     t0 = time.perf_counter()
-    pts = GeneratorsChain(curve, b"chip_smoke msm").take(N_DISTINCT)
-    reps = N_MSM // N_DISTINCT
-    bases = pts * reps  # base i is pts[i % 2^13]
     raw = np.random.default_rng(2024).integers(
         0, 1 << 16, size=(N_MSM, 16), dtype=np.uint16).tobytes()
     r = curve.fr.p
     ks = [int.from_bytes(raw[32 * i:32 * i + 32], "little") % r
           for i in range(N_MSM)]
-    ksum = [sum(ks[j::N_DISTINCT]) % r for j in range(N_DISTINCT)]
-    want = curve.msm(pts, ksum)  # host Pippenger over 2^13 points
-    print(f"   inputs and host reference: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    if pts is None:
+        pts = GeneratorsChain(curve, b"chip_smoke msm").take(N_DISTINCT)
+        reps = N_MSM // N_DISTINCT
+        bases = pts * reps  # base i is pts[i % 2^13]
+        ksum = [sum(ks[j::N_DISTINCT]) % r for j in range(N_DISTINCT)]
+        want = curve.msm(pts, ksum)  # host Pippenger over 2^13 points
+        what = f"{N_DISTINCT} chain points tiled {reps} times"
+    else:
+        reps, bases = 1, pts
+        if not native.set_curve_native(curve):
+            raise AssertionError("no native host Pippenger for this curve")
+        want = curve.to_affine(native.cpu_pippenger_native(pts, ks,
+                                                           curve=curve))
+        what = f"{len(pts)} distinct farm points, native host Pippenger"
+    print(f"   inputs and host reference ({what}): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     spec = spec_for(curve)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1980,6 +2078,117 @@ def phase_msm(curve, launches: Launches) -> None:
           + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
                       for k, v in split.items())
           + f"; sum {total:.3f} ms", flush=True)
+
+
+GENS_SPLIT = (("gens:chacha", "ChaCha words"),
+              ("gens:frame", "framing and the >= p test"),
+              ("gens:h2d", "host to device (and the launch)"),
+              ("gens:kernel", "kernel (to its ok flags on the host)"),
+              ("gens:d2h", "accepted points to the host"),
+              ("gens:ints", "ints and assembly"))
+
+
+def phase_gens(launches: Launches) -> list:
+    """The generator farm: fast_forward(4096) then take(4096) of the G
+    chain through the farm on secq256k1 and take(4096) on zorro (which
+    replays on the host), each equal to the host chain; the farm against
+    the host chain at GEN_RATE_SIZES generators (the gate lowered), the
+    host's rate at 512; then take(2^20) on secq256k1, timed with its
+    split. Returns the 2^20 points (phase 3's MSM bases)."""
+    import torch
+
+    from ark_bulletproofs_tpu_torch import curves
+    from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
+    from ark_bulletproofs_tpu_torch.ops.curve import spec_for
+    from ark_bulletproofs_tpu_torch.utils import profiling
+
+    gate = GeneratorsChain._DEVICE_MIN
+    label = b"G\0\0\0\0"
+
+    def host(fn):
+        """fn() with the farm's gate out of reach: the host chain."""
+        GeneratorsChain._DEVICE_MIN = 1 << 62
+        try:
+            return fn()
+        finally:
+            GeneratorsChain._DEVICE_MIN = gate
+
+    sec, zor = curves.secq256k1, curves.zorro
+    t0 = time.perf_counter()
+
+    def farm():
+        chain = GeneratorsChain(sec, label).fast_forward(4096)
+        return chain, chain.take(4096)
+
+    chain, got = launches.run("gens secq256k1 fast_forward + take", farm,
+                              ("gen_candidates",), spec_for(sec))
+    farm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = host(lambda: GeneratorsChain(sec, label).fast_forward(4096))
+    want = host(lambda: ref.take(4096))
+    host_s = time.perf_counter() - t0
+    if got != want or chain.take(3) != ref.take(3):
+        raise AssertionError("the farm's secq256k1 chain differs from the "
+                             "host chain")
+    print(f"   secq256k1 fast_forward(4096) + take(4096): farm {farm_s:.3f} "
+          f"s, host chain {host_s:.3f} s, equal (and the next 3)",
+          flush=True)
+    replays = GeneratorsChain.replays
+    t0 = time.perf_counter()
+    got = launches.run("gens zorro take",
+                       lambda: GeneratorsChain(zor, label).take(4096), (),
+                       spec_for(zor))
+    farm_s = time.perf_counter() - t0
+    if GeneratorsChain.replays != replays + 1:
+        raise AssertionError("zorro's farm did not replay on the host")
+    if got != host(lambda: GeneratorsChain(zor, label).take(4096)):
+        raise AssertionError("the farm's zorro chain differs from the host "
+                             "chain")
+    print(f"   zorro take(4096): through the farm's gate, an x >= p in its "
+          f"first chunk, replayed on the host ({farm_s:.3f} s); equal to "
+          f"the host chain", flush=True)
+    for n in GEN_RATE_SIZES:
+        t0 = time.perf_counter()
+        want = host(lambda: GeneratorsChain(sec, b"rate").take(n))
+        host_s = time.perf_counter() - t0
+        GeneratorsChain._DEVICE_MIN = 1
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = GeneratorsChain(sec, b"rate").take(n)
+            farm_s = time.perf_counter() - t0
+        finally:
+            GeneratorsChain._DEVICE_MIN = gate
+        if got != want:
+            raise AssertionError(f"the farm differs from the host at {n}")
+        print(f"   secq256k1 take({n}): host chain {host_s * 1e3:.1f} ms "
+              f"({host_s * 1e3 / n:.3f} ms a point), farm (gate lowered) "
+              f"{farm_s * 1e3:.1f} ms; equal", flush=True)
+        if n == 512:
+            rate = host_s / n
+    profiling.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pts = launches.run(
+        "gens secq256k1 take 2^20",
+        lambda: GeneratorsChain(sec, b"chip_smoke msm").take(N_MSM),
+        ("gen_candidates",), spec_for(sec))
+    total = time.perf_counter() - t0
+    split = {what: profiling.total(name) for name, what in GENS_SPLIT}
+    profiling.reset()
+    if len(pts) != N_MSM or len(set(pts)) != N_MSM:
+        raise AssertionError("take(2^20) did not give 2^20 distinct points")
+    for P in pts[:: N_MSM // 64]:
+        if not sec.is_on_curve(P):
+            raise AssertionError("take(2^20) gave a point off the curve")
+    print(f"   secq256k1 take(2^20): {total:.3f} s "
+          f"({N_MSM / total:.0f} points/s; the host chain's rate at 512, "
+          f"{rate * 1e3:.3f} ms a point, would take {rate * N_MSM:.1f} s); "
+          f"split: " + ", ".join(f"{what} {t * 1e3:.1f} ms"
+                                 for what, t in split.items())
+          + f", other {(total - sum(split.values())) * 1e3:.1f} ms; "
+          f"distinct, on the curve", flush=True)
+    return pts
 
 
 MSM_STAGES = ("sort", "gather", "C scan", "D carries", "E buckets",
@@ -2318,17 +2527,20 @@ def random_scalars(curve, count: int, seed: int) -> list[int]:
 
 
 def phase_ipa_routes(curve, n: int, launches: Launches,
-                     verify: bool = False) -> None:
+                     verify: bool = False, farm: bool = False) -> None:
     """One n-term IPA through `InnerProductProof.create` on the on-device
     Fiat-Shamir route and on the per-round route, each run twice (the
     second counted as the path), byte-equal proofs and transcripts; the
-    device-to-host syncs of one more run of each. G and H repeat 8192
-    chain points (any bases serve; the routes must agree). With `verify`,
+    device-to-host syncs of one more run of each. G and H: with `farm`,
+    BulletproofGens(curve, n)'s share 0, made by the generator farm (a
+    path of its own); else chain points, 8192 repeated where n is larger
+    (any bases serve; the routes must agree). With `verify`,
     the proof is then verified on the device route (`ipa_gh_msm`) and on
     the host-scalar route, and a proof with a changed a is rejected."""
     import torch
 
-    from ark_bulletproofs_tpu_torch import (InnerProductProof, PedersenGens,
+    from ark_bulletproofs_tpu_torch import (BulletproofGens,
+                                            InnerProductProof, PedersenGens,
                                             Transcript, engine, ipp)
     from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
     from ark_bulletproofs_tpu_torch.ops import ipa
@@ -2336,9 +2548,15 @@ def phase_ipa_routes(curve, n: int, launches: Launches,
 
     spec = spec_for(curve)
     t0 = time.perf_counter()
-    m = min(n, N_DISTINCT)
-    G = GeneratorsChain(curve, b"chip_smoke ipa G").take(m) * (n // m)
-    H = GeneratorsChain(curve, b"chip_smoke ipa H").take(m) * (n // m)
+    if farm:
+        share = launches.run(path_name(f"gens BulletproofGens {n}", curve),
+                             lambda: BulletproofGens(curve, n).share(0),
+                             ("gen_candidates",), spec)
+        G, H = share.G(n), share.H(n)
+    else:
+        m = min(n, N_DISTINCT)
+        G = GeneratorsChain(curve, b"chip_smoke ipa G").take(m) * (n // m)
+        H = GeneratorsChain(curve, b"chip_smoke ipa H").take(m) * (n // m)
     gf, hf, a, b = (random_scalars(curve, n, 300 + i) for i in range(4))
     Q = curve.mul(PedersenGens.default(curve).B, 0x5EED)
     print(f"   inputs: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2911,7 +3129,7 @@ def main() -> int:
     from ark_bulletproofs_tpu_torch import curves, engine, native
     from ark_bulletproofs_tpu_torch.ops import _build
     from ark_bulletproofs_tpu_torch.ops import field as df
-    from ark_bulletproofs_tpu_torch.ops import fs, gather
+    from ark_bulletproofs_tpu_torch.ops import fs, gather, gens
     from ark_bulletproofs_tpu_torch.ops import kernels as kk
     from ark_bulletproofs_tpu_torch.ops import kernels2 as k2
     from ark_bulletproofs_tpu_torch.ops.curve import spec_for
@@ -2940,6 +3158,7 @@ def main() -> int:
         "row_gather": gather.row_gather,
         "stage_table": gather.stage_table,
         "stage_gather": gather.stage_gather,
+        "gen_candidates": gens.gen_candidates,
     }
 
     with phase("1 build"):
@@ -3005,8 +3224,13 @@ def main() -> int:
 
     launches = Launches(wrappers)
     path_lanes = PathLanes(kk, k2, fs, gather, launches, check.held)
+    with phase("gens generator farm"):
+        check.run_gens(curves.secq256k1, timed=True)
+        check.run_gens(curves.zorro, timed=True)
+        farm_points = phase_gens(launches)
     with phase("3 msm n=2^20 secq256k1"):
-        phase_msm(curves.secq256k1, launches)
+        phase_msm(curves.secq256k1, launches, farm_points)
+        del farm_points
     with phase(f"4 shuffle k={SHUFFLE_K} secq256k1"):
         prove, verify = phase_shuffle(curves.secq256k1, launches)
     with phase("5 batch_verify 1024 x k=8"):
@@ -3016,7 +3240,8 @@ def main() -> int:
     with phase(f"7 shuffle k={SHUFFLE_K} curve25519"):
         prove_te, _ = phase_shuffle(curves.curve25519, launches)
     with phase("8 ipa n=2^16 secq256k1"):
-        phase_ipa_routes(curves.secq256k1, 1 << 16, launches, verify=True)
+        phase_ipa_routes(curves.secq256k1, 1 << 16, launches, verify=True,
+                         farm=True)
     with phase("9 ipa zorro n=1024"):
         phase_ipa_routes(curves.zorro, 1024, launches)
         phase_ipa_v1(curves.zorro, 64, launches)

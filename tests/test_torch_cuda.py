@@ -1409,3 +1409,56 @@ def test_field_adds_and_sums_make_no_sync(cuda_dev):
     assert torch.equal(d, a.to(torch.int32))
     assert torch.equal(t.long(), df.sum_mod_plain(fs_, df.sub_plain(
         fs_, df.mont_mul_plain(fs_, df.neg_plain(fs_, a), b), a)))
+
+
+def _attempt_words(curve, m: int, seed: int) -> torch.Tensor:
+    """(m, 9) int32 sampling attempts: x below p (its top word below p's),
+    the first lanes x = 0, 1 and the raw limbs of p - 1, random sign
+    words; about half the x are not on the curve."""
+    import numpy as np
+
+    p = curve.fq.p
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(m, 9),
+                                             dtype=np.uint64).astype(np.uint32)
+    w[:, 7] %= np.uint32(p >> 224)
+    for i, x in enumerate([0, 1, p - 1][:m]):
+        w[i, :8] = [(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+    return torch.from_numpy(w.view(np.int32))
+
+
+@pytest.mark.parametrize("curve", CURVES[:2], ids=lambda c: c.name)
+@pytest.mark.parametrize("m", [1, 33, 256, 65536, 1 << 21])
+def test_gen_candidates_matches_plain(curve, m, cuda_dev):
+    """The farm's kernel bit-equal to its plain version (x, y, ok), the
+    root picked by the sign word."""
+    from ark_bulletproofs_tpu_torch.ops import gens
+
+    spec, sq = spec_for(curve), gens.sqrt_spec_for(curve.fq)
+    w = _attempt_words(curve, m, seed=m).to(cuda_dev)
+    before = gens.gen_candidates.launches
+    xy, ok = gens.gen_candidates(spec, sq, w)
+    assert gens.gen_candidates.launches == before + 1
+    want_xy, want_ok = gens.gen_candidates_plain(spec, sq, w)
+    assert torch.equal(ok, want_ok)
+    assert torch.equal(xy, want_xy)
+    if m >= 256:
+        assert 0 < int(ok.sum()) < m
+
+
+def test_farm_take_matches_host_chain(cuda_dev, monkeypatch):
+    """GeneratorsChain.fast_forward(4096) then take(4096) on secq256k1
+    through the farm on the card (one launch each), equal to the host
+    chain, which then goes on in step."""
+    from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
+    from ark_bulletproofs_tpu_torch.ops import gens
+
+    monkeypatch.setattr(engine.config, "device", "cuda")
+    curve = curves.secq256k1
+    before = gens.gen_candidates.launches
+    dev = GeneratorsChain(curve, b"G\0\0\0\0").fast_forward(4096)
+    got = dev.take(4096)
+    assert gens.gen_candidates.launches == before + 2
+    monkeypatch.setattr(GeneratorsChain, "_DEVICE_MIN", 1 << 62)
+    host = GeneratorsChain(curve, b"G\0\0\0\0").fast_forward(4096)
+    assert got == host.take(4096)
+    assert dev.take(5) == host.take(5)

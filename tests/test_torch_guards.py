@@ -75,7 +75,8 @@ def test_port_sources_are_seen_and_include_only_their_own():
     include only system headers and the port's own csrc files."""
     files = {os.path.relpath(p, PKG) for p in _port_files()}
     for mod in ("ops/fs.py", "ops/ipa.py", "ops/kernels.py", "ipp.py",
-                "r1cs/prover.py", "ops/kernels2.py", "ops/gather.py"):
+                "r1cs/prover.py", "ops/kernels2.py", "ops/gather.py",
+                "ops/gens.py", "generators.py"):
         assert mod in files, mod
     csrc = os.path.join(PKG, "csrc")
     sources = {}
@@ -85,7 +86,7 @@ def test_port_sources_are_seen_and_include_only_their_own():
                 sources[os.path.relpath(os.path.join(d, n), csrc)] = \
                     open(os.path.join(d, n)).read()
     for name in ("jac.cuh", "fs.cuh", "fs_kernels.cu", "msm_kernels.cu",
-                 "gather_kernels.cu"):
+                 "gather_kernels.cu", "gens_kernels.cu"):
         assert name in sources, name
     own = {os.path.basename(n) for n in sources}
     for name, text in sources.items():
@@ -191,6 +192,35 @@ def test_wrappers_take_plain_versions_only_for_cpu_tensors():
     before = gather.row_gather.launches
     assert torch.equal(gather.row_gather(tbl, idx), tbl[idx])
     assert gather.row_gather.launches == before  # the plain version ran
+
+
+def test_generator_farm_asks_for_the_card():
+    """From _DEVICE_MIN generators the chain takes the farm on the engine's
+    device: a CUDA request without a card raises before any work, and the
+    farm's wrapper runs its plain version only on CPU tensors."""
+    from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
+    from ark_bulletproofs_tpu_torch.ops import gens
+
+    curve = curves.secq256k1
+    chain = GeneratorsChain(curve, b"guard")
+    n = GeneratorsChain._DEVICE_MIN
+    assert chain._device_ok(n) and not chain._device_ok(n - 1)
+    assert not GeneratorsChain(curves.curve25519, b"guard")._device_ok(n)
+    if not torch.cuda.is_available():
+        engine.config.device = "cuda"
+        with pytest.raises(RuntimeError, match="cuda"):
+            chain.take(n)
+        engine.config.device = "cpu"
+    spec, sq = tc.spec_for(curve), gens.sqrt_spec_for(curve.fq)
+    with pytest.raises(ValueError, match="device"):
+        gens.gen_candidates(spec, sq, torch.zeros(2, 9, dtype=torch.int32,
+                                                  device="meta"))
+    before = gens.gen_candidates.launches
+    xy, ok = gens.gen_candidates(spec, sq, torch.zeros(2, 9,
+                                                       dtype=torch.int32))
+    assert gens.gen_candidates.launches == before  # the plain version ran
+    assert ok.tolist() == [False, False]  # 7 is no square mod p
+    assert not xy[:, :8].any()
 
 
 def test_default_device_is_cuda():
