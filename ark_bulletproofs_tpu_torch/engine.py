@@ -9,6 +9,13 @@ argument above their own sizes (r1cs/prover.py, ipp.py), run on
 The device is "cuda" unless the caller asks for "cpu": a CUDA request
 where there is no card raises and never carries on on the CPU. On the CPU
 every kernel wrapper runs its plain PyTorch version (the tests do this).
+
+`set_mesh` installs a device mesh (parallel/mesh.py): large MSMs, the
+prover's vector phase, the per-round IPA and the verifier's g/h scalars
+then shard their point axis across it, and the routes that need one
+device (the on-device Fiat-Shamir IPA, the tabled phase MSMs, the device
+IPA verify) stand aside. ABTPU_MESH=auto builds one over the CUDA cards
+when there are more than one.
 """
 
 from __future__ import annotations
@@ -67,3 +74,27 @@ def msm_many(curve, bases: list, scalar_sets: list[list[int]]):
 
         return device_msm.msm_many(curve, bases, scalar_sets)
     return [curve.msm(bases, ks) for ks in scalar_sets]
+
+
+# --- device mesh (parallel/mesh.py) ----------------------------------------
+
+_mesh = None
+
+
+def set_mesh(mesh) -> None:
+    """Install a parallel.mesh.Mesh; None goes back to one device."""
+    global _mesh
+    _mesh = mesh
+
+
+def active_mesh():
+    """The installed mesh, or with ABTPU_MESH=auto one over every CUDA
+    card when there are more than one; None (one card, the CPU, or no
+    mesh set) keeps every path on one device."""
+    global _mesh
+    if (_mesh is None and os.environ.get("ABTPU_MESH", "") == "auto"
+            and torch.cuda.is_available() and torch.cuda.device_count() > 1):
+        from .parallel.mesh import make_mesh
+
+        _mesh = make_mesh()
+    return _mesh

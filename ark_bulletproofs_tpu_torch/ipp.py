@@ -33,6 +33,12 @@ VERIFY_DEVICE_MIN_N on a short-Weierstrass curve when the engine puts
 the 2n-term MSM on the device: the g/h scalars and their MSM over [G | H]
 on the card (ops/verify.py::ipa_gh_msm), the [Q | L | R] tail on the
 host; below that the host assembles the whole MSM.
+
+Under an engine mesh (engine.set_mesh) the routes that keep a proof on
+one device stand aside, as in the JAX package: no on-device Fiat-Shamir
+route (`create`, `create_batch`) and no device verify; the per-round
+provers shard their rounds (ops/ipa.py) and the verify's MSM shards
+through the router.
 """
 
 from __future__ import annotations
@@ -211,7 +217,8 @@ class InnerProductProof:
         from .ops.ipa import IpaDeviceProver, ipa_prove_fs
 
         dev = engine.torch_device()
-        if dev.type in IPA_FS and len(G_vec) <= FS_MAX_N:
+        if (dev.type in IPA_FS and len(G_vec) <= FS_MAX_N
+                and engine.active_mesh() is None):
             res = ipa_prove_fs(transcript, curve, Q, G_factors, H_factors,
                                G_vec, H_vec, a_vec, b_vec, dev)
             if res is not None:
@@ -260,7 +267,8 @@ class InnerProductProof:
         for t in transcripts:
             protocol.innerproduct_domain_sep(t, n)
         dev = engine.torch_device()
-        if dev.type in IPA_FS and n <= FS_MAX_N:
+        if (dev.type in IPA_FS and n <= FS_MAX_N
+                and engine.active_mesh() is None):
             res = ipa_prove_fs_batch(transcripts, curve, base_B, ws,
                                      G_factors_list, H_factors_list, G_vec,
                                      H_vec, a_list, b_list, dev)
@@ -365,6 +373,7 @@ class InnerProductProof:
         p = f.p
 
         if (n >= VERIFY_DEVICE_MIN_N and hasattr(curve, "b")
+                and engine.active_mesh() is None
                 and engine.use_device(2 * n)):
             from .ops.verify import ipa_gh_msm
 

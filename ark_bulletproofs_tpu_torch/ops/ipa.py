@@ -42,14 +42,29 @@ segments of rounds the table shrinks on the card (`_shrink_fs_dev`).
 `IpaBatchProver` is the per-round route for P proofs in lockstep: one
 2P-set MSM a round and one host Fiat-Shamir step per proof. Not ported:
 the JAX package's fused `_round_step` programs (they only save TPU
-dispatches) and the sharded functions.
+dispatches).
+
+Under an engine mesh of D > 1 devices dividing N (the JAX package's
+sharded rounds) `IpaDeviceProver` keeps a, b, gm and hm as Pieces of the
+mesh's blocks, and the table as the blocks' [G_d | H_d], each on its
+device: `_round_scalars_sharded` and `_fold_sharded` run each block on
+its device with the static round width cur, reading the live prefix
+[0, cur) of a and b, copied to each block's device (O(cur) bytes, the
+data GSPMD moved), and the rounds are full width: [gw_d | hw_d] over
+[G_d | H_d], an MSM of 2N terms that the router's mesh branch runs block
+by block where it lies (a base_map would read across blocks). c_L and
+c_R are per-block partials added in block order, and c * Q stays on the
+host; the table never shrinks. `IpaBatchProver` keeps its vectors on
+one device under a mesh but runs full-width rows (`_round_scalars_full`)
+over the [G | H] table cut into the mesh's blocks.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import native
+from .. import engine, native
+from ..parallel import mesh as pmesh
 from ..transcript import protocol
 from . import cache as dcache
 from . import field as df
@@ -59,7 +74,8 @@ from . import proj
 from .curve import (affine_to_device, is_te, n_coords, point_batch_to_host,
                     point_zero, spec_for)
 from .limbs import N_LIMBS, ints_to_limbs, limbs_to_ints
-from ..parallel.msm import msm_device_mapped, msm_v1, msm_v2
+from ..parallel.msm import (msm_device_mapped, msm_device_maybe_sharded,
+                            msm_v1, msm_v2, shard_width)
 
 # The table shrinks once N / cur >= SHRINK_T segments share a live slot
 # (0 never shrinks); the shrink's MSM runs SHRINK_SETS scalar sets at a
@@ -102,11 +118,18 @@ def _fold(fr, a, b, gm, hm, u, u_inv, m: int, cur: int):
     N = a.shape[-1]
     idx, _, right, active = _masks(N, m, cur, a.device)
     up = (idx + m).clamp(max=N - 1)
-    shape = (*u.shape[:-1], N)
+    return _fold_math(fr, a, b, gm, hm, u, u_inv, a[..., up], b[..., up],
+                      right, active)
+
+
+def _fold_math(fr, a, b, gm, hm, u, u_inv, a_up, b_up, right, active):
+    """The fold's products on one block, given a[i + m], b[i + m] and the
+    masks."""
+    shape = (*u.shape[:-1], a.shape[-1])
     p4 = df.mont_mul(fr, torch.stack([a, b, gm, hm]), torch.stack([
         u.expand(shape), u_inv.expand(shape), df.select(right, u, u_inv),
         df.select(right, u_inv, u)]))
-    ab = df.mont_mul(fr, torch.stack([a[..., up], b[..., up]]),
+    ab = df.mont_mul(fr, torch.stack([a_up, b_up]),
                      torch.stack([u_inv, u]), p4[:2])
     zero = torch.zeros_like(ab[0])
     a_new = df.select(active, ab[0], zero)
@@ -149,6 +172,82 @@ def _round_scalars_compact_batch(fr, A, Bv, GM, HM, QW, m: int, cur: int):
             bm.repeat(P, 1), cq.transpose(0, 1).reshape(2 * P, N_LIMBS, 1))
 
 
+def _full_rows(fr, a, b, gm, hm, pa, pb, idx, m: int, cur: int):
+    """Full-width round rows over the lanes idx (global indices) of one
+    block: (rows (2, ..., 16, 2 w) canonical, [gw_L | hw_L] and [gw_R |
+    hw_R] for the block's [G | H] bases, c (2, ..., 16, 1) the block's
+    Montgomery c_L, c_R), reading a[i +- m] and b[i +- m], i = idx mod
+    cur, from pa, pb: a prefix of a and b at least cur wide."""
+    i = idx & (cur - 1)
+    right, active = i >= m, idx < m
+    up = (i + m).clamp(max=pa.shape[-1] - 1)
+    dn = (i - m).clamp(min=0)
+    a_up, b_up, a_dn, b_dn = pa[..., up], pb[..., up], pa[..., dn], pb[..., dn]
+    prods = df.mont_mul(fr, torch.stack([a_dn, b_up, a_up, b_dn, a, a_up]),
+                        torch.stack([gm, hm, gm, hm, b_up, b]))
+    zero = torch.zeros_like(prods[0])
+    row_L = torch.cat([df.select(right, prods[0], zero),
+                       df.select(right, zero, prods[1])], dim=-1)
+    row_R = torch.cat([df.select(right, zero, prods[2]),
+                       df.select(right, prods[3], zero)], dim=-1)
+    c = df.sum_mod(fr, df.select(active, prods[4:6], 0))
+    return df.from_mont(fr, torch.stack([row_L, row_R])), c
+
+
+def _round_scalars_full(fr, a, b, gm, hm, qw, m: int, cur: int):
+    """One round's full-width rows on one device: (scal (2, 16, 2N)
+    canonical over [G | H], cq (2, 16, 1) canonical c_L qw, c_R qw); with
+    (P, 16, N) vectors and qw (P, 16, 1), (2P, 16, 2N) and (2P, 16, 1),
+    set 2b the L of proof b and 2b + 1 its R."""
+    idx = torch.arange(a.shape[-1], device=a.device)
+    rows, c = _full_rows(fr, a, b, gm, hm, a, b, idx, m, cur)
+    cq = df.from_mont(fr, df.mont_mul(fr, c, qw))
+    if a.dim() == 3:
+        rows = rows.transpose(0, 1).reshape(-1, N_LIMBS, rows.shape[-1])
+        cq = cq.transpose(0, 1).reshape(-1, N_LIMBS, 1)
+    return rows.to(torch.int32), cq
+
+
+def _round_scalars_sharded(fr, mesh, a, b, gm, hm, qw, cur: int):
+    """One round over the mesh's blocks (a, b, gm, hm: Pieces of D blocks
+    of (16, N / D) Montgomery limbs; qw (16, 1) on mesh.devices[0]):
+    (rows, a Pieces of the blocks' (2, 16, 2 N / D) canonical [gw_d |
+    hw_d] rows; cq (2, 16, 1) canonical c_L qw, c_R qw on
+    mesh.devices[0]). Each block reads the live prefix [0, cur) of a and
+    b, copied to its device; c_L and c_R are the blocks' partials added in
+    block order."""
+    root = mesh.devices[0]
+    bsz = pmesh.width(a) // mesh.size
+    rows, c = [], None
+    for d, dev in enumerate(mesh.devices):
+        idx = torch.arange(d * bsz, (d + 1) * bsz, device=dev)
+        r, part = _full_rows(fr, a.parts[d], b.parts[d], gm.parts[d],
+                             hm.parts[d], pmesh.take(a, dev, 0, cur),
+                             pmesh.take(b, dev, 0, cur), idx, cur // 2, cur)
+        rows.append(r.to(torch.int32))
+        part = part.to(root)
+        c = part if c is None else df.add(fr, c, part)
+    return pmesh.Pieces(rows), df.from_mont(fr, df.mont_mul(fr, c, qw))
+
+
+def _fold_sharded(fr, mesh, a, b, gm, hm, u, u_inv, cur: int):
+    """`_fold` over the mesh's blocks (Pieces in and out; u, u_inv (16, 1)
+    Montgomery): each block reads a[i + m], b[i + m] from the live prefix
+    [0, cur), copied to its device."""
+    bsz = pmesh.width(a) // mesh.size
+    m = cur // 2
+    out = []
+    for d, dev in enumerate(mesh.devices):
+        idx = torch.arange(d * bsz, (d + 1) * bsz, device=dev)
+        up = (idx + m).clamp(max=cur - 1)
+        out.append(_fold_math(
+            fr, a.parts[d], b.parts[d], gm.parts[d], hm.parts[d],
+            u.to(dev), u_inv.to(dev), pmesh.take(a, dev, 0, cur)[..., up],
+            pmesh.take(b, dev, 0, cur)[..., up], (idx & (cur - 1)) >= m,
+            idx < m))
+    return tuple(pmesh.Pieces(v) for v in zip(*out))
+
+
 def _cq_ints(curve, rows: torch.Tensor) -> list[int]:
     """(K, 16, 1) canonical Fr limbs -> K ints."""
     p = curve.fr.p
@@ -175,7 +274,9 @@ def _host_q_jacs(curve, Q, values: list[int]) -> list:
 
 def _mont(curve, xs, device) -> torch.Tensor:
     """Scalars as (16, n) Montgomery limbs on `device` (device tensors from
-    the vector phase pass through)."""
+    the vector phase pass through; its Pieces are gathered there)."""
+    if isinstance(xs, pmesh.Pieces):
+        return pmesh.gather(xs, device)
     if isinstance(xs, torch.Tensor):
         return xs
     p, R = curve.fr.p, curve.fr.R
@@ -213,23 +314,40 @@ def _shrink_msm(spec, fr, X, Y, inf, gm, hm, cur: int,
 
 
 class IpaDeviceProver:
-    """Holds the device-resident state for one IPA proof creation."""
+    """Holds the device-resident state for one IPA proof creation: on
+    `device`, or under an engine mesh whose D > 1 devices divide N on the
+    mesh's blocks (the module note)."""
 
     def __init__(self, curve, Q, G_vec, H_vec, G_factors, H_factors,
                  a_vec, b_vec, device):
         self.curve = curve
         self.spec = spec_for(curve)
         self.fr = df.spec_for(curve.fr)
-        self.device = device
-        self.N = len(G_vec)
+        self.N = N = len(G_vec)
         self.Q = Q  # host affine; the c * Q terms are added on the host
-        self.X, self.Y, self.inf = dcache.ipa_table(curve, G_vec, H_vec,
-                                                    device)
-        self.a = _mont(curve, a_vec, device)
-        self.b = _mont(curve, b_vec, device)
-        self.gm = _mont(curve, G_factors, device)
-        self.hm = _mont(curve, H_factors, device)
-        self._one_q = df.mont_one(self.fr, 1, device)
+        mesh = engine.active_mesh()
+        self.mesh = (mesh if mesh is not None and mesh.size > 1
+                     and N % mesh.size == 0 else None)
+        if self.mesh is None:
+            self.device = device
+            self.X, self.Y, self.inf = dcache.ipa_table(curve, G_vec, H_vec,
+                                                        device)
+            self.a, self.b, self.gm, self.hm = (
+                _mont(curve, v, device)
+                for v in (a_vec, b_vec, G_factors, H_factors))
+        else:
+            self.device = self.mesh.devices[0]
+            b = N // self.mesh.size
+            tabs = [dcache.ipa_table(curve, G_vec[d * b:(d + 1) * b],
+                                     H_vec[d * b:(d + 1) * b], dev)
+                    for d, dev in enumerate(self.mesh.devices)]
+            self.X, self.Y, self.inf = (pmesh.Pieces(t) for t in zip(*tabs))
+            self.a, self.b, self.gm, self.hm = (
+                pmesh.shard_rows(self.mesh, v if isinstance(
+                    v, (torch.Tensor, pmesh.Pieces)) else _mont(curve, v,
+                                                                "cpu"))
+                for v in (a_vec, b_vec, G_factors, H_factors))
+        self._one_q = df.mont_one(self.fr, 1, self.device)
 
     def _u_limbs(self, u: int, u_inv: int):
         p, R = self.curve.fr.p, self.curve.fr.R
@@ -246,7 +364,8 @@ class IpaDeviceProver:
             [c.proj_add(c.to_proj(lr[j]), qj[j]) for j in range(2)]))
 
     def _shrinkable(self, cur: int) -> bool:
-        return SHRINK_T > 0 and cur >= 16 and self.N // cur >= SHRINK_T
+        return (self.mesh is None and SHRINK_T > 0 and cur >= 16
+                and self.N // cur >= SHRINK_T)
 
     def _shrink(self, cur: int) -> None:
         """Materialise the folded table at width `cur` (`_shrink_msm`),
@@ -266,6 +385,12 @@ class IpaDeviceProver:
 
     def round_commit(self, cur: int):
         """(L, R) host affine points for the round of width `cur`."""
+        if self.mesh is not None:
+            rows, cq = _round_scalars_sharded(
+                self.fr, self.mesh, self.a, self.b, self.gm, self.hm,
+                self._one_q, cur)
+            return self._host_lr(msm_device_maybe_sharded(
+                self.spec, self.X, self.Y, self.inf, rows), cq)
         if self._shrinkable(cur):
             self._shrink(cur)
         rows, bm, cq = _round_scalars_compact(
@@ -277,15 +402,20 @@ class IpaDeviceProver:
 
     def fold(self, cur: int, u: int, u_inv: int) -> None:
         u_l, ui_l = self._u_limbs(u, u_inv)
-        self.a, self.b, self.gm, self.hm = _fold(
-            self.fr, self.a, self.b, self.gm, self.hm, u_l, ui_l,
-            cur // 2, cur)
+        state = (self.a, self.b, self.gm, self.hm, u_l, ui_l)
+        if self.mesh is None:
+            out = _fold(self.fr, *state, cur // 2, cur)
+        else:
+            out = _fold_sharded(self.fr, self.mesh, *state, cur)
+        self.a, self.b, self.gm, self.hm = out
 
     def final_ab(self) -> tuple[int, int]:
         Rinv = self.curve.fr.R_inv
         p = self.curve.fr.p
-        a0, b0 = limbs_to_ints(torch.cat([self.a[:, :1], self.b[:, :1]],
-                                         dim=1))
+        a0, b0 = limbs_to_ints(torch.cat([pmesh.take(self.a, self.device, 0,
+                                                     1),
+                                          pmesh.take(self.b, self.device, 0,
+                                                     1)], dim=1))
         return a0 * Rinv % p, b0 * Rinv % p
 
 
@@ -295,7 +425,10 @@ class IpaBatchProver:
     src/r1cs/prover.rs:777-779): each round is one 2P-set compact MSM and
     one fetch, the Q terms c w_b B are added on the host through the
     native fixed-base path, and the host runs each proof's Fiat-Shamir
-    step (the JAX package's IpaBatchProver, compact path)."""
+    step (the JAX package's IpaBatchProver, compact path). Under an engine
+    mesh that cuts the 2N-point table into blocks (`shard_width`) the
+    rounds are full width over those blocks (the JAX package's `_compact
+    = False`); where the table is too narrow to cut they stay compact."""
 
     def __init__(self, curve, base_B, ws, G_vec, H_vec, G_factors_list,
                  H_factors_list, a_list, b_list, device):
@@ -312,15 +445,26 @@ class IpaBatchProver:
         self.GM = _mont_rows(curve, G_factors_list, device)
         self.HM = _mont_rows(curve, H_factors_list, device)
         self.QW = _mont(curve, ws, device).T.unsqueeze(-1).contiguous()
+        mesh = engine.active_mesh()
+        self._compact = not shard_width(mesh, self.X.shape[-1])
+        if not self._compact:
+            self.X, self.Y, self.inf = (pmesh.shard_rows(mesh, t)
+                                        for t in (self.X, self.Y, self.inf))
 
     def round_commit(self, cur: int) -> list:
         """[(L_b, R_b)] host affine points for the round of width cur."""
         c = self.curve
-        scal, bm, cq = _round_scalars_compact_batch(
-            self.fr, self.A, self.B, self.GM, self.HM, self.QW, cur // 2,
-            cur)
-        pts = msm_device_mapped(self.spec, self.X, self.Y, self.inf,
-                                scal.to(torch.int32).contiguous(), bm)
+        if self._compact:
+            scal, bm, cq = _round_scalars_compact_batch(
+                self.fr, self.A, self.B, self.GM, self.HM, self.QW,
+                cur // 2, cur)
+            pts = msm_device_mapped(self.spec, self.X, self.Y, self.inf,
+                                    scal.to(torch.int32).contiguous(), bm)
+        else:
+            scal, cq = _round_scalars_full(self.fr, self.A, self.B, self.GM,
+                                           self.HM, self.QW, cur // 2, cur)
+            pts = msm_device_maybe_sharded(self.spec, self.X, self.Y,
+                                           self.inf, scal)
         lr = point_batch_to_host(c, pts)
         qj = _host_q_jacs(c, self.base_B, _cq_ints(c, cq))
         aff = c.batch_to_affine([c.proj_add(c.to_proj(lr[k]), qj[k])

@@ -26,8 +26,14 @@ launches); the other adds are `field.add` / `sub` (a kernel each, no
 device-to-host sync), and the nine dot products are one (9, 16, n)
 product launch and one `sum_mod`. The coefficient
 vectors stay on the device between the two transcript syncs and the
-evaluated l, r feed the device IPA (ops/ipa.py) directly. The JAX
-package's mesh branch is not ported.
+evaluated l, r feed the device IPA (ops/ipa.py) directly.
+
+Under an engine mesh of D devices dividing padded_n (the JAX package's
+sharded vector phase) device d runs the pipeline on columns [lo, lo + b)
+(the y-powers from the global lane index), the nine dot products are
+per-block `sum_mod` partials added mod p in block order on
+mesh.devices[0], and l(x), r(x) come back as Pieces of the blocks, where
+the sharded IPA reads them in place.
 
 `pedersen_commit_many_dev` is the device batch of Pedersen commitments
 v B + r B_blinding for a twisted-Edwards curve, which the native host
@@ -41,6 +47,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import engine
+from ..parallel.mesh import Pieces
 from . import field as df
 from . import kernels as kk
 from . import proj
@@ -55,12 +63,23 @@ def _poly_phase(fr, padded_n: int, lg_n: int,
     """Canonical (16, padded_n) vectors and (16, 1) y, y^-1 -> (t
     coefficients (6, 16, 1) canonical, (l1, l2, l3, r0, r1, r3) Montgomery
     (16, padded_n))."""
+    sums, coeffs = _poly_block(fr, lg_n, 0, aL, aR, aO, sL, sR, wL, wR, wO,
+                               y, y_inv)
+    return _t_coeffs(fr, sums), coeffs
+
+
+def _poly_block(fr, lg_n: int, lo: int,
+                aL, aR, aO, sL, sR, wL, wR, wO, y, y_inv):
+    """Columns [lo, lo + w) of the pipeline ((16, w) canonical vectors):
+    (the nine dot products over them (9, 16, 1) Montgomery, (l1, l2, l3,
+    r0, r1, r3) Montgomery (16, w))."""
     vecs = df.to_mont(fr, torch.stack([aL, aR, aO, sL, sR, wL, wR, wO]))
     aLm, aRm, aOm, sLm, sRm, wLm, wRm, wOm = vecs.unbind(0)
     y_m, y_inv_m = df.to_mont(fr, torch.stack([y, y_inv])).unbind(0)
 
-    y_vec = _pow_vector(fr, y_m, padded_n, lg_n)
-    y_inv_vec = _pow_vector(fr, y_inv_m, padded_n, lg_n)
+    w = aL.shape[-1]
+    y_vec = _pow_vector(fr, y_m, w, lg_n, lo)
+    y_inv_vec = _pow_vector(fr, y_inv_m, w, lg_n, lo)
 
     # l1 = y^-i wR + aL, r1 = y^i aR + wL, r3 = y^i sR (+ 0): one launch
     l1, r1, r3 = df.mont_mul(fr, torch.stack([y_inv_vec, y_vec, y_vec]),
@@ -72,10 +91,15 @@ def _poly_phase(fr, padded_n: int, lg_n: int,
     # nine inner products in one product launch, then per-dot sums
     lhs = torch.stack([l1, l1, l2, l2, l3, l3, l1, l2, l3])
     rhs = torch.stack([r0, r1, r1, r0, r0, r1, r3, r3, r3])
-    sums = df.dot_mod(fr, lhs, rhs)  # (9, 16, 1)
+    return df.dot_mod(fr, lhs, rhs), (l1, l2, l3, r0, r1, r3)
+
+
+def _t_coeffs(fr, sums):
+    """The nine dot products (9, 16, 1) Montgomery -> t1..t6 (6, 16, 1)
+    canonical."""
     t234 = df.add(fr, sums[[1, 2, 6]], sums[[3, 4, 5]])  # one launch
     t = torch.stack([sums[0], *t234.unbind(0), sums[7], sums[8]])
-    return df.from_mont(fr, t), (l1, l2, l3, r0, r1, r3)
+    return df.from_mont(fr, t)
 
 
 def _eval_phase(fr, coeffs, x):
@@ -93,32 +117,48 @@ def _eval_phase(fr, coeffs, x):
 
 
 class ProverVectorPhase:
-    """Device-resident l/r/t pipeline for one proof."""
+    """Device-resident l/r/t pipeline for one proof: on `device`, or under
+    an engine mesh whose D devices divide padded_n on the mesh's blocks."""
 
     def __init__(self, curve, padded_n: int, aL, aR, aO, sL, sR,
                  wL, wR, wO, y: int, y_inv: int, device):
         self.curve = curve
         self.fr = df.spec_for(curve.fr)
         self.padded_n = padded_n
-        self.device = device
         lg_n = max((padded_n - 1).bit_length(), 1)
+        mesh = engine.active_mesh()
+        shard = (mesh is not None and mesh.size > 1
+                 and padded_n % mesh.size == 0)
+        self.devices = mesh.devices if shard else (device,)
+        b = padded_n // len(self.devices)
 
-        def vec(v):
-            return ints_to_limbs(list(v) + [0] * (padded_n - len(v)),
-                                 device)
+        self.coeffs, sums = [], None
+        for d, dev in enumerate(self.devices):
+            lo = d * b
 
-        t, self.coeffs = _poly_phase(
-            self.fr, padded_n, lg_n,
-            vec(aL), vec(aR), vec(aO), vec(sL), vec(sR),
-            vec(wL), vec(wR), vec(wO),
-            ints_to_limbs([y], device), ints_to_limbs([y_inv], device),
-        )
+            def vec(v):
+                v = list(v[lo:lo + b])
+                return ints_to_limbs(v + [0] * (b - len(v)), dev)
+
+            part, coeffs = _poly_block(
+                self.fr, lg_n, lo,
+                vec(aL), vec(aR), vec(aO), vec(sL), vec(sR),
+                vec(wL), vec(wR), vec(wO),
+                ints_to_limbs([y], dev), ints_to_limbs([y_inv], dev))
+            self.coeffs.append(coeffs)
+            part = part.to(self.devices[0])
+            sums = part if sums is None else df.add(self.fr, sums, part)
+        t = _t_coeffs(self.fr, sums)
         self.t = limbs_to_ints(t.reshape(6, 16).T)  # [t1..t6]
 
     def eval_lr(self, x: int):
-        """Device Montgomery l(x), r(x) after challenge x."""
-        return _eval_phase(self.fr, self.coeffs,
-                           ints_to_limbs([x], self.device))
+        """Device Montgomery l(x), r(x) after challenge x: (16, padded_n)
+        tensors, or under the mesh Pieces of its blocks."""
+        lr = [_eval_phase(self.fr, c, ints_to_limbs([x], dev))
+              for c, dev in zip(self.coeffs, self.devices)]
+        if len(lr) == 1:
+            return lr[0]
+        return Pieces([v[0] for v in lr]), Pieces([v[1] for v in lr])
 
 
 COMMIT_CHUNK = 2048  # commitments per halving tree (the JAX package's)

@@ -23,6 +23,13 @@ Vectors are (..., 16, n) limbs: (16, n) for one proof, (B, 16, n) for B
 proofs of one padded size (the JAX package's vmap becomes this batch
 axis); per-proof scalars are (..., 16, 1). `ipa_gh_msm` is the device
 half of the standalone IPA verifier (ipp.py).
+
+Under an engine mesh `gh_scalars` shards a large proof's g/h vectors
+(padded_n >= GH_SHARD_MIN_N, D dividing it; the JAX package's gate): the
+formulas are elementwise, so device d makes columns [lo, lo + b) of every
+vector, the y-powers and the s-vector from the global lane index (`lo`),
+rev(s) at the complement of that index, and the outputs stay there as a
+Pieces that the sharded mega-MSM reads in place.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import collections
 import torch
 
 from .. import engine
+from ..parallel.mesh import Pieces
 from ..parallel.msm import msm_v1, msm_v2
 from . import cache as dcache
 from . import field as df
@@ -40,11 +48,17 @@ from .limbs import ints_to_limbs, limbs_to_ints
 from .proj import from_jacobian
 
 
-def _pow_vector(fr, base: torch.Tensor, n: int, lg_n: int) -> torch.Tensor:
-    """[base^0, base^1, ..., base^(n-1)] in Montgomery form, (..., 16, n),
+# Smallest padded_n whose g/h vectors shard over a mesh (the JAX
+# package's).
+GH_SHARD_MIN_N = 4096
+
+
+def _pow_vector(fr, base: torch.Tensor, n: int, lg_n: int,
+                lo: int = 0) -> torch.Tensor:
+    """[base^lo, ..., base^(lo + n - 1)] in Montgomery form, (..., 16, n),
     for a (..., 16, 1) Montgomery `base`: lg_n squarings give base^(2^k),
     then lg_n masked products over the bits of the lane index."""
-    idx = torch.arange(n, device=base.device)
+    idx = torch.arange(lo, lo + n, device=base.device)
     one = df.mont_one(fr, n, base.device)
     v = one
     pw = base
@@ -58,11 +72,14 @@ def _pow_vector(fr, base: torch.Tensor, n: int, lg_n: int) -> torch.Tensor:
 
 
 def _s_vector(fr, u_sq: torch.Tensor, allinv: torch.Tensor, n: int,
-              lg_n: int) -> torch.Tensor:
-    """The IPA s-vector, (..., 16, n) Montgomery, from u_sq (..., 16,
-    lg_n) and allinv (..., 16, 1) Montgomery: bit k of i selects u_sq of
-    round lg_n - 1 - k."""
-    idx = torch.arange(n, device=u_sq.device)
+              lg_n: int, lo: int = 0, rev: bool = False) -> torch.Tensor:
+    """The IPA s-vector at lanes [lo, lo + n), (..., 16, n) Montgomery,
+    from u_sq (..., 16, lg_n) and allinv (..., 16, 1) Montgomery: bit k of
+    i selects u_sq of round lg_n - 1 - k. With rev, rev(s) there: s at
+    2^lg_n - 1 - i, the complement of i's bits."""
+    idx = torch.arange(lo, lo + n, device=u_sq.device)
+    if rev:
+        idx = (1 << lg_n) - 1 - idx
     one = df.mont_one(fr, n, u_sq.device)
     v = allinv.expand(*allinv.shape[:-1], n)
     for k in range(lg_n):
@@ -75,28 +92,32 @@ def _s_vector(fr, u_sq: torch.Tensor, allinv: torch.Tensor, n: int,
 
 
 def _gh_formulas(fr, padded_n: int, lg_n: int, wLm, wRm, wOm, y_inv_m, u_m,
-                 x_m, a_m, b_m, u_sq_m, allinv_m, n1):
+                 x_m, a_m, b_m, u_sq_m, allinv_m, n1, lo: int = 0):
     """The g/h scalar formulas, all Montgomery in and out, for one proof
-    ((16, n) vectors, (16, 1) scalars, int n1) or a batch ((B, 16, n),
-    (B, 16, 1), (B,) n1). Returns (g, h, yneg_wR):
+    ((16, w) vectors, (16, 1) scalars, int n1) or a batch ((B, 16, w),
+    (B, 16, 1), (B,) n1), over lanes [lo, lo + w) of padded_n (all of
+    them when w = padded_n). Returns (g, h, yneg_wR):
 
       g = u_or_1 * (x * y^-i wR - a * s)
       h = u_or_1 * (y^-i * (x * wL + wO - b * rev(s)) - 1)
 
     with u_or_1 = 1 on the n1 phase-1 lanes and u after them."""
     dev = wLm.device
-    y_inv_vec = _pow_vector(fr, y_inv_m, padded_n, lg_n)
-    s = _s_vector(fr, u_sq_m, allinv_m, padded_n, lg_n)
+    w = wLm.shape[-1]
+    y_inv_vec = _pow_vector(fr, y_inv_m, w, lg_n, lo)
+    s = _s_vector(fr, u_sq_m, allinv_m, w, lg_n, lo)
+    s_rev = (s.flip(-1) if w == padded_n
+             else _s_vector(fr, u_sq_m, allinv_m, w, lg_n, lo, rev=True))
     yneg_wR = df.mont_mul(fr, wRm, y_inv_vec)
-    idx = torch.arange(padded_n, device=dev)
+    idx = torch.arange(lo, lo + w, device=dev)
     n1 = torch.as_tensor(n1, device=dev)
-    one = df.mont_one(fr, padded_n, dev).long()
+    one = df.mont_one(fr, w, dev).long()
     u_or_1 = df.select(idx < n1[..., None], one,
-                       u_m.long().expand(*u_m.shape[:-1], padded_n))
+                       u_m.long().expand(*u_m.shape[:-1], w))
     x_ywr, a_s, x_wL, b_srev = df.mont_mul(
         fr, torch.stack([yneg_wR.to(torch.int32), s.to(torch.int32),
                          wLm.to(torch.int32),
-                         s.flip(-1).to(torch.int32)]),
+                         s_rev.to(torch.int32)]),
         torch.stack([x_m, a_m, x_m, b_m]).to(torch.int32))
     g = df.mont_mul(fr, u_or_1, df.sub(fr, x_ywr, a_s))
     inner = df.sub(fr, df.add(fr, x_wL, wOm), b_srev)
@@ -113,19 +134,20 @@ def _to_mont_all(fr, *xs):
 
 def _gh_scalars(fr, padded_n: int, lg_n: int, wL, wR, wO, y_inv, u, x, a,
                 b, u_sq, allinv, n1, mont_out: bool = False,
-                with_delta: bool = True):
+                with_delta: bool = True, lo: int = 0):
     """g/h scalar vectors and delta of one proof on the device. wL, wR,
-    wO: (16, padded_n) canonical limbs (zero-padded); y_inv, u, x, a, b,
-    allinv: (16, 1) canonical; u_sq: (16, lg_n) canonical; n1 the phase-1
-    multiplier count. Returns (g, h) canonical, or Montgomery with
-    mont_out, and delta = <y^-i wR, wL> (16, 1) canonical, or None without
-    with_delta (the caller's fetch of it synchronises with the host)."""
+    wO: (16, w) canonical limbs (zero-padded), lanes [lo, lo + w) of
+    padded_n; y_inv, u, x, a, b, allinv: (16, 1) canonical; u_sq: (16,
+    lg_n) canonical; n1 the phase-1 multiplier count. Returns (g, h)
+    canonical, or Montgomery with mont_out, and delta = <y^-i wR, wL>
+    over those lanes (16, 1) canonical, or None without with_delta (the
+    caller's fetch of it synchronises with the host)."""
     wLm, wRm, wOm = _to_mont_all(fr, wL, wR, wO)
     y_inv_m, u_m, x_m, a_m, b_m, allinv_m = _to_mont_all(
         fr, y_inv, u, x, a, b, allinv)
     g, h, yneg_wR = _gh_formulas(fr, padded_n, lg_n, wLm, wRm, wOm, y_inv_m,
                                  u_m, x_m, a_m, b_m, df.to_mont(fr, u_sq),
-                                 allinv_m, n1)
+                                 allinv_m, n1, lo)
     delta = (df.from_mont(fr, df.dot_mod(fr, yneg_wR, wLm)) if with_delta
              else None)
     if mont_out:
@@ -171,7 +193,12 @@ def gh_scalars(curve, padded_n: int, wL, wR, wO, y_inv: int, u: int, x: int,
     unless mont_out, for the mega-MSM, and delta as a host int.
     delta_host computes delta = <y^-i wR, wL> (reference verifier.rs:473)
     with host ints (`compute_delta_host`) instead of fetching the
-    device's, which would synchronise with the card."""
+    device's, which would synchronise with the card.
+
+    Under an engine mesh of D devices, from padded_n >= GH_SHARD_MIN_N
+    with D dividing it, g and h come back as Pieces of D blocks, block d
+    made on mesh.devices[d]; a device delta is the sum of the blocks'
+    partials, added in block order on mesh.devices[0]."""
     dev = engine.torch_device() if device is None else torch.device(device)
     fr = df.spec_for(curve.fr)
     lg_n = padded_n.bit_length() - 1
@@ -179,12 +206,29 @@ def gh_scalars(curve, padded_n: int, wL, wR, wO, y_inv: int, u: int, x: int,
         raise ValueError(f"gh_scalars: {len(u_sq)} challenges for "
                          f"padded_n = {padded_n}")
     p = curve.fr.p
-    c = _col([y_inv % p, u % p, x % p, a % p, b % p, allinv % p],
-             dev).unbind(0)
-    g, h, delta = _gh_scalars(
-        fr, padded_n, lg_n, *_rows([wL, wR, wO], padded_n, dev).unbind(0),
-        *c[:5], ints_to_limbs(list(u_sq), dev), c[5], n1, mont_out,
-        not delta_host)
+    mesh = engine.active_mesh()
+    D = 1 if mesh is None else mesh.size
+    shard = D > 1 and padded_n >= GH_SHARD_MIN_N and padded_n % D == 0
+    devs = mesh.devices if shard else (dev,)
+    b_n = padded_n // len(devs)
+    cols = [y_inv % p, u % p, x % p, a % p, b % p, allinv % p]
+    gs, hs, delta = [], [], None
+    for d, on in enumerate(devs):
+        lo = d * b_n
+        c = _col(cols, on).unbind(0)
+        g, h, part = _gh_scalars(
+            fr, padded_n, lg_n,
+            *_rows([v[lo:lo + b_n] for v in (wL, wR, wO)], b_n,
+                   on).unbind(0),
+            *c[:5], ints_to_limbs(list(u_sq), on), c[5], n1, mont_out,
+            not delta_host, lo)
+        gs.append(g)
+        hs.append(h)
+        if part is not None:
+            part = part.to(devs[0])
+            delta = part if delta is None else df.add(fr, delta, part)
+    if shard:
+        g, h = Pieces(gs), Pieces(hs)
     if delta_host:
         return g, h, compute_delta_host(p, wL, wR, y_inv)
     return g, h, limbs_to_ints(delta)[0]

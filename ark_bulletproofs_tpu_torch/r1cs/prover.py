@@ -18,7 +18,10 @@ JAX package's size thresholds:
   once the phase has 2 n_phase + 1 >= engine.config.msm_device_threshold
   terms. The JAX package gates the phase-2 table route on the phase-1
   width; the port gates each phase on its own, so a circuit whose
-  multipliers are all in phase 2 (the shuffle) takes the table route;
+  multipliers are all in phase 2 (the shuffle) takes the table route.
+  Under an engine mesh they run as `engine.msm_many`, which the router
+  shards (the base_map would read across the mesh's blocks), as in the
+  JAX package;
 - the l/r polynomials and t(x): the device vector phase (ops/prove.py)
   from padded_n >= VECTOR_MIN_N;
 - the IPA: ipp.py's device route from n >= ipp.DEVICE_MIN_N.
@@ -227,6 +230,12 @@ class Prover(RandomizableConstraintSystem):
         for cb in callbacks:
             cb(wrapper)
 
+    @staticmethod
+    def _tabled(terms: int) -> bool:
+        """Whether a phase's commitments take the cached table route: on
+        the device, and on one device (no mesh)."""
+        return engine.use_device(terms) and engine.active_mesh() is None
+
     def _tabled_msm(self, bp_gens, rows, lo: int, hi: int) -> list:
         """The three commitments of the phase over multipliers [lo, hi):
         rows[b] = [blinding] + scalars for G[lo:hi] and H[lo:hi]. The
@@ -301,7 +310,7 @@ class Prover(RandomizableConstraintSystem):
                 [o_blinding1] + self.a_O + zeros1,
                 [s_blinding1] + s_L1 + s_R1,
             ]
-            if engine.use_device(2 * n1 + 1):
+            if self._tabled(2 * n1 + 1):
                 A_I1, A_O1, S1 = self._tabled_msm(bp_gens, rows1, 0, n1)
             else:
                 A_I1, A_O1, S1 = engine.msm_many(
@@ -341,7 +350,7 @@ class Prover(RandomizableConstraintSystem):
                     [o_blinding2] + self.a_O[n1:] + zeros2,
                     [s_blinding2] + s_L2 + s_R2,
                 ]
-                if engine.use_device(2 * n2 + 1):
+                if self._tabled(2 * n2 + 1):
                     A_I2, A_O2, S2 = self._tabled_msm(bp_gens, rows2, n1, n)
                 else:
                     G2 = gens.G(n)[n1:]

@@ -41,6 +41,8 @@ from ..ops import verify as dverify
 from ..ops.curve import affine_to_device, point_to_host, spec_for
 from ..ops.limbs import ints_to_limbs
 from ..ops.msm import scalars_to_device
+from ..parallel.mesh import Pieces
+from ..parallel.mesh import parts as pieces_of
 from ..parallel.msm import msm_device_ragged
 from ..transcript import protocol
 from ..transcript.merlin import Transcript
@@ -77,10 +79,10 @@ def _mega_msm(curve, pc_gens, bp_gens, n_gens: int, extras: list,
 
 
 def _device_mega_msm(curve, pc_gens, bp_gens, n_gens: int, extras: list,
-                     scal: torch.Tensor):
+                     scal):
     """The mega-MSM on the device over (16, 2 + 2 n_gens + len(extras))
-    canonical scalar limbs on it (one scalar set through the ragged
-    driver); affine out."""
+    canonical scalar limbs on it, or a mesh's Pieces of them (one scalar
+    set through the ragged driver); affine out."""
     dev = scal.device
     Xp, Yp, Ip = dcache.pc_pair(pc_gens, curve, dev)
     Xt, Yt, It = dcache.bp_table(bp_gens, curve, n_gens, dev)
@@ -92,13 +94,18 @@ def _device_mega_msm(curve, pc_gens, bp_gens, n_gens: int, extras: list,
                                                   inf, scal))
 
 
-def _scalar_limbs(head: list[int], g: torch.Tensor, h: torch.Tensor,
-                  tail: list[int]) -> torch.Tensor:
+def _scalar_limbs(head: list[int], g, h, tail: list[int]):
     """[head | g | h | tail] as (16, total) canonical limbs on g's
-    device: the mega-MSM's scalar order."""
+    (first) device: the mega-MSM's scalar order. Sharded g and h (a
+    mesh's Pieces) stay where they are: the result is then a Pieces."""
     dev = g.device
-    return torch.cat([ints_to_limbs(head, dev), g.to(torch.int32),
-                      h.to(torch.int32), ints_to_limbs(tail, dev)], dim=1)
+    parts = [ints_to_limbs(head, dev),
+             *(p.to(torch.int32) for p in pieces_of(g)),
+             *(p.to(torch.int32) for p in pieces_of(h)),
+             ints_to_limbs(tail, dev)]
+    if isinstance(g, Pieces):
+        return Pieces(parts)
+    return torch.cat(parts, dim=1)
 
 
 class Verifier(RandomizableConstraintSystem):

@@ -154,7 +154,22 @@ Phases, each printed with its seconds:
      batch verified with the g/h scalars made and summed on the card
      (padded_n = 256) and with the host assembly, a tampered proof
      rejected;
- 14. launches: each path of the gens phase and phases 3-13 runs with
+ 16. mesh (run before 14, which checks its paths): under
+     engine.set_mesh(make_mesh(devices=["cuda:0"] * 4)), four shards on
+     the one card, on the inputs of phases 3, 4, 5 and 8: the sharded
+     n = 2^20 MSM equal to phase 3's host reference, timed by CUDA events
+     beside the same MSM without the mesh, with the device-to-host syncs
+     of one call of each (the sharded one may not sync more); the k = 1024
+     prove byte-equal to phase 4's proof, verify accepting it and
+     rejecting a flipped t_x and swapped commitments, batch_verify of
+     phase 5's 1024 proofs accepting them and rejecting one tampered; the
+     n = 2^16 IPA byte-equal to phase 8's (the same transcript end) and
+     verified; the sharded g/h scalars at padded_n = 4096 equal to the
+     unsharded ones; then two gloo ranks (python -m
+     ark_bulletproofs_tpu_torch.parallel.dryrun) on cuda:0 summing 2^16
+     generators, each drawing its own half, each equal to the host
+     Pippenger and to each other. No figure of it is a multi-card one;
+ 14. launches: each path of the gens phase and phases 3-13 and 16 runs with
      every launch count set to 0 just before it and read just after
      (gen_candidates on the farm's paths); each of its kernels
      launched (the window Horner, stage_table and stage_gather on every
@@ -323,9 +338,11 @@ SUM_LANES = (1, 2, 64, 2048, 1 << 16)
 # MSMs; base maps: the provers' and the IPA rounds' (B = 2 to 4 at n = 256
 # to 65,536), the per-round batch IPA's (32, 128 and 256 sets of 256) and
 # the on-device Fiat-Shamir IPA's table shrink (1,024 sets of 256); and
-# B = 2 without one. Phase 14 checks that every (n, B, mapped) a path sent
-# was held here.
-GATHER_SHAPES = [(1 << 20, 1, False), (1024, 2, False)] + [
+# B = 2 without one; the mesh's shards (phase 16: the MSM's 2^18, the
+# prover's 3-set phase MSMs and the IPA rounds' 2-set 2^15). Phase 14
+# checks that every (n, B, mapped) a path sent was held here.
+GATHER_SHAPES = [(1 << 20, 1, False), (1024, 2, False), (1 << 18, 1, False),
+                 (512, 3, False), (256, 3, False), (32768, 2, False)] + [
     (n, 1, False) for n in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768,
                             131072)] + [
     (256, B, True) for B in (2, 32, 128, 256, 1024)] + [
@@ -1999,14 +2016,15 @@ def path_name(what: str, curve) -> str:
     return what if curve.name == "secq256k1" else f"{what} {curve.name}"
 
 
-def phase_msm(curve, launches: Launches, pts=None) -> None:
+def phase_msm(curve, launches: Launches, pts=None) -> tuple:
     """n = 2^20 MSM through `msm`, equal to the host Pippenger: on `pts`,
     2^20 distinct points (the farm's), against the native host Pippenger
     over them; else on 2^13 chain points tiled 128 times, against the host
     Pippenger (pure Python on curve25519) over the 2^13 points with the
     sums of their scalars. Then the device MSM timed (median of 5) with
     its peak memory, and its stage split by CUDA events (equal to the host
-    Pippenger too)."""
+    Pippenger too). Returns the device inputs (X, Y, inf, scal), the host
+    reference and the median ms, for phase 16."""
     import numpy as np
     import torch
 
@@ -2078,6 +2096,7 @@ def phase_msm(curve, launches: Launches, pts=None) -> None:
           + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
                       for k, v in split.items())
           + f"; sum {total:.3f} ms", flush=True)
+    return (X, Y, inf, scal), want, med * 1e3
 
 
 GENS_SPLIT = (("gens:chacha", "ChaCha words"),
@@ -2306,7 +2325,8 @@ def traced(what: str, fn) -> None:
 def phase_shuffle(curve, launches: Launches) -> tuple:
     """k = SHUFFLE_K shuffle: card prove, host-route prove, byte-equal;
     verify on the card; two tamper checks. Returns the card prove and
-    the verify as functions, for the traces."""
+    the verify as functions, for the traces, and (the card prove, its
+    bytes, the proof, commitments, generators, label) for phase 16."""
     import torch
 
     from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
@@ -2444,10 +2464,13 @@ def phase_shuffle(curve, launches: Launches) -> tuple:
                                             oc))
     must_raise("swapped commitments", lambda: ShuffleProof(sp.proof).verify(
         pc, bp, Transcript(label), oc, ic))
-    return prove, verify
+    return prove, verify, (prove, card, sp.proof, ic, oc, pc, bp, label)
 
 
-def phase_batch(curve, launches: Launches) -> None:
+def phase_batch(curve, launches: Launches) -> tuple:
+    """The 1024 cached k = 8 proofs batch-verified on the card, a batch with
+    one tampered rejected. Returns (the decoded proofs and commitments,
+    pc, bp) for phase 16."""
     from ark_bulletproofs_tpu_torch import (BulletproofGens, PedersenGens,
                                             R1CSProof, ShuffleProof,
                                             Transcript, batch_verify,
@@ -2485,6 +2508,7 @@ def phase_batch(curve, launches: Launches) -> None:
     bad[517] = (tamper_t_x(curve, p), ic, oc)
     must_raise("batch with one tampered proof", lambda: batch_verify(
         seeded_rng(1001), instances(bad), pc, bp))
+    return decoded, pc, bp
 
 
 def count_syncs(fn):
@@ -2527,7 +2551,7 @@ def random_scalars(curve, count: int, seed: int) -> list[int]:
 
 
 def phase_ipa_routes(curve, n: int, launches: Launches,
-                     verify: bool = False, farm: bool = False) -> None:
+                     verify: bool = False, farm: bool = False) -> tuple:
     """One n-term IPA through `InnerProductProof.create` on the on-device
     Fiat-Shamir route and on the per-round route, each run twice (the
     second counted as the path), byte-equal proofs and transcripts; the
@@ -2536,7 +2560,8 @@ def phase_ipa_routes(curve, n: int, launches: Launches,
     path of its own); else chain points, 8192 repeated where n is larger
     (any bases serve; the routes must agree). With `verify`,
     the proof is then verified on the device route (`ipa_gh_msm`) and on
-    the host-scalar route, and a proof with a changed a is rejected."""
+    the host-scalar route, and a proof with a changed a is rejected.
+    Returns ((proof bytes, transcript end), inputs, P or None)."""
     import torch
 
     from ark_bulletproofs_tpu_torch import (BulletproofGens,
@@ -2613,8 +2638,10 @@ def phase_ipa_routes(curve, n: int, launches: Launches,
                              f"transcript differs from the per-round route's")
     print(f"   {curve.name} ipa n={n}: the two routes' proofs and "
           f"transcripts are byte-equal", flush=True)
-    if verify:
-        verify_ipa(curve, n, launches, out["fs"][0], (gf, hf, a, b, G, H, Q))
+    inputs = (gf, hf, a, b, G, H, Q)
+    P = verify_ipa(curve, n, launches, out["fs"][0], inputs) if verify \
+        else None
+    return out["fs"], inputs, P
 
 
 def verify_ipa(curve, n: int, launches: Launches, blob: bytes, inputs):
@@ -2622,7 +2649,7 @@ def verify_ipa(curve, n: int, launches: Launches, blob: bytes, inputs):
     <a, b> Q (an MSM on the card): the device route (the g/h scalars and
     their 2n-term MSM on the card, `ops/verify.py::ipa_gh_msm`), timed
     twice (the first uploads the table), and the host-scalar route; a
-    proof with a changed a rejected."""
+    proof with a changed a rejected. Returns P."""
     import torch
 
     import ark_bulletproofs_tpu_torch as port
@@ -2679,6 +2706,7 @@ def verify_ipa(curve, n: int, launches: Launches, blob: bytes, inputs):
     bad = InnerProductProof(proof.L_vec, proof.R_vec, (proof.a + 1) % p,
                             proof.b)
     must_raise(f"ipa n={n} proof with a changed a", lambda: check(bad))
+    return P
 
 
 def phase_ipa_v1(curve, n: int, launches: Launches) -> None:
@@ -3064,6 +3092,253 @@ def phase_batch_verify_dev(curve, launches: Launches) -> None:
                                     bp))
 
 
+MESH_D = 4  # phase 16's shards, all on cuda:0
+MESH_RANKS_N = 1 << 16  # the two-rank MSM's terms
+
+
+def event_ms(fn, reps: int = 5) -> list[float]:
+    """Milliseconds of `reps` calls of fn, each between two CUDA events
+    (after one warm-up call)."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def run_ranks(n: int, world: int = 2) -> list[str]:
+    """`world` processes of the port's dry-run worker (parallel/dryrun.py)
+    on cuda:0, joined over gloo on localhost: each sums its own block of
+    n generators and checks the sum against the host Pippenger. Returns
+    each rank's MULTIHOST_OK line; raises if a rank fails. Every process
+    is waited for and killed at the end."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ark_bulletproofs_tpu_torch.parallel.dryrun",
+         "--rank", str(r), "--world", str(world), "--port", str(port),
+         "--n", str(n), "--device", "cuda", "--timeout", "180"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    lines = []
+    try:
+        for r, pr in enumerate(procs):
+            out, err = pr.communicate(timeout=400)
+            ok = [ln for ln in out.splitlines()
+                  if ln.startswith(f"MULTIHOST_OK rank={r} world={world}")]
+            if pr.returncode != 0 or not ok:
+                raise AssertionError(f"rank {r} rc={pr.returncode}\n"
+                                     f"{out[-2000:]}\n{err[-3000:]}")
+            lines.append(ok[0])
+    finally:
+        for pr in procs:
+            pr.kill()
+            pr.wait()
+    return lines
+
+
+def phase_mesh(curve, launches: Launches, msm_in, msm_te_in, shuffle_in,
+               batch_in, ipa_in) -> None:
+    """Phase 16: the mesh paths under engine.set_mesh(make_mesh(devices=
+    ["cuda:0"] * MESH_D)), on the inputs of phases 3, 4, 5, 6 and 8 (not
+    drawn again): the sharded n = 2^20 MSM equal to phase 3's host
+    reference, timed by CUDA events beside the same MSM without the mesh,
+    with the device-to-host syncs of one call of each (the sharded one
+    may not sync more); phase 6's curve25519 MSM sharded (v2 shards, as
+    on secq256k1), equal to its host reference and timed the same way;
+    the k = 1024 prove byte-equal to phase 4's proof,
+    verify and batch_verify of phase 5's 1024 proofs accepting, each with
+    a tampered input rejected; the n = 2^16 IPA byte-equal to phase 8's
+    proof (same transcript end) and verified; the sharded g/h scalars
+    equal to the unsharded ones; then two gloo ranks on cuda:0 summing
+    MESH_RANKS_N generators, each against the host Pippenger, and equal.
+    Shards on one card: no figure here is a multi-card one."""
+    import torch
+
+    from ark_bulletproofs_tpu_torch import (InnerProductProof, ShuffleProof,
+                                            Transcript, batch_verify,
+                                            curves, engine, seeded_rng)
+    from ark_bulletproofs_tpu_torch.ops import verify as dverify
+    from ark_bulletproofs_tpu_torch.ops.curve import (point_batch_to_host,
+                                                      spec_for)
+    from ark_bulletproofs_tpu_torch.parallel import mesh as pmesh
+    from ark_bulletproofs_tpu_torch.parallel.mesh import (Pieces, gather,
+                                                          make_mesh)
+    from ark_bulletproofs_tpu_torch.parallel.msm import msm_device_ragged
+
+    spec = spec_for(curve)
+    (X, Y, inf, scal), want, alone_ms = msm_in
+    prove, card, proof, ic, oc, pc, bp, label = shuffle_in
+    decoded, bpc, bbp = batch_in
+    (ipa_blob, ipa_end), (gf, hf, ipa_a, ipa_b, G, H, Q), P = ipa_in
+    mesh = make_mesh(devices=["cuda:0"] * MESH_D)
+
+    def msm():
+        return msm_device_ragged(spec, X, Y, inf, scal)
+
+    def sharded_against_one_device(name, fn, host_ms):
+        """CUDA-event medians of fn with and without the mesh, in turns."""
+        times = {"sharded": [], "one device": []}
+        for rep in ("sharded", "one device", "one device", "sharded"):
+            engine.set_mesh(mesh if rep == "sharded" else None)
+            times[rep] += event_ms(fn, 3)
+        engine.set_mesh(mesh)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        runs = {k: [round(t, 3) for t in v] for k, v in times.items()}
+        print(f"   {name} n=2^20 MSM == host Pippenger over {MESH_D} shards "
+              f"on one card; CUDA events, median of 6 (two turns of 3, in "
+              f"the order sharded, one device, one device, sharded): "
+              f"sharded {med['sharded']:.3f} ms {runs['sharded']}, one "
+              f"device {med['one device']:.3f} ms {runs['one device']} "
+              f"(its phase, host clock: {host_ms:.1f} ms); ratio "
+              f"{med['sharded'] / med['one device']:.3f}", flush=True)
+
+    _, syncs_alone = count_syncs(msm)
+    engine.set_mesh(mesh)
+    try:
+        got = launches.run("mesh msm secq256k1", msm, MSM_KERNELS["sw"],
+                           spec)
+        if point_batch_to_host(curve, got)[0] != want:
+            raise AssertionError("the sharded n=2^20 MSM differs from the "
+                                 "host Pippenger")
+        _, syncs = count_syncs(msm)
+        sharded_against_one_device(curve.name, msm, alone_ms)
+        te = curves.curve25519
+        spec_te = spec_for(te)
+        (Xt, Yt, It, St), want_te, te_ms = msm_te_in
+
+        def msm_te():
+            return msm_device_ragged(spec_te, Xt, Yt, It, St)
+
+        got = launches.run("mesh msm curve25519", msm_te, MSM_KERNELS["te"],
+                           spec_te)
+        if point_batch_to_host(te, got)[0] != want_te:
+            raise AssertionError("the sharded curve25519 n=2^20 MSM differs "
+                                 "from the host Pippenger")
+        sharded_against_one_device(te.name, msm_te, te_ms)
+
+        shard = pmesh.width(X) // MESH_D
+        split, _, g = msm_stage_split(spec, *(
+            pmesh.take(t, X.device, 0, shard) for t in (X, Y, inf, scal)))
+        print(f"   stage split of one shard, n = {shard} (CUDA events, median "
+              f"of 3; plan C = {g.C}, R = {g.R}, W = {g.W}, L = {g.L} "
+              f"lanes): " + ", ".join(f"{k} {v:.3f} ms"
+                                      for k, v in split.items())
+              + f"; sum {sum(split.values()):.3f} ms", flush=True)
+        print_syncs("one sharded n=2^20 MSM", syncs)
+        print_syncs("the same MSM on one device", syncs_alone)
+        if sum(syncs.values()) > sum(syncs_alone.values()):
+            raise AssertionError("the sharded MSM syncs more than one "
+                                 "unsharded MSM")
+
+        t0 = time.perf_counter()
+        sp, _, _ = launches.run("mesh prove secq256k1", prove,
+                                MSM_KERNELS["sw"] + VECTOR_KERNELS, spec)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
+        if sp.proof.to_bytes(curve) != card:
+            raise AssertionError("the mesh prove differs from phase 4's proof")
+
+        def verify(pr, i, o):
+            ShuffleProof(pr).verify(pc, bp, Transcript(label), i, o)
+            torch.cuda.synchronize()
+
+        t0 = time.perf_counter()
+        launches.run("mesh verify secq256k1", lambda: verify(proof, ic, oc),
+                     MSM_KERNELS["sw"] + ("mont_mul",), spec)
+        verify_s = time.perf_counter() - t0
+        must_raise("mesh verify of a flipped t_x byte",
+                   lambda: verify(tamper_t_x(curve, proof), ic, oc))
+        must_raise("mesh verify of swapped commitments",
+                   lambda: verify(proof, oc, ic))
+
+        def instances(items):
+            return [(ShuffleProof(p).build_verifier(
+                bpc, Transcript(b"bench batch"), i, o), p)
+                for p, i, o in items]
+
+        inst = instances(decoded)
+        t0 = time.perf_counter()
+        launches.run("mesh batch_verify", lambda: batch_verify(
+            seeded_rng(1000), inst, bpc, bbp), MSM_KERNELS["sw"], spec)
+        batch_s = time.perf_counter() - t0
+        bad = list(decoded)
+        p0, i0, o0 = bad[211]
+        bad[211] = (tamper_t_x(curve, p0), i0, o0)
+        must_raise("mesh batch with one tampered proof", lambda: batch_verify(
+            seeded_rng(1001), instances(bad), bpc, bbp))
+
+        def create():
+            t = Transcript(b"chip_smoke ipa")
+            pr = InnerProductProof.create(t, curve, Q, gf, hf, G, H, ipa_a,
+                                          ipa_b)
+            torch.cuda.synchronize()
+            return pr.to_bytes(curve), t.challenge_bytes(b"end", 32)
+
+        t0 = time.perf_counter()
+        ipa = launches.run("mesh ipa n=2^16 secq256k1", create,
+                           MSM_KERNELS["sw"] + ("mont_mul", "sum_mod",
+                                                "add_sub"), spec)
+        ipa_s = time.perf_counter() - t0
+        if ipa != (ipa_blob, ipa_end):
+            raise AssertionError("the mesh IPA differs from phase 8's proof "
+                                 "or transcript")
+        n = len(G)
+        t0 = time.perf_counter()
+        InnerProductProof.from_bytes(curve, ipa_blob)[0].verify(
+            n, Transcript(b"chip_smoke ipa"), curve, gf, hf, P, Q, G, H)
+        ipa_verify_s = time.perf_counter() - t0
+
+        padded_n = 1 << 12
+        p = curve.fr.p
+        wv = [(i * 13 + 5) % p for i in range(padded_n)]
+        args = (curve, padded_n, wv, wv[::-1], wv, 3, 5, 7, 11, 13,
+                [17 + i for i in range(12)], 19, 10)
+        g, h, d = dverify.gh_scalars(*args)
+        engine.set_mesh(None)
+        g0, h0, d0 = dverify.gh_scalars(*args)
+        if not (isinstance(g, Pieces) and len(g.parts) == MESH_D
+                and torch.equal(gather(g, g0.device), g0)
+                and torch.equal(gather(h, h0.device), h0) and d == d0):
+            raise AssertionError("the sharded g/h scalars differ")
+    finally:
+        engine.set_mesh(None)
+    mesh_paths = [c for path, (c, _, _, _) in launches.paths.items()
+                  if path.startswith("mesh ")]
+    print("   launches over the mesh paths: "
+          + str({name: sum(c[name] for c in mesh_paths)
+                 for name in launches.wrappers}), flush=True)
+    print(f"   mesh k={SHUFFLE_K} prove: {prove_s:.3f} s, byte-equal to "
+          f"phase 4's proof; verify {verify_s:.3f} s; batch_verify of "
+          f"{len(decoded)} k=8 proofs {batch_s:.3f} s "
+          f"({len(decoded) / batch_s:.1f} proofs/s); ipa n={n} {ipa_s:.3f} s,"
+          f" byte-equal to phase 8's, verify (host scalars) "
+          f"{ipa_verify_s:.3f} s; g/h scalars at padded_n = {padded_n} "
+          f"sharded equal", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines = run_ranks(MESH_RANKS_N)
+    points = {ln.split("point=")[1] for ln in lines}
+    if len(points) != 1:
+        raise AssertionError(f"the ranks disagree: {lines}")
+    print(f"   two gloo ranks on cuda:0, n = {MESH_RANKS_N}: each equal to "
+          f"the host Pippenger, the same point ({points.pop()[:18]}...); "
+          f"{time.perf_counter() - t0:.3f} s with the processes' start",
+          flush=True)
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per kernel instantiation of nvcc's `-Xptxas -v` report:
     kernel, point model, thread group size G, registers, stack frame,
@@ -3229,19 +3504,20 @@ def main() -> int:
         check.run_gens(curves.zorro, timed=True)
         farm_points = phase_gens(launches)
     with phase("3 msm n=2^20 secq256k1"):
-        phase_msm(curves.secq256k1, launches, farm_points)
+        msm_in = phase_msm(curves.secq256k1, launches, farm_points)
         del farm_points
     with phase(f"4 shuffle k={SHUFFLE_K} secq256k1"):
-        prove, verify = phase_shuffle(curves.secq256k1, launches)
+        prove, verify, shuffle_in = phase_shuffle(curves.secq256k1,
+                                                  launches)
     with phase("5 batch_verify 1024 x k=8"):
-        phase_batch(curves.secq256k1, launches)
+        batch_in = phase_batch(curves.secq256k1, launches)
     with phase("6 msm n=2^20 curve25519"):
-        phase_msm(curves.curve25519, launches)
+        msm_te_in = phase_msm(curves.curve25519, launches)
     with phase(f"7 shuffle k={SHUFFLE_K} curve25519"):
-        prove_te, _ = phase_shuffle(curves.curve25519, launches)
+        prove_te, _, _ = phase_shuffle(curves.curve25519, launches)
     with phase("8 ipa n=2^16 secq256k1"):
-        phase_ipa_routes(curves.secq256k1, 1 << 16, launches, verify=True,
-                         farm=True)
+        ipa_in = phase_ipa_routes(curves.secq256k1, 1 << 16, launches,
+                                  verify=True, farm=True)
     with phase("9 ipa zorro n=1024"):
         phase_ipa_routes(curves.zorro, 1024, launches)
         phase_ipa_v1(curves.zorro, 64, launches)
@@ -3253,6 +3529,10 @@ def main() -> int:
         phase_v1(curves.secq256k1, launches)
     with phase(f"13 batch_verify {BV_P} x k={BV_K} secq256k1"):
         phase_batch_verify_dev(curves.secq256k1, launches)
+    with phase(f"16 mesh: {MESH_D} shards on one card"):
+        phase_mesh(curves.secq256k1, launches, msm_in, msm_te_in, shuffle_in,
+                   batch_in, ipa_in)
+        del msm_in, msm_te_in
     with phase("14 launches"):
         launches.check()
         path_lanes.check()

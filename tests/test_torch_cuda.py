@@ -1462,3 +1462,105 @@ def test_farm_take_matches_host_chain(cuda_dev, monkeypatch):
     host = GeneratorsChain(curve, b"G\0\0\0\0").fast_forward(4096)
     assert got == host.take(4096)
     assert dev.take(5) == host.take(5)
+
+
+@pytest.fixture
+def no_mesh(monkeypatch):
+    monkeypatch.setattr(engine, "_mesh", None)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_sharded_msm_on_one_card_matches_unsharded(curve, D, cuda_dev,
+                                                   no_mesh):
+    """n = 2^16, one scalar set and two, over a mesh of D shards of
+    cuda:0 (v2 shards on every curve), equal to the same MSM without a
+    mesh; every shard ran on the card."""
+    from ark_bulletproofs_tpu_torch.parallel import mesh as pmesh
+    from ark_bulletproofs_tpu_torch.parallel import msm as pmsm
+
+    n = 1 << 16
+    bases, ks = _msm_case(curve, n, D, 2)
+    spec = spec_for(curve)
+    X, Y, inf = affine_to_device(curve, bases, cuda_dev)
+    scal = scalars_to_device(curve, ks, cuda_dev)
+    want = point_batch_to_host(curve, pmsm.msm_device_maybe_sharded(
+        spec, X, Y, inf, scal))
+    engine.set_mesh(pmesh.make_mesh(devices=["cuda:0"] * D))
+    before = k2.horner_windows.launches + k2.jac_horner_windows.launches
+    got = pmsm.msm_device_maybe_sharded(spec, X, Y, inf, scal)
+    after = k2.horner_windows.launches + k2.jac_horner_windows.launches
+    assert got.device.type == "cuda" and after - before == D
+    assert point_batch_to_host(curve, got) == want
+    one = pmsm.msm_device_maybe_sharded(spec, X, Y, inf, scal[0])
+    assert point_batch_to_host(curve, one) == want[:1]
+
+
+def test_zorro_prove_on_card_matches_host_route(cuda_dev, monkeypatch):
+    """A k = 64 zorro shuffle (a != 0: the RCB a branch in the phase MSMs
+    and the mega-MSM, jac_double_k_add's a branch in the c * Q tree) with
+    every device branch on the card equals the host route's proof byte
+    for byte; verify on the card accepts it and rejects a tampered copy."""
+    curve, k, label = curves.zorro, 64, b"card zorro prove"
+    pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 2 * k, 1)
+    vals, perm = _shuffle(curve, k, 7)
+
+    def prove():
+        return ShuffleProof.prove(seeded_rng(k), pc, bp, Transcript(label),
+                                  vals, perm)
+
+    monkeypatch.setattr(engine.config, "msm_device_threshold", 1 << 62)
+    host, _, _ = prove()
+    _all_on_card(monkeypatch)
+    before = (kk.rcb_double_k_add.launches, kk.jac_double_k_add.launches,
+              fs.fs_round.launches)
+    card, ic, oc = prove()
+    after = (kk.rcb_double_k_add.launches, kk.jac_double_k_add.launches,
+             fs.fs_round.launches)
+    assert all(b > a for a, b in zip(before, after)), (before, after)
+    assert card.proof.to_bytes(curve) == host.proof.to_bytes(curve)
+    before = kk.jac_madd.launches  # the 411-term mega-MSM: v1 at 512
+    ShuffleProof(card.proof).verify(pc, bp, Transcript(label), ic, oc)
+    assert kk.jac_madd.launches > before
+    blob = bytearray(card.proof.to_bytes(curve))
+    blob[11 * len(curve.serialize_compressed(curve.gen))] ^= 1  # t_x
+    with pytest.raises(R1CSError):
+        ShuffleProof(R1CSProof.from_bytes(curve, bytes(blob))).verify(
+            pc, bp, Transcript(label), ic, oc)
+
+
+def test_mesh_prove_on_card_matches_host_route(cuda_dev, monkeypatch,
+                                               no_mesh):
+    """A k = 64 secq256k1 shuffle under a mesh of 4 shards of cuda:0 (the
+    sharded vector phase and IPA rounds, the phase MSMs through the mesh
+    branch; shards from 32 terms) equals the host route's proof; the mesh
+    verify accepts it."""
+    from ark_bulletproofs_tpu_torch.parallel import mesh as pmesh
+    from ark_bulletproofs_tpu_torch.parallel import msm as pmsm
+
+    curve, k, label = curves.secq256k1, 64, b"card mesh prove"
+    pc, bp = PedersenGens.default(curve), BulletproofGens(curve, 2 * k, 1)
+    vals, perm = _shuffle(curve, k, 9)
+
+    def prove():
+        return ShuffleProof.prove(seeded_rng(k), pc, bp, Transcript(label),
+                                  vals, perm)
+
+    monkeypatch.setattr(engine.config, "msm_device_threshold", 1 << 62)
+    host, _, _ = prove()
+    _all_on_card(monkeypatch)
+    monkeypatch.setattr(pmsm, "SHARD_MIN", 32)
+    engine.set_mesh(pmesh.make_mesh(devices=["cuda:0"] * 4))
+    before = fs.fs_round.launches
+    card, ic, oc = prove()
+    assert fs.fs_round.launches == before  # no FS route under a mesh
+    assert card.proof.to_bytes(curve) == host.proof.to_bytes(curve)
+    ShuffleProof(card.proof).verify(pc, bp, Transcript(label), ic, oc)
+
+
+def test_dryrun_multichip_on_one_card(cuda_dev, no_mesh):
+    """The dry run's four checks on 4 shards of cuda:0 (k = BATCH_K =
+    128: the batch's mega-MSM shards at the default 256-term floor)."""
+    from ark_bulletproofs_tpu_torch.parallel import dryrun
+
+    dryrun.dryrun_multichip(4, "cuda")

@@ -8,6 +8,11 @@
   for a CUDA device where there is none raises and never carries on on
   the CPU.
 - Kernel wrappers take their plain versions only for CPU tensors.
+- A mesh is built over the CUDA cards unless its devices are named:
+  `make_mesh()` without a card raises. On a card (marker `cuda`), the
+  router's mesh branch, the sharded vector phase and the sharded g/h
+  scalars over a mesh of CUDA devices launch their kernels on every shard
+  and never hand a CUDA tensor to a plain version.
 """
 
 import ast
@@ -76,7 +81,9 @@ def test_port_sources_are_seen_and_include_only_their_own():
     files = {os.path.relpath(p, PKG) for p in _port_files()}
     for mod in ("ops/fs.py", "ops/ipa.py", "ops/kernels.py", "ipp.py",
                 "r1cs/prover.py", "ops/kernels2.py", "ops/gather.py",
-                "ops/gens.py", "generators.py"):
+                "ops/gens.py", "generators.py", "parallel/mesh.py",
+                "parallel/multihost.py", "parallel/dryrun.py",
+                "parallel/msm.py", "ops/msm_serial.py"):
         assert mod in files, mod
     csrc = os.path.join(PKG, "csrc")
     sources = {}
@@ -228,3 +235,108 @@ def test_default_device_is_cuda():
     says "cuda" whether or not a card is present."""
     assert engine.EngineConfig().device == "cuda"
     assert engine.config.device == "cpu"  # this file's fixture asked
+
+
+def test_mesh_without_named_devices_needs_a_card(monkeypatch):
+    """make_mesh() builds over the CUDA cards: with none it raises (never a
+    silent CPU mesh); "cpu" devices must be named, and a CUDA device named
+    without a card raises too. ABTPU_MESH=auto builds nothing without two
+    cards."""
+    from ark_bulletproofs_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(engine, "_mesh", None)
+    monkeypatch.setenv("ABTPU_MESH", "auto")
+    if torch.cuda.is_available():
+        assert all(d.type == "cuda" for d in pmesh.make_mesh().devices)
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pmesh.make_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        pmesh.make_mesh(devices=["cuda:0"] * 2)
+    assert pmesh.make_mesh(devices=["cpu"] * 2).size == 2
+    assert engine.active_mesh() is None
+
+
+@pytest.mark.cuda
+def test_mesh_branch_on_the_card_runs_no_plain_version(monkeypatch):
+    """On a mesh of 2 shards of cuda:0 the router's mesh branch (one set:
+    v1 shards; two sets: v2 shards), the sharded vector phase and the
+    sharded g/h scalars launch their kernels on every shard and equal the
+    one-device results, and no plain version of a kernel (any `*_plain`
+    function of ops/) ever gets a CUDA tensor."""
+    import importlib
+    import pkgutil
+    import random
+
+    from ark_bulletproofs_tpu_torch import ops
+    from ark_bulletproofs_tpu_torch.generators import GeneratorsChain
+    from ark_bulletproofs_tpu_torch.ops import prove, verify
+    from ark_bulletproofs_tpu_torch.ops.msm import scalars_to_device
+    from ark_bulletproofs_tpu_torch.parallel import mesh as pmesh
+    from ark_bulletproofs_tpu_torch.parallel import msm as pmsm
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    fired = []
+
+    def on_card(xs) -> bool:
+        return any(x.is_cuda if isinstance(x, torch.Tensor)
+                   else isinstance(x, (list, tuple)) and on_card(x)
+                   for x in xs)
+
+    for info in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"{ops.__name__}.{info.name}")
+        for name, fn in list(vars(mod).items()):
+            if name.endswith("_plain") and callable(fn):
+                def spy(*a, fn=fn, name=name, **k):
+                    if on_card(a) or on_card(tuple(k.values())):
+                        fired.append(name)
+                    return fn(*a, **k)
+                monkeypatch.setattr(mod, name, spy)
+    monkeypatch.setattr(engine.config, "device", "cuda")
+    D = 2
+    mesh = pmesh.make_mesh(devices=["cuda:0"] * D)
+    curve = curves.secq256k1
+    spec, p = tc.spec_for(curve), curve.fr.p
+    n = D * pmsm.SHARD_MIN
+    rng = random.Random(16)
+    pts = GeneratorsChain(curve, b"guard mesh").take(n)
+    ks = [[rng.randrange(p) for _ in range(n)] for _ in range(2)]
+    X, Y, inf = tc.affine_to_device(curve, pts, "cuda")
+    scal = scalars_to_device(curve, ks, "cuda")
+
+    def horners():
+        return k2.horner_windows.launches + k2.jac_horner_windows.launches
+
+    monkeypatch.setattr(engine, "_mesh", mesh)
+    for sets in (scal[0], scal):
+        before = horners()
+        out = pmsm.msm_device_maybe_sharded(spec, X, Y, inf, sets)
+        assert horners() - before == D  # stage G (v2) or v1's, per shard
+        assert out.device.type == "cuda"
+        assert tc.point_batch_to_host(curve, out) == [
+            curve.msm(pts, k) for k in ks[:out.shape[-1]]]
+
+    vecs = [[rng.randrange(p) for _ in range(n)] for _ in range(8)]
+    y = rng.randrange(1, p)
+    args = (curve, n, *vecs, y, pow(y, -1, p), "cuda")
+    before = df.mont_mul.launches
+    pv = prove.ProverVectorPhase(*args)
+    assert pv.devices == mesh.devices
+    assert df.mont_mul.launches - before >= D
+    padded_n = verify.GH_SHARD_MIN_N
+    wv = [rng.randrange(p) for _ in range(padded_n)]
+    gh_args = (curve, padded_n, wv, wv[::-1], wv, 3, 5, 7, 11, 13,
+               [17 + i for i in range(padded_n.bit_length() - 1)], 19, 10)
+    before = df.mont_mul.launches
+    g, h, d = verify.gh_scalars(*gh_args)
+    assert isinstance(g, pmesh.Pieces) and len(g.parts) == D
+    assert all(t.is_cuda for t in g.parts + h.parts)
+    assert df.mont_mul.launches - before >= D
+    assert fired == []
+
+    monkeypatch.setattr(engine, "_mesh", None)
+    assert prove.ProverVectorPhase(*args).t == pv.t
+    g0, h0, d0 = verify.gh_scalars(*gh_args)
+    assert torch.equal(pmesh.gather(g, g0.device), g0)
+    assert torch.equal(pmesh.gather(h, h0.device), h0) and d == d0
